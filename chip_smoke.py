@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper).
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
+kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
+
+  1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
+     kernel build (timed);
+  2. every kernel of the round against its plain PyTorch version at the
+     main path's shapes (LeNet packed: R = 1024, C in {1, 3, 8}), bit for
+     bit, with its per-call time, its device time, the plain version's
+     time and its memory bound;
+  3. the main path: the paper's pipeline on synthetic-mnist (10 clients,
+     sigma = 5) with the `proposed` AO schedule at E0 = 25 J, T0 = 15 s over
+     40 rounds, LeNet from a seeded init, trained once by the packed
+     backend (kernel launches counted) and once by the reference backend;
+     parameters must agree bit for bit, the broadcast gradient as values,
+     and test accuracy at the last round must exceed 0.2; then five packed
+     rounds again under torch.profiler (device busy time, top kernels);
+  4. one JSON line listing the kernels, then the result line.
+
+Any failed phase exits non-zero without the result line. Without CUDA, or
+without the rest of the repository beside it, the script fails.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+
+# deterministic cuBLAS, and one card (the first visible): both must be set
+# before torch initialises CUDA
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+os.environ["CUDA_VISIBLE_DEVICES"] = \
+    os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core import (AOConfig, BoundConstants, ClientData,  # noqa: E402
+                              FederatedTrainer, ParamPack, phis, solve_p1)
+from repro_torch.core.packing import LANES  # noqa: E402
+from repro_torch.core.round_engine import kth_smallest_threshold  # noqa: E402
+from repro_torch.data import make_dataset, partition_by_dirichlet  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import pruning_mask as pm  # noqa: E402
+from repro_torch.models import (lenet_apply, lenet_init, make_eval_fn,  # noqa: E402
+                                make_loss_fn)
+from repro_torch.wireless import ChannelModel, SystemParams  # noqa: E402
+
+# (memory bytes/s, fp32 FLOP/s outside the tensor cores) by the device name
+# torch reports, from NVIDIA's data sheet (H100 SXM, 700 W)
+PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+SOURCE = "src/repro_torch/kernels/csrc/pruning_mask.cu"
+REPLACES = {
+    "importance_mask_2d": "src/repro/kernels/pruning_mask.py:50",
+    "importance_mask_batched": "src/repro/kernels/pruning_mask.py:87",
+    "fedsgd_aggregate_weighted": "src/repro/kernels/pruning_mask.py:189",
+    "exponent_histogram": "src/repro/kernels/pruning_mask.py:334",
+}
+SLICE = dict(n_clients=10, sigma=5.0, n_train=4000, n_test=800, seed=0,
+             e0=25.0, t0=15.0, rounds=40, eta=0.1, batch=32)
+
+
+def peaks(name: str) -> tuple[float, float]:
+    if name not in PEAKS:
+        raise KeyError(f"no published peaks for {name!r}: add its memory "
+                       "rate and fp32 rate to PEAKS to compute bound_ms")
+    return PEAKS[name]
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def max_abs_err(outs_a, outs_b) -> float:
+    err = 0.0
+    for a, b in zip(outs_a, outs_b):
+        a, b = a.double(), b.double()
+        both = torch.isfinite(a) & torch.isfinite(b)
+        if both.any():
+            err = max(err, float((a - b).abs()[both].max()))
+    return err
+
+
+def time_ms(fn, reps: int = 200) -> float:
+    """Mean time of one call on the device's clock: CUDA events around
+    `reps` back-to-back calls. For a kernel shorter than its launch this is
+    the wrapper's per-call cost, the rate at which the round can issue it."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_events(prof):
+    """(name, calls, device µs) of every CUDA kernel in a profile."""
+    out = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            out.append((ev.key, ev.count, float(us)))
+    return out
+
+
+def kernel_device_ms(fn, kernel: str, reps: int = 50):
+    """Mean duration of the CUDA kernel named `kernel` per call, from
+    torch.profiler's device trace; None when the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except (AssertionError, RuntimeError):     # no device tracing here
+        return None
+    hits = [(n, us) for key, n, us in _device_events(prof) if kernel in key]
+    calls = sum(n for n, _ in hits)
+    return sum(us for _, us in hits) / calls / 1e3 if calls else None
+
+
+def slice_env(dev):
+    """The slice's configuration through the port's own numpy copies."""
+    c = SLICE
+    ds = make_dataset("synthetic-mnist", n_train=c["n_train"],
+                      n_test=c["n_test"], seed=c["seed"])
+    parts = partition_by_dirichlet(ds.y_train, c["n_clients"], c["sigma"],
+                                   rng=np.random.default_rng(c["seed"]))
+    clients = [ClientData(ds.x_train[i], ds.y_train[i]) for i in parts]
+    test_hist = np.bincount(ds.y_test, minlength=10).astype(float)
+    phi = phis(np.stack([cl.label_histogram(10) for cl in clients]),
+               test_hist[None])
+    sp = SystemParams.table1(c["n_clients"], dataset="mnist",
+                             batch_size=c["batch"])
+    ch = ChannelModel(c["n_clients"], path_loss=1e-5, seed=0)
+    consts = BoundConstants(rounds_S=c["rounds"] - 1, batch_Z=c["batch"],
+                            eta=c["eta"])
+    sched = solve_p1(phi, c["e0"], c["t0"], ch.uplink, ch.downlink, sp,
+                     consts, AOConfig(outer_iters=3, selection_method="paper",
+                                      phi_coupling="mean"))
+    params = lenet_init(torch.Generator().manual_seed(0), device=dev)
+    return ds, clients, sp, ch, sched, params
+
+
+# -- phase 2: kernels against their plain versions ----------------------------
+
+def check_kernels(dev, pack: ParamPack, card: str) -> dict:
+    rng = np.random.default_rng(0)
+    shape = (pack.rows, LANES)
+    n = shape[0] * shape[1]
+    bw, flops = peaks(card)
+    pr = torch.as_tensor(pack.prunable_mask(), device=dev)
+    n_valid = int(pack.n_prunable)
+
+    def arr(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+
+    w_np = rng.normal(size=shape).astype(np.float32)
+    v_np = (1e-3 * rng.normal(size=shape)).astype(np.float32)
+    v_np.reshape(-1)[::11] = 0.0                    # exact zeros: q = 0
+    v_np.reshape(-1)[5::13] = 1e-25                 # q underflows: flushed
+    w, v = arr(w_np), arr(v_np)
+    q = pm.importance(w, v)
+    results = {}
+    fails = []
+
+    def record(name, ok, err, call, plain_call, symbol, nbytes, nflops):
+        """Times the wrapper and the plain version at these inputs, and the
+        kernel alone on the device trace; bound from bytes and operations."""
+        ms, plain = time_ms(call), time_ms(plain_call)
+        dev_ms = kernel_device_ms(call, symbol)
+        bound = max(nbytes / bw, nflops / flops) * 1e3
+        results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain,
+                             device_ms=dev_ms, bound_ms=bound,
+                             bound_by="bytes" if nbytes / bw >= nflops / flops
+                             else "operations", bytes=nbytes)
+        print(json.dumps({"kernel": name, "equal": ok, "kernel_ms": ms,
+                          "device_ms": dev_ms, "plain_ms": plain,
+                          "bound_us": bound * 1e3, "bytes": nbytes,
+                          "library_ms": None, "max_abs_err": err}))
+        if not ok:
+            fails.append(name)
+
+    # exponent_histogram, and the threshold search it feeds
+    hk = pm.exponent_histogram(q, pr)
+    hp = pm.exponent_histogram_plain(q, pr)
+    ok = bits_equal(hk, hp) and int(hk.sum()) == n_valid
+    ks = [0, 1, n_valid // 2, n_valid, n_valid + 7]
+    for k in ks:
+        a = kth_smallest_threshold(q, pr, k, coarse="histogram")
+        b = kth_smallest_threshold(q, pr, k, coarse="bisect")
+        ok &= bool(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   or (torch.isnan(a) & torch.isnan(b)).all())
+    kv = torch.as_tensor(ks, device=dev)
+    ok &= bool(torch.equal(
+        torch.nan_to_num(kth_smallest_threshold(q, pr, kv, coarse="histogram")),
+        torch.nan_to_num(kth_smallest_threshold(q, pr, kv, coarse="bisect"))))
+    zero_q = torch.zeros_like(q)                    # round 0: v = 0
+    ok &= bits_equal(pm.exponent_histogram(zero_q, pr),
+                     pm.exponent_histogram_plain(zero_q, pr))
+    record("exponent_histogram", bool(ok), max_abs_err([hk], [hp]),
+           lambda: pm.exponent_histogram(q, pr),
+           lambda: pm.exponent_histogram_plain(q, pr),
+           "exponent_histogram_kernel", 2 * 4 * n + 4 * 256, 2 * n)
+
+    # importance_mask_2d: one shared threshold, at every k of the list,
+    # including nextafter(0) (a subnormal) from the all-zero round 0
+    ok, err = True, 0.0
+    thr_list = [kth_smallest_threshold(q, pr, k) for k in ks]
+    thr_list.append(kth_smallest_threshold(zero_q, pr, n_valid // 2))
+    for thr in thr_list:
+        kq, km = pm.importance_mask_2d(w, v, pr, thr)
+        pq, pms = pm.importance_masks_plain(w, v, pr, thr)
+        ok &= bits_equal(kq, pq) and bits_equal(km, pms[0])
+        err = max(err, max_abs_err([kq, km], [pq, pms[0]]))
+    zero_thr = thr_list[-1]
+    km0 = pm.importance_mask_2d(torch.zeros_like(w), v, pr, zero_thr)[1]
+    ok &= bool((km0 == 1).all())                    # denormals are zero
+    thr = thr_list[2]
+    record("importance_mask_2d", bool(ok), err,
+           lambda: pm.importance_mask_2d(w, v, pr, thr),
+           lambda: pm.importance_masks_plain(w, v, pr, thr),
+           "importance_masks_kernel", 5 * 4 * n + 4, 3 * n)
+
+    # importance_mask_batched at C in {1, 3, 8}
+    ok, err = True, 0.0
+    for c in (1, 3, 8):
+        kc = torch.as_tensor((ks * 2)[:c], device=dev)
+        thr_c = kth_smallest_threshold(q, pr, kc)
+        kq, km = pm.importance_mask_batched(w, v, pr, thr_c)
+        pq, pms = pm.importance_masks_plain(w, v, pr, thr_c)
+        ok &= bits_equal(kq, pq) and bits_equal(km, pms)
+        err = max(err, max_abs_err([kq, km], [pq, pms]))
+    thr8 = thr_c
+    record("importance_mask_batched", bool(ok), err,
+           lambda: pm.importance_mask_batched(w, v, pr, thr8),
+           lambda: pm.importance_masks_plain(w, v, pr, thr8),
+           "importance_masks_kernel", (4 + 8) * 4 * n + 4 * 8, (3 + 8) * n)
+
+    # fedsgd_aggregate_weighted at C in {1, 3, 8}: zero-weight clients hold
+    # NaN, inv comes out of the on-device quarantine
+    ok, err = True, 0.0
+    eta = torch.tensor(np.float32(0.1), device=dev)
+    for c in (1, 3, 8):
+        g_np = rng.normal(size=(c,) + shape).astype(np.float32)
+        cw_np = np.ones(c, np.float32)
+        if c > 1:
+            cw_np[-1] = 0.0
+            g_np[-1] = np.nan
+        grads, cw = arr(g_np), arr(cw_np)
+        cw_eff, inv_eff, _, _ = ops.packed_client_quarantine(
+            grads, cw, np.float32(1.0 / cw_np.sum()))
+        ko = pm.fedsgd_aggregate_weighted(w, grads, cw_eff, inv_eff, eta)
+        po = pm.fedsgd_aggregate_weighted_plain(w, grads, cw_eff, inv_eff, eta)
+        ok &= all(bits_equal(a, b) for a, b in zip(ko, po))
+        ok &= all(bool(torch.isfinite(t).all()) for t in ko)
+        err = max(err, max_abs_err(ko, po))
+    g8 = arr(rng.normal(size=(8,) + shape))
+    cw8 = torch.ones(8, device=dev)
+    inv8 = torch.tensor(np.float32(1 / 8), device=dev)
+    record("fedsgd_aggregate_weighted", bool(ok), err,
+           lambda: pm.fedsgd_aggregate_weighted(w, g8, cw8, inv8, eta),
+           lambda: pm.fedsgd_aggregate_weighted_plain(w, g8, cw8, inv8, eta),
+           "fedsgd_aggregate_weighted_kernel", (1 + 8 + 3) * 4 * n + 4 * 10,
+           (2 * 8 + 3) * n)
+    if fails:
+        raise AssertionError(f"kernels differ from their plain versions: "
+                             f"{fails}")
+    return results
+
+
+# -- phase 3: the main path -----------------------------------------------------
+
+def run_backend(backend, dev, ds, clients, sp, ch, sched, params):
+    loss = make_loss_fn(lenet_apply)
+    eval_fn = make_eval_fn(lenet_apply, ds.x_test, ds.y_test, device=dev)
+    eval_s = [0.0]
+
+    def timed_eval(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eval_fn(p)
+        eval_s[0] += time.perf_counter() - t
+        return out
+
+    tr = FederatedTrainer(loss, params, clients, eta=SLICE["eta"],
+                          batch_size=SLICE["batch"], seed=0, backend=backend,
+                          device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = tr.run(sched, sp, ch.uplink, ch.downlink, eval_fn=timed_eval,
+                  eval_every=10, stop_delay=SLICE["t0"],
+                  stop_energy=SLICE["e0"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0 - eval_s[0]
+    return tr, hist, train_s
+
+
+def profile_rounds(dev, clients, sp, ch, sched, params, n=5) -> dict:
+    """Where a packed round's time goes: the first rounds of the schedule
+    again, under torch.profiler (after one warm round); the device's busy
+    time against the host's wall clock, and the kernels that take most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def rounds(lo, hi):
+        return dataclasses.replace(sched, a=sched.a[lo:hi],
+                                   lam=sched.lam[lo:hi],
+                                   power=sched.power[lo:hi],
+                                   freq=sched.freq[lo:hi])
+
+    tr = FederatedTrainer(make_loss_fn(lenet_apply), params, clients,
+                          eta=SLICE["eta"], batch_size=SLICE["batch"],
+                          seed=0, backend="packed", device=dev)
+    tr.run(rounds(0, 1), sp, ch.uplink, ch.downlink)
+    rest = rounds(1, n + 1)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(rest, sp, ch.uplink, ch.downlink)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    except (AssertionError, RuntimeError) as err:
+        return {"profile": f"not measured: {err}"}
+    evs = sorted(_device_events(prof), key=lambda e: -e[2])
+    busy_ms = sum(us for _, _, us in evs) / 1e3
+    if not evs:
+        return {"profile": "not measured: the trace shows no device time"}
+    return {"profile_rounds": n, "wall_ms_per_round": wall_ms / n,
+            "device_busy_ms_per_round": busy_ms / n,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches_per_round": sum(c for _, c, _ in evs) / n,
+            "top_kernels": [{"name": k[:120], "calls_per_round": c / n,
+                             "device_ms_per_round": us / 1e3 / n}
+                            for k, c, us in evs[:8]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() != 1:
+        print("chip_smoke: expected exactly one visible card, got "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
+        f"nvidia-smi failed: {smi.stderr.strip()}"
+    print(card)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+
+    t = time.perf_counter()
+    _build.load()
+    print(f"kernels built in {time.perf_counter() - t:.2f} s "
+          f"({_build.library_path().name})")
+
+    ds, clients, sp, ch, sched, params = slice_env(dev)
+    pack = ParamPack.build(params)
+    kernels = check_kernels(dev, pack, name)
+
+    # the main path, packed backend: counts from this run only
+    pm.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr_pk, h_pk, s_pk = run_backend("packed", dev, ds, clients, sp, ch,
+                                    sched, params)
+    launches = dict(pm.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    tr_ref, h_ref, s_ref = run_backend("reference", dev, ds, clients, sp, ch,
+                                       sched, params)
+    n_rounds = len(h_pk)
+    print(json.dumps({"rounds": n_rounds,
+                      "packed_round_ms": 1e3 * s_pk / n_rounds,
+                      "reference_round_ms": 1e3 * s_ref / n_rounds,
+                      "packed_peak_mib": peak_mib, "launches": launches}))
+    evals = [(m.round, m.test_accuracy) for m in h_pk
+             if m.test_accuracy is not None]
+    print(json.dumps({"test_accuracy": evals,
+                      "train_loss_last": h_pk[-1].train_loss}))
+
+    problems = []
+    if n_rounds != SLICE["rounds"]:
+        problems.append(f"ran {n_rounds} rounds, expected {SLICE['rounds']}")
+    if launches["exponent_histogram"] != n_rounds:
+        problems.append("exponent_histogram launches != rounds")
+    if launches["fedsgd_aggregate_weighted"] != n_rounds:
+        problems.append("fedsgd_aggregate_weighted launches != rounds")
+    if (launches["importance_mask_2d"]
+            + launches["importance_mask_batched"]) != n_rounds:
+        problems.append("mask launches != rounds")
+    if launches["importance_mask_batched"] < 1:
+        problems.append("the per-client mask kernel never ran")
+    # parameters bit for bit; the broadcast gradient v as values, the
+    # packages' packed-vs-reference contract: a pruned coordinate's masked
+    # gradient can be -0.0 and the packed sum starts from +0.0
+    w_bits = v_zero_signs = 0
+    for key in tr_pk.params:
+        a, b = tr_pk.params[key], tr_ref.params[key]
+        w_bits += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        va, vb = tr_pk.global_grad[key], tr_ref.global_grad[key]
+        if not torch.equal(va, vb):
+            problems.append(f"packed != reference in v[{key}]")
+        v_zero_signs += int((va.view(torch.int32)
+                             != vb.view(torch.int32)).sum())
+        for t in (a, va):
+            if t.shape != b.shape or not bool(torch.isfinite(t).all()):
+                problems.append(f"bad shape or non-finite values in {key}")
+    if w_bits:
+        problems.append(f"{w_bits} parameter bits differ between backends")
+    if [m.train_loss for m in h_pk] != [m.train_loss for m in h_ref]:
+        problems.append("per-round train losses differ between backends")
+    final_acc = h_pk[-1].test_accuracy
+    if final_acc is None or not final_acc > 0.2:
+        problems.append(f"round-{n_rounds - 1} accuracy {final_acc} <= 0.2")
+    print(json.dumps({"packed_vs_reference": "differ" if problems
+                      else "params bitwise, v equal",
+                      "param_bits_differing": w_bits,
+                      "v_signed_zero_differences": v_zero_signs,
+                      "final_accuracy": final_acc}))
+    print(json.dumps(profile_rounds(dev, clients, sp, ch, sched, params)))
+
+    rows = []
+    for kname, res in kernels.items():
+        rows.append({"name": kname, "route": "cuda", "source": SOURCE,
+                     "replaces": REPLACES[kname],
+                     "launches": launches[kname],
+                     "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                     "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],
+                     "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"], "library_ms": None,
+                     "check": "bitwise" if res["ok"] else "FAILED"})
+    print(json.dumps({"kernels": rows}))
+    if problems:
+        print("chip_smoke FAILED: " + "; ".join(problems), file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of the parameter-efficient FEEL reproduction.
+
+A second package beside ``repro`` (the JAX reference, which it never
+imports). It runs the paper's pipeline — Dirichlet split of
+synthetic-mnist, phi, the AO schedule (`core.optimizer_ao.solve_p1`), and
+pruned FedSGD on LeNet / mlp-edge (`core.federated.FederatedTrainer`) —
+with the round's Pallas kernels replaced by hand-written CUDA kernels for
+Hopper (`kernels/`). Entry points run on CUDA unless given device="cpu".
+"""

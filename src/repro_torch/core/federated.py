@@ -1,0 +1,415 @@
+"""Parameter-efficient FedSGD trainer (paper Sec. II-A, eqs. 2-7).
+
+The port of ``repro/core/federated.py`` (one device, one round per dispatch,
+mean aggregation, plain FedSGD). Per round s:
+
+  1. the server broadcasts the previous global gradient v^(s-1);
+  2. each selected client computes the importance Q = (v * rho)^2 (eq. 4)
+     and prunes the lambda_n fraction of lowest-importance weights (eq. 2);
+  3. the client computes a mini-batch gradient on the pruned model (eq. 5)
+     and uploads it masked;
+  4. the server averages the uploads (eq. 6) and steps w <- w - eta*G (eq. 7).
+
+Two backends, as in the JAX package:
+
+  * ``backend="packed"`` (default) — the device-resident round engine
+    (core/round_engine.py) over one packed [R, 128] buffer, with the
+    hand-written kernels on CUDA;
+  * ``backend="reference"`` — the per-client loop with host thresholds
+    (`np.partition`), kept as the numerical oracle. The packed backend
+    reproduces it value for value (signed zeros aside), on the CPU and on
+    the card.
+
+Batches are drawn with the JAX package's numpy RNG calls, in the same
+order, so both packages and both backends see the same batches. Time and
+energy bookkeeping uses the port's wireless substrate with the schedule's
+per-round (a, lambda, p, f).
+
+The trainer runs on CUDA unless the caller passes ``device="cpu"``. On
+CUDA the packed backend needs a per-sample-weighted loss, so that ragged
+clients are padded and every round goes through the engine's kernels; only
+on the CPU may a ragged round fall back to the reference loop. Options of the JAX trainer that this port does not carry yet raise
+NotImplementedError naming the ROADMAP item that will bring them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import pruning
+from repro_torch.core.optimizer_ao import Schedule
+from repro_torch.core.packing import ParamPack
+from repro_torch.core.round_engine import RoundEngine
+from repro_torch.wireless.comm import (SystemParams, per_client_delay,
+                                       round_energy)
+
+Params = dict[str, torch.Tensor]
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means CUDA, which must then be available."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+@dataclasses.dataclass
+class ClientData:
+    x: np.ndarray
+    y: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.y)
+
+    def label_histogram(self, num_classes: int) -> np.ndarray:
+        return np.bincount(self.y.astype(int), minlength=num_classes).astype(float)
+
+
+@dataclasses.dataclass
+class RoundMetrics:
+    round: int
+    train_loss: float
+    selected: list[int]
+    mean_lambda: float
+    delay: float
+    energy: float
+    cumulative_delay: float
+    cumulative_energy: float
+    test_loss: float | None = None
+    test_accuracy: float | None = None
+    # arrived-but-non-finite uploads the quarantine dropped
+    n_quarantined: int = 0
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md §1 item {item})")
+
+
+class FederatedTrainer:
+    """FedSGD with client selection + importance pruning + masked aggregation."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        params: Params,
+        clients: Sequence[ClientData],
+        *,
+        eta: float,
+        batch_size: int,
+        seed: int = 0,
+        prune_spec: pruning.PruneSpec = pruning.PruneSpec(),
+        backend: str = "packed",
+        weighted_loss_fn: Callable | None = None,
+        device=None,
+        shards: int | None = None,
+        rounds_per_dispatch: int = 1,
+        channel_noise=None,
+        fault_model=None,
+        aggregator=None,
+        client_store: str | None = None,
+        local_scheme=None,
+    ):
+        if backend not in ("packed", "reference"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if rounds_per_dispatch != 1:
+            _not_ported("rounds_per_dispatch != 1 (block dispatch)", "7")
+        if shards not in (None, 1):
+            _not_ported("shards > 1 (multi-device sharding)", "13")
+        if channel_noise is not None:
+            _not_ported("channel_noise", "9")
+        if fault_model is not None:
+            _not_ported("fault_model", "9")
+        if aggregator is not None:
+            _not_ported("aggregator (robust aggregation)", "9")
+        if local_scheme is not None:
+            _not_ported("local_scheme", "10")
+        if client_store is not None:
+            _not_ported(f"client_store={client_store!r}",
+                        "11" if client_store == "streamed" else "7")
+        self.device = resolve_device(device)
+        # Per-sample-weighted loss: ragged client batches are padded with
+        # zero-weight samples so they stay on the packed path
+        # (models.make_loss_fn attaches one as loss_fn.weighted).
+        self._weighted_loss = (weighted_loss_fn
+                               or getattr(loss_fn, "weighted", None))
+        if (backend == "packed" and self.device.type == "cuda"
+                and self._weighted_loss is None):
+            # without it ragged rounds would leave the kernels for the
+            # host-threshold reference loop
+            raise ValueError(
+                "backend='packed' on CUDA needs a per-sample-weighted loss: "
+                "pass weighted_loss_fn or a loss_fn with a .weighted "
+                "companion (models.make_loss_fn attaches one)")
+        self.loss_fn = loss_fn
+        self.clients = list(clients)
+        self.eta = float(eta)
+        self.batch_size = int(batch_size)
+        self.rng = np.random.default_rng(seed)
+        self.prune_spec = prune_spec
+        self.backend = backend
+        self.n_fallback_rounds = 0
+        self.fault_counters = {"n_quarantined": 0, "n_skipped_rounds": 0}
+        params = {k: t.detach().to(self.device) for k, t in params.items()}
+        if backend == "packed":
+            self.pack = ParamPack.build(params, prune_spec)
+            self.engine = RoundEngine(loss_fn, self.pack, eta=self.eta,
+                                      weighted_loss_fn=self._weighted_loss,
+                                      max_clients=len(self.clients),
+                                      device=self.device)
+            self._w, self._v = self.engine.init_buffers(params)
+        else:
+            self.pack = self.engine = None
+            self._params = params
+            self._global_grad = {k: torch.zeros_like(t)
+                                 for k, t in params.items()}
+
+    # Params / global gradient are stored packed on the packed backend; the
+    # properties give both backends the same dict view.
+
+    @property
+    def params(self) -> Params:
+        if self.backend == "packed":
+            with torch.no_grad():
+                return self.pack.unpack(self._w)
+        return self._params
+
+    @params.setter
+    def params(self, tree: Params) -> None:
+        if self.backend == "packed":
+            self._w = self.pack.pack(tree)
+        else:
+            self._params = tree
+
+    @property
+    def global_grad(self) -> Params:
+        if self.backend == "packed":
+            with torch.no_grad():
+                return self.pack.unpack(self._v)
+        return self._global_grad
+
+    @global_grad.setter
+    def global_grad(self, tree: Params) -> None:
+        if self.backend == "packed":
+            self._v = self.pack.pack(tree)
+        else:
+            self._global_grad = tree
+
+    # -- round primitives ---------------------------------------------------
+
+    def _draw_indices(self, count: int) -> np.ndarray:
+        """THE batch-index draw — one `choice` call per (round, selected
+        client), the JAX package's call verbatim, so both packages draw
+        the same batches from the same seed."""
+        count = int(count)
+        return self.rng.choice(
+            count, size=min(self.batch_size, count),
+            replace=count < self.batch_size)
+
+    def _sample_batch(self, client: ClientData):
+        """Draw one mini-batch: (x, y, sample_weights) as numpy arrays.
+
+        A client smaller than the batch size yields a short batch; with a
+        weighted loss it is padded back to batch_size with repeated samples
+        carrying weight 0, so every batch stacks and the round stays on the
+        packed path. The RNG stream is the unpadded draw's."""
+        idx = self._draw_indices(len(client))
+        x, y = client.x[idx], client.y[idx]
+        n = len(idx)
+        if n < self.batch_size and self._weighted_loss is not None:
+            pad = self.batch_size - n
+            x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+            y = np.concatenate([y, np.repeat(y[-1:], pad, axis=0)])
+            sw = np.zeros(self.batch_size, np.float32)
+            sw[:n] = 1.0
+        else:
+            sw = np.ones(n, np.float32)
+        return x, y, sw
+
+    def _value_and_grad(self, params: Params, x, y, sw=None):
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in params.items()}
+        with torch.enable_grad():
+            if sw is None:
+                loss = self.loss_fn(leaves, x, y)
+            else:
+                loss = self._weighted_loss(leaves, x, y, sw)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def client_update(self, n: int, lam: float, batch: tuple | None = None):
+        """Steps 2-3 for client n: returns (masked gradient, mask, loss)."""
+        if lam > 0.0:
+            imp = pruning.taylor_importance(self.params, self.global_grad)
+            masks = pruning.build_masks(imp, lam, self.prune_spec)
+        else:
+            masks = {k: torch.ones_like(w, dtype=torch.float32)
+                     for k, w in self.params.items()}
+        pruned = pruning.apply_masks(self.params, masks)
+        if batch is None:
+            batch = self._sample_batch(self.clients[n])
+        x, y, sw = batch
+        x = torch.as_tensor(x, device=self.device)
+        y = torch.as_tensor(y, device=self.device)
+        if sw is None or sw.all():
+            # full batch: the plain mean loss
+            loss, grads = self._value_and_grad(pruned, x, y)
+        else:
+            # ragged client: the same weighted mean the packed engine takes
+            loss, grads = self._value_and_grad(
+                pruned, x, y, torch.as_tensor(sw, device=self.device))
+        grads = pruning.apply_masks(grads, masks)  # pruned coords not uploaded
+        return grads, masks, float(loss)
+
+    @torch.no_grad()
+    def server_step(self, grads: list[Params]) -> None:
+        """Eqs. (6)-(7): average the uploads, FedSGD update. Every op is its
+        own eager dispatch, so eta*g is rounded before the subtraction,
+        exactly as the packed engine's aggregate computes it."""
+        if not grads:
+            return
+        inv = 1.0 / len(grads)
+        g = grads[0]
+        for extra in grads[1:]:
+            g = {k: g[k] + extra[k] for k in g}
+        g = {k: t * inv for k, t in g.items()}
+        self.global_grad = g
+        self.params = {k: w - self.eta * g[k].to(w.dtype)
+                       for k, w in self.params.items()}
+
+    def _reference_round(self, selected: list[int], lam_s: np.ndarray,
+                         batches: list):
+        """Per-client loop with host-side thresholds; a non-finite upload is
+        quarantined host-side (the eager form of the engine's guard).
+        Returns (per-client losses, surviving upload count)."""
+        grads, losses = [], []
+        for n, batch in zip(selected, batches):
+            g, _, loss = self.client_update(n, float(lam_s[n]), batch=batch)
+            losses.append(loss)
+            if all(bool(torch.isfinite(t).all()) for t in g.values()):
+                grads.append(g)
+        self.server_step(grads)
+        return losses, len(grads)
+
+    def _round(self, selected: list[int], lam_s: np.ndarray):
+        """Steps 2-4 for one round; batches are drawn once, in selected
+        order, so both backends consume the identical RNG sequence.
+        Returns (losses, n_ok) without synchronizing on the packed path."""
+        batches = [self._sample_batch(self.clients[n]) for n in selected]
+        stackable = len({b[0].shape for b in batches}) <= 1
+        if self.backend == "packed" and not stackable:
+            if self.device.type == "cuda":
+                raise RuntimeError(
+                    "the round's client batches do not stack "
+                    f"({sorted({b[0].shape for b in batches})}); the packed "
+                    "backend on CUDA runs only through the round engine")
+            # CPU only: ragged batches without a weighted loss take the
+            # reference loop, through the dict views of the packed buffers
+            self.n_fallback_rounds += 1
+        if self.backend != "packed" or not stackable:
+            return self._reference_round(selected, lam_s, batches)
+        lam_sel = np.asarray([lam_s[n] for n in selected], np.float64)
+        xs = torch.as_tensor(np.stack([b[0] for b in batches]),
+                             device=self.device)
+        ys = torch.as_tensor(np.stack([b[1] for b in batches]),
+                             device=self.device)
+        sws = np.stack([b[2] for b in batches])
+        self._w, self._v, losses, _, _ = self.engine.round_step(
+            self._w, self._v, xs, ys, lam_sel,
+            # all-ones weights carry no information: the engine keeps a
+            # device copy of them
+            sample_weights=None if sws.all() else sws)
+        return losses, self.engine.last_n_ok
+
+    # -- full run -----------------------------------------------------------
+
+    def run(
+        self,
+        schedule: Schedule,
+        sp: SystemParams,
+        h_up: np.ndarray,
+        h_down: np.ndarray,
+        *,
+        eval_fn: Callable[[Params], tuple[float, float]] | None = None,
+        eval_every: int = 10,
+        stop_delay: float | None = None,
+        stop_energy: float | None = None,
+        callbacks: Sequence = (),
+        start_round: int = 0,
+    ) -> list[RoundMetrics]:
+        """Execute the schedule. eval_fn(params) -> (test_loss, test_acc),
+        at rounds s % eval_every == 0 and at the last round.
+
+        Per-round train losses stay device tensors and are materialized
+        lazily (at eval points and at the end of the run), so the packed
+        rounds never wait on a device->host sync. The wireless bookkeeping
+        and the stop conditions are schedule-pure and computed up front."""
+        if callbacks:
+            _not_ported("run(callbacks=...) (the Experiment API)", "8")
+        if start_round:
+            _not_ported("run(start_round=...) (checkpoint resume)", "8")
+        history: list[RoundMetrics] = []
+        pending: list[tuple[RoundMetrics, Any, Any]] = []
+
+        def materialize():
+            for m, losses, n_ok in pending:
+                if losses is not None:
+                    if isinstance(losses, torch.Tensor):
+                        losses = losses.cpu()
+                    arr = np.asarray(losses, np.float64)
+                    m.train_loss = (float(arr.mean()) if arr.size
+                                    else float("nan"))
+                n_sel = len(m.selected)
+                if n_ok is not None:
+                    ok = int(n_ok)
+                    m.n_quarantined = max(0, n_sel - ok)
+                    if n_sel and ok == 0:
+                        self.fault_counters["n_skipped_rounds"] += 1
+                self.fault_counters["n_quarantined"] += m.n_quarantined
+            pending.clear()
+
+        n_rounds = schedule.a.shape[0]
+        infos = []
+        cum_t = cum_e = 0.0
+        for s in range(n_rounds):
+            a_s, lam_s = schedule.a[s], schedule.lam[s]
+            p_s, f_s = schedule.power[s], schedule.freq[s]
+            selected = [int(i) for i in np.flatnonzero(a_s > 0)]
+            per = per_client_delay(lam_s, p_s, f_s, h_up, h_down, sp)
+            gated = np.asarray(a_s, np.float64) * per
+            d = float(gated.max()) if gated.size else 0.0
+            e = round_energy(a_s, lam_s, p_s, f_s, h_up, h_down, sp)
+            cum_t += d
+            cum_e += e
+            infos.append((selected, lam_s, d, e, cum_t, cum_e))
+            if stop_delay is not None and cum_t >= stop_delay:
+                break
+            if stop_energy is not None and cum_e >= stop_energy:
+                break
+
+        for s, (selected, lam_s, d, e, cum_t, cum_e) in enumerate(infos):
+            if selected:
+                losses, n_ok = self._round(selected, lam_s)
+            else:
+                losses = n_ok = None
+            m = RoundMetrics(
+                round=s, train_loss=float("nan"), selected=selected,
+                mean_lambda=(float(lam_s[selected].mean())
+                             if selected else 0.0),
+                delay=d, energy=e,
+                cumulative_delay=cum_t, cumulative_energy=cum_e)
+            pending.append((m, losses, n_ok))
+            if eval_fn is not None and (s % eval_every == 0
+                                        or s == n_rounds - 1):
+                materialize()
+                m.test_loss, m.test_accuracy = eval_fn(self.params)
+            history.append(m)
+        materialize()
+        return history

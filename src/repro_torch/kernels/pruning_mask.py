@@ -1,0 +1,235 @@
+"""The pruned-FedSGD round's kernels: CUDA wrappers and plain versions.
+
+Each function here has three parts:
+
+  * a hand-written CUDA kernel for Hopper (``csrc/pruning_mask.cu``,
+    built by ``_build.py`` at first CUDA use);
+  * its wrapper, which checks device, dtype, shape and contiguity,
+    allocates the outputs, launches the kernel on the current stream and
+    adds one to ``LAUNCHES[name]``;
+  * a plain PyTorch version of the same function (``*_plain``), op for op
+    the ``impl="xla"`` mirror in ``repro/kernels/ops.py``, which the kernel
+    matches bit for bit.
+
+A wrapper given CPU tensors returns its plain version (the tests run there);
+given CUDA tensors it launches the kernel or raises — it never falls back.
+
+Denormals are zero where the JAX reference flushes them (XLA:CPU and the
+TPU treat subnormals as zero): the importance q = (w*v)^2 is flushed to +0
+below FLT_MIN, and the threshold it is compared with goes through the same
+`daz`. Without it, the round-0 threshold nextafter(0) (a subnormal) would
+prune every zero-importance weight that JAX keeps.
+
+Shapes follow the packed layout: buffers [R, 128*k] fp32, client stacks
+[C, R, 128*k] fp32.
+"""
+from __future__ import annotations
+
+import torch
+
+LANES = 128
+FLT_MIN = torch.finfo(torch.float32).tiny
+
+# one count per kernel, bumped only where the kernel is launched
+LAUNCHES = {"importance_mask_2d": 0, "importance_mask_batched": 0,
+            "fedsgd_aggregate_weighted": 0, "exponent_histogram": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def daz(x: torch.Tensor) -> torch.Tensor:
+    """Denormals are zero: +0 where |x| < FLT_MIN, x elsewhere (NaN kept)."""
+    return torch.where(x.abs() < FLT_MIN, torch.zeros_like(x), x)
+
+
+def importance(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q = (w*v)^2 (eq. 4) in fp32, each product rounded, denormals zero."""
+    p = w.float() * v.float()
+    return daz(p * p)
+
+
+# -- plain versions ------------------------------------------------------------
+
+def importance_masks_plain(w, v, prunable, thresholds):
+    """(q [R,L], masks [C,R,L]): mask c is 1 where prunable == 0, else
+    q >= daz(thresholds[c])."""
+    q = importance(w, v)
+    thr = daz(thresholds.float().reshape(-1))
+    keep = (q[None] >= thr[:, None, None]).float()
+    return q, torch.where(prunable[None] > 0, keep, torch.ones_like(keep))
+
+
+def weighted_grad_sum(grads, cweights):
+    """sum_c cweights[c] * grads[c] in client-stack order, [C,R,L]->[R,L].
+    A client whose weight is not > 0 is skipped by `where`, so a NaN on a
+    padding client never reaches the sum."""
+    cw = cweights.float()
+    acc = torch.zeros(grads.shape[1:], dtype=torch.float32,
+                      device=grads.device)
+    for c in range(grads.shape[0]):
+        acc = torch.where(cw[c] > 0.0, acc + cw[c] * grads[c].float(), acc)
+    return acc
+
+
+def apply_mean_update(w, gsum, inv, eta):
+    """g = gsum * inv, step = eta * g, w' = w - step: (w', g, step). Eager
+    torch rounds every op on its own, so nothing is FMA-contracted."""
+    g = gsum * inv
+    step = eta * g
+    return w.float() - step, g, step
+
+
+def fedsgd_aggregate_weighted_plain(w, grads, cweights, inv, eta):
+    """(w', g, step) of the weighted FedSGD step."""
+    return apply_mean_update(w, weighted_grad_sum(grads, cweights), inv, eta)
+
+
+def exponent_histogram_plain(q, prunable):
+    """[256] int32: bin b counts coordinates with bits(q) >> 23 == b and
+    prunable > 0; bytes outside [0, 255] are dropped."""
+    byte = q.reshape(-1).contiguous().view(torch.int32) >> 23
+    ok = (prunable.reshape(-1) > 0) & (byte >= 0)
+    idx = torch.where(ok, byte, torch.zeros_like(byte)).long()
+    hist = torch.zeros(256, dtype=torch.int64, device=q.device)
+    hist.scatter_add_(0, idx, ok.long())
+    return hist.int()
+
+
+# -- CUDA wrappers -------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, shape, device: torch.device, *,
+           vector: bool = True) -> None:
+    """Device, dtype (fp32), shape and contiguity; buffers the kernels read
+    or write as float4/int4 (`vector`) must also be 16-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, "
+                         f"got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected torch.float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if vector and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _packed_shape(w: torch.Tensor) -> tuple[int, int]:
+    if w.ndim != 2 or w.shape[1] % LANES:
+        raise ValueError(f"expected a packed [R, {LANES}*k] buffer, "
+                         f"got {tuple(w.shape)}")
+    return int(w.shape[0]), int(w.shape[1])
+
+
+def _call(fn, *args) -> None:
+    err = fn(*args)
+    if err:
+        raise RuntimeError(f"CUDA kernel {fn.__name__} failed to launch: "
+                           f"cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _importance_masks_cuda(w, v, prunable, thresholds, counter):
+    from repro_torch.kernels import _build
+    shape = _packed_shape(w)
+    n_clients = int(thresholds.numel())
+    for nm, t in (("w", w), ("v", v), ("prunable", prunable)):
+        _check(nm, t, shape, w.device)
+    _check("thresholds", thresholds, (n_clients,), w.device, vector=False)
+    if n_clients < 1:
+        raise ValueError("need at least one threshold")
+    q = torch.empty(shape, dtype=torch.float32, device=w.device)
+    masks = torch.empty((n_clients,) + shape, dtype=torch.float32,
+                        device=w.device)
+    with torch.cuda.device(w.device):
+        _call(_build.load().importance_masks, w.data_ptr(), v.data_ptr(),
+              prunable.data_ptr(), thresholds.data_ptr(), n_clients,
+              w.numel(), q.data_ptr(), masks.data_ptr(), _stream(w))
+    LAUNCHES[counter] += 1
+    return q, masks
+
+
+def importance_mask_2d(w, v, prunable, threshold):
+    """Shared-threshold importance + keep-mask, prunable override included.
+
+    Replaces ``repro/kernels/pruning_mask.py::importance_mask_2d`` together
+    with ``ops.packed_importance_mask``'s ``where(prunable > 0, keep, 1)``.
+    w, v, prunable: [R, 128*k] fp32; threshold: fp32 scalar tensor (on the
+    device, from the threshold search). Returns (q, mask), both [R, 128*k].
+    Bound by bytes: 3 reads + 2 writes of one buffer (the same
+    ``__global__`` as the batched kernel with one client)."""
+    if not w.is_cuda:
+        q, masks = importance_masks_plain(w, v, prunable, threshold)
+        return q, masks[0]
+    q, masks = _importance_masks_cuda(w, v, prunable, threshold.reshape(1),
+                                      "importance_mask_2d")
+    return q, masks[0]
+
+
+def importance_mask_batched(w, v, prunable, thresholds):
+    """Per-client keep-masks from one read of (w, v, prunable).
+
+    Replaces ``repro/kernels/pruning_mask.py::importance_mask_batched``.
+    thresholds: [C] fp32 on the device. Returns (q [R,L], masks [C,R,L]).
+    Bound by bytes: 3 reads + (1 + C) writes of one buffer."""
+    if not w.is_cuda:
+        return importance_masks_plain(w, v, prunable, thresholds)
+    return _importance_masks_cuda(w, v, prunable, thresholds,
+                                  "importance_mask_batched")
+
+
+def fedsgd_aggregate_weighted(w, grads, cweights, inv, eta):
+    """Weighted eqs. (6)-(7) fused: (w', g, step) from one pass.
+
+    Replaces ``repro/kernels/pruning_mask.py::fedsgd_aggregate_weighted``.
+    w: [R,L]; grads: [C,R,L]; cweights: [C]; inv, eta: fp32 scalar tensors
+    on the device. Bound by bytes: reads w and the gradients of the clients
+    with weight > 0, writes three buffers."""
+    if not w.is_cuda:
+        return fedsgd_aggregate_weighted_plain(w, grads, cweights, inv, eta)
+    from repro_torch.kernels import _build
+    shape = _packed_shape(w)
+    n_clients = int(grads.shape[0])
+    _check("w", w, shape, w.device)
+    _check("grads", grads, (n_clients,) + shape, w.device)
+    _check("cweights", cweights, (n_clients,), w.device, vector=False)
+    _check("inv", inv, (), w.device, vector=False)
+    _check("eta", eta, (), w.device, vector=False)
+    outs = [torch.empty(shape, dtype=torch.float32, device=w.device)
+            for _ in range(3)]
+    with torch.cuda.device(w.device):
+        _call(_build.load().fedsgd_aggregate_weighted, w.data_ptr(),
+              grads.data_ptr(), cweights.data_ptr(), n_clients,
+              inv.data_ptr(), eta.data_ptr(), w.numel(),
+              *(o.data_ptr() for o in outs), _stream(w))
+    LAUNCHES["fedsgd_aggregate_weighted"] += 1
+    return tuple(outs)
+
+
+def exponent_histogram(q, prunable):
+    """256 int32 bins of the fp32 exponent byte over prunable coordinates.
+
+    Replaces ``repro/kernels/pruning_mask.py::exponent_histogram``: the
+    coarse pass of ``kth_smallest_threshold(coarse="histogram")``.
+    q, prunable: [R, 128*k] fp32 -> [256] int32. Bound by bytes: 2 reads of
+    one buffer, plus contention on the shared-memory bins when many q fall
+    in one bin (round 0, where every q is 0)."""
+    if not q.is_cuda:
+        return exponent_histogram_plain(q, prunable)
+    from repro_torch.kernels import _build
+    shape = _packed_shape(q)
+    _check("q", q, shape, q.device)
+    _check("prunable", prunable, shape, q.device)
+    hist = torch.zeros(256, dtype=torch.int32, device=q.device)
+    with torch.cuda.device(q.device):
+        _call(_build.load().exponent_histogram, q.data_ptr(),
+              prunable.data_ptr(), q.numel(), hist.data_ptr(), _stream(q))
+    LAUNCHES["exponent_histogram"] += 1
+    return hist

@@ -1,0 +1,194 @@
+"""The port's hand-written CUDA kernels on the card.
+
+The tests marked `cuda` need a CUDA card with `nvcc` beside it (the kernels
+build for sm_90a at first use) and skip on a host without one; the others
+check, without touching a card, what the CUDA path refuses. The file imports
+neither JAX nor the JAX package, so it runs where only PyTorch is installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel is held bit for bit to its plain PyTorch version on the same
+device, at the LeNet slice's packed shape (R = 1024) with 1, 3 and 8
+clients, and a few rounds of the trainer run through the kernels with the
+packed backend equal to the reference backend.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import ClientData, FederatedTrainer  # noqa: E402
+from repro_torch.core import round_engine as tre  # noqa: E402
+from repro_torch.core.optimizer_ao import Schedule  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import pruning_mask as pm  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
+from repro_torch.wireless import ChannelModel, SystemParams  # noqa: E402
+
+LANES = 128
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build with nvcc for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bits(t):
+    t = t.detach().cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def assert_bitwise(a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    assert torch.equal(_bits(a), _bits(b))
+
+
+def _inputs(dev, n_clients, rows=1024, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (rows, LANES)
+    w = rng.normal(size=shape).astype(np.float32)
+    v = (1e-2 * rng.normal(size=shape)).astype(np.float32)
+    v.reshape(-1)[::11] = 0.0                       # q exactly 0
+    v.reshape(-1)[3::17] = np.float32(3e-20)        # q subnormal: flushed
+    pr = np.ones(shape, np.float32)
+    pr.reshape(-1)[-3 * LANES - 17:] = 0.0          # padding tail
+    grads = rng.normal(size=(n_clients,) + shape).astype(np.float32)
+    cw = np.ones(n_clients, np.float32)
+    if n_clients > 1:                               # padding client: NaN
+        cw[-1] = 0.0
+        grads[-1] = np.nan
+    t = {k: torch.from_numpy(a).to(dev) for k, a in
+         dict(w=w, v=v, pr=pr, grads=grads, cw=cw).items()}
+    q = pm.importance(t["w"], t["v"])
+    picks = torch.from_numpy(rng.choice(q.numel(), n_clients)).to(dev)
+    thr = q.reshape(-1)[picks].contiguous()
+    thr[0] = float(np.nextafter(np.float32(0), np.float32(1)))  # round 0
+    t.update(q=q, thr=thr, inv=torch.tensor(np.float32(1.0 / cw.sum()),
+                                            device=dev),
+             eta=torch.tensor(np.float32(0.1), device=dev))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clients", [1, 3, 8])
+def test_kernels_match_plain_versions(dev, n_clients):
+    t = _inputs(dev, n_clients, seed=n_clients)
+    pm.reset_launches()
+    for a, b in zip(pm.importance_mask_batched(t["w"], t["v"], t["pr"],
+                                               t["thr"]),
+                    pm.importance_masks_plain(t["w"], t["v"], t["pr"],
+                                              t["thr"])):
+        assert_bitwise(a, b)
+    kq, km = pm.importance_mask_2d(t["w"], t["v"], t["pr"], t["thr"][0])
+    pq, pms = pm.importance_masks_plain(t["w"], t["v"], t["pr"], t["thr"][0])
+    assert_bitwise(kq, pq)
+    assert_bitwise(km, pms[0])
+    assert bool((km == 1).all())        # nextafter(0) keeps every coordinate
+    assert_bitwise(pm.exponent_histogram(t["q"], t["pr"]),
+                   pm.exponent_histogram_plain(t["q"], t["pr"]))
+    args = (t["w"], t["grads"], t["cw"], t["inv"], t["eta"])
+    outs = pm.fedsgd_aggregate_weighted(*args)
+    for a, b in zip(outs, pm.fedsgd_aggregate_weighted_plain(*args)):
+        assert_bitwise(a, b)
+        assert bool(torch.isfinite(a).all())
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES == {"importance_mask_2d": 1,
+                           "importance_mask_batched": 1,
+                           "fedsgd_aggregate_weighted": 1,
+                           "exponent_histogram": 1}
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    t = _inputs(dev, 3)
+    with pytest.raises(ValueError, match="float32"):
+        pm.exponent_histogram(t["q"].double(), t["pr"])
+    with pytest.raises(ValueError, match="shape"):
+        pm.importance_mask_batched(t["w"], t["v"][:256], t["pr"], t["thr"])
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.importance_mask_2d(t["w"].t(), t["v"], t["pr"], t["thr"][0])
+    with pytest.raises(ValueError, match="on cuda"):
+        pm.fedsgd_aggregate_weighted(t["w"], t["grads"], t["cw"].cpu(),
+                                     t["inv"], t["eta"])
+    # the plain version is for CPU tensors only
+    with pytest.raises(ValueError, match="'torch'"):
+        ops.packed_importance_masks(t["w"], t["v"], t["pr"], t["thr"],
+                                    impl="torch")
+
+
+def test_packed_backend_on_cuda_needs_a_weighted_loss():
+    """Without a per-sample-weighted loss a ragged round could not stack,
+    and on CUDA the packed backend never leaves the kernels for the
+    host-threshold reference loop: the trainer refuses at construction,
+    before it touches the card."""
+    rng = np.random.default_rng(4)
+    clients = [ClientData(rng.normal(size=(n, 28, 28, 1)).astype(np.float32),
+                          rng.integers(0, 10, n).astype(np.int32))
+               for n in (40, 9)]
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4))
+    plain = cnn.make_loss_fn(cnn.mlp_edge_apply)
+
+    def loss(p, x, y):                  # no .weighted companion
+        return plain(p, x, y)
+
+    with pytest.raises(ValueError, match="weighted loss"):
+        FederatedTrainer(loss, params, clients, eta=0.1, batch_size=16,
+                         backend="packed", device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse", ["bisect", "histogram"])
+def test_threshold_matches_cpu(dev, coarse):
+    rng = np.random.default_rng(11)
+    q = (1e-18 * rng.random(4096)).astype(np.float32)
+    q[::7] = 0.0
+    pr = np.ones(4096, np.float32)
+    pr[:50] = 0.0
+    q, pr = (torch.from_numpy(a.reshape(32, LANES)) for a in (q, pr))
+    n_valid = int(pr.sum())
+    ks = torch.tensor([0, 1, n_valid // 3, n_valid, n_valid + 7])
+    want = tre.kth_smallest_threshold(q, pr, ks, coarse="bisect")
+    got = tre.kth_smallest_threshold(q.to(dev), pr.to(dev), ks.to(dev),
+                                     coarse=coarse)
+    assert_bitwise(got, want)
+
+
+@pytest.mark.cuda
+def test_trainer_rounds_through_the_kernels(dev):
+    """Four rounds of mlp-edge on the card, shared and per-client lambda:
+    every kernel launches, and packed equals reference."""
+    rng = np.random.default_rng(3)
+    clients = [ClientData(rng.normal(size=(40, 28, 28, 1)).astype(np.float32),
+                          rng.integers(0, 10, 40).astype(np.int32))
+               for _ in range(4)]
+    a = np.ones((4, 4))
+    lam = np.full((4, 4), 0.4)
+    lam[1] = [0.1, 0.3, 0.5, 0.7]
+    sched = Schedule(a=a, lam=lam, power=0.3 * np.ones_like(a),
+                     freq=3e8 * np.ones_like(a), theta=0.0, energy=0.0,
+                     delay=0.0, feasible=True)
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(3))
+    ch = ChannelModel(4)
+    out = {}
+    for backend in ("packed", "reference"):
+        pm.reset_launches()
+        tr = FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
+                              clients, eta=0.1, batch_size=16, seed=0,
+                              backend=backend)
+        assert tr.device.type == "cuda"
+        hist = tr.run(sched, SystemParams.table1(4), ch.uplink, ch.downlink)
+        out[backend] = (tr, hist, dict(pm.LAUNCHES))
+    launches = out["packed"][2]
+    assert launches["exponent_histogram"] == 4
+    assert launches["fedsgd_aggregate_weighted"] == 4
+    assert launches["importance_mask_batched"] == 1
+    assert launches["importance_mask_2d"] == 3
+    assert set(out["reference"][2].values()) == {0}
+    (tp, hp, _), (tr_, hr, _) = out["packed"], out["reference"]
+    assert [m.train_loss for m in hp] == [m.train_loss for m in hr]
+    for k in tp.params:
+        assert_bitwise(tp.params[k], tr_.params[k])
+        assert torch.equal(tp.global_grad[k], tr_.global_grad[k])
