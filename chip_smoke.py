@@ -8,18 +8,40 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
 
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
      kernel build (timed);
-  2. every kernel of the round against its plain PyTorch version at the
-     main path's shapes (LeNet packed: R = 1024, C in {1, 3, 8}), bit for
-     bit, with its per-call time, its device time, the plain version's
-     time and its memory bound;
-  3. the main path: the paper's pipeline on synthetic-mnist (10 clients,
-     sigma = 5) with the `proposed` AO schedule at E0 = 25 J, T0 = 15 s over
-     40 rounds, LeNet from a seeded init, trained once by the packed
-     backend (kernel launches counted) and once by the reference backend;
-     parameters must agree bit for bit, the broadcast gradient as values,
-     and test accuracy at the last round must exceed 0.2; then five packed
-     rounds again under torch.profiler (device busy time, top kernels);
-  4. one JSON line listing the kernels, then the result line.
+  2. every kernel against its plain PyTorch version at the main paths'
+     shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks
+     and weighted aggregate, C in {1, 3, 8, 10, 16, 33} for the rank sort,
+     the unweighted aggregate and the masked update), bit for bit, with its
+     per-call time, its device time, the plain version's time, its bound
+     and, where one PyTorch call computes the same function, that call's
+     time; and the contract that the unweighted aggregate equals the
+     weighted one with unit weights;
+  3. the pruned-FedSGD path: the paper's pipeline on synthetic-mnist (10
+     clients, sigma = 5) with the `proposed` AO schedule at E0 = 25 J,
+     T0 = 15 s over 40 rounds, LeNet from a seeded init, trained once by
+     the packed backend (kernel launches counted) and once by the reference
+     backend; parameters must agree bit for bit, the broadcast gradient as
+     values, and test accuracy at the last round must exceed 0.2; then five
+     packed rounds again under torch.profiler (device busy time, top
+     kernels);
+  4. the attack slice (the JAX package's benchmarks/robust_aggregation.py
+     cell at a 30 % attack): 10 clients, sigma = 1, `fixed_selection` at
+     unbounded budgets over 60 rounds, every client selected every round,
+     three of them uploading 10x their gradient (ScaledMalicious, exact),
+     under the mean, the coordinate-wise median and the trimmed mean
+     (beta = 0.35), each on both backends: parameters and losses bit for
+     bit, the counters exact (180 corrupt-but-finite uploads; 480 excluded,
+     360 trimmed), the rank sort launched every round of the robust packed
+     runs, and the robust reducers ahead of the attacked mean at round 59;
+  5. fault axes, 10 rounds each on the attack slice's set-up, packed against
+     reference bit for bit with equal counters: mixed dropout + NaN uploads
+     and NaN uploads alone on the mean path (the quarantine and zero
+     weights in the aggregate kernel), Gaussian poison under norm
+     clipping, sign flips under multi-Krum with channel noise;
+  6. the entry points that no trainer path calls: one FedSGD step of the
+     unweighted aggregate over ten clients' uploads at the trained attack
+     model, and the pruned-checkpoint masked update, packed and per leaf;
+  7. one JSON line listing the kernels, then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -45,7 +67,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import (AOConfig, BoundConstants, ClientData,  # noqa: E402
-                              FederatedTrainer, ParamPack, phis, solve_p1)
+                              CorruptUpload, FederatedTrainer, GaussianPoison,
+                              MixedFaults, ParamPack, ScaledMalicious,
+                              SignFlip, make_aggregator, phis, solve_p1)
 from repro_torch.core.packing import LANES  # noqa: E402
 from repro_torch.core.round_engine import kth_smallest_threshold  # noqa: E402
 from repro_torch.data import make_dataset, partition_by_dirichlet  # noqa: E402
@@ -54,7 +78,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
 from repro_torch.models import (lenet_apply, lenet_init, make_eval_fn,  # noqa: E402
                                 make_loss_fn)
-from repro_torch.wireless import ChannelModel, SystemParams  # noqa: E402
+from repro_torch.wireless import (ChannelModel,  # noqa: E402
+                                  GaussianAggregateNoise, SystemParams)
 
 # (memory bytes/s, fp32 FLOP/s outside the tensor cores) by the device name
 # torch reports, from NVIDIA's data sheet (H100 SXM, 700 W)
@@ -65,7 +90,18 @@ REPLACES = {
     "importance_mask_batched": "src/repro/kernels/pruning_mask.py:87",
     "fedsgd_aggregate_weighted": "src/repro/kernels/pruning_mask.py:189",
     "exponent_histogram": "src/repro/kernels/pruning_mask.py:334",
+    "fedsgd_aggregate": "src/repro/kernels/pruning_mask.py:134",
+    "client_rank_sort": "src/repro/kernels/pruning_mask.py:264",
+    "masked_update_2d": "src/repro/kernels/pruning_mask.py:371",
 }
+# benchmarks/robust_aggregation.py's cell: ExpConfig() under a 30 %
+# ScaledMalicious(scale=10, exact) attack, `fixed_selection` at E0 = T0 = 1e6
+ATTACK = dict(n_clients=10, sigma=1.0, n_train=4000, n_test=800, noise=0.35,
+              seed=0, rounds=60, eta=0.1, batch=32, e0=1e6, t0=1e6, rate=0.3,
+              scale=10.0)
+ATTACK_AGGS = (("mean", {}), ("coord_median", {}),
+               ("trimmed_mean", {"beta": 0.35}))
+SIZES = (1, 3, 8, 10, 16, 33)
 SLICE = dict(n_clients=10, sigma=5.0, n_train=4000, n_test=800, seed=0,
              e0=25.0, t0=15.0, rounds=40, eta=0.1, batch=32)
 
@@ -188,20 +224,24 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
     results = {}
     fails = []
 
-    def record(name, ok, err, call, plain_call, symbol, nbytes, nflops):
-        """Times the wrapper and the plain version at these inputs, and the
-        kernel alone on the device trace; bound from bytes and operations."""
+    def record(name, ok, err, call, plain_call, symbol, nbytes, nflops,
+               library_call=None):
+        """Times the wrapper, the plain version and the library call at
+        these inputs, and the kernel alone on the device trace; bound from
+        bytes and operations."""
         ms, plain = time_ms(call), time_ms(plain_call)
+        lib = time_ms(library_call) if library_call is not None else None
         dev_ms = kernel_device_ms(call, symbol)
         bound = max(nbytes / bw, nflops / flops) * 1e3
         results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain,
                              device_ms=dev_ms, bound_ms=bound,
+                             library_ms=lib,
                              bound_by="bytes" if nbytes / bw >= nflops / flops
                              else "operations", bytes=nbytes)
         print(json.dumps({"kernel": name, "equal": ok, "kernel_ms": ms,
                           "device_ms": dev_ms, "plain_ms": plain,
                           "bound_us": bound * 1e3, "bytes": nbytes,
-                          "library_ms": None, "max_abs_err": err}))
+                          "library_ms": lib, "max_abs_err": err}))
         if not ok:
             fails.append(name)
 
@@ -287,6 +327,71 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
            lambda: pm.fedsgd_aggregate_weighted_plain(w, g8, cw8, inv8, eta),
            "fedsgd_aggregate_weighted_kernel", (1 + 8 + 3) * 4 * n + 4 * 10,
            (2 * 8 + 3) * n)
+
+    # client_rank_sort at every C of SIZES: ties, +-0.0 and +-inf on valid
+    # lanes, NaN on zero-weight clients; every rank compared (stable sort)
+    ok, err = True, 0.0
+    pool = np.asarray([-1.5, -0.0, 0.0, 0.25, 3.0, np.inf, -np.inf],
+                      np.float32)
+    stacks = {}
+    for c in SIZES:
+        g_np = rng.normal(size=(c,) + shape).astype(np.float32)
+        tie = rng.random(g_np.shape) < 0.3
+        g_np[tie] = rng.choice(pool, size=int(tie.sum()))
+        cw_np = np.ones(c, np.float32)
+        if c > 2:
+            cw_np[[1, -1]] = 0.0
+            g_np[1] = np.nan
+        grads, cw = arr(g_np), arr(cw_np)
+        stacks[c] = (grads, cw)
+        ko = pm.client_rank_sort(grads, cw)
+        po = pm.client_rank_sort_plain(grads, cw)
+        ok &= bits_equal(ko, po)
+        err = max(err, max_abs_err([ko], [po]))
+    g10, cw10 = stacks[10]
+    keys10 = torch.where(cw10[:, None, None] > 0, pm.order_keys(g10),
+                         torch.full(g10.shape, pm.INT32_MAX,
+                                    dtype=torch.int32, device=dev))
+    record("client_rank_sort", bool(ok), err,
+           lambda: pm.client_rank_sort(g10, cw10),
+           lambda: pm.client_rank_sort_plain(g10, cw10),
+           "client_rank_sort_kernel", 2 * 10 * 4 * n + 4 * 10,
+           n * 10 * 9 // 2,
+           library_call=lambda: torch.sort(keys10, dim=0, stable=True))
+
+    # fedsgd_aggregate at every C of SIZES, and its contract with the
+    # weighted kernel: unit weights and inv = float32(1/C) give its bits
+    ok, err = True, 0.0
+    for c in SIZES:
+        grads = arr(rng.normal(size=(c,) + shape))
+        ko = pm.fedsgd_aggregate(w, grads, 0.1)
+        po = pm.fedsgd_aggregate_plain(w, grads, 0.1)
+        ok &= all(bits_equal(a, b) for a, b in zip(ko, po))
+        err = max(err, max_abs_err(ko, po))
+        wo = ops.packed_fedsgd_update_weighted(
+            w, grads, torch.ones(c, device=dev),
+            torch.tensor(np.float32(1.0 / c), device=dev), eta)
+        ok &= all(bits_equal(a, b) for a, b in
+                  zip(ops.packed_fedsgd_update(w, grads, 0.1), wo))
+    g10 = arr(rng.normal(size=(10,) + shape))
+    record("fedsgd_aggregate", bool(ok), err,
+           lambda: pm.fedsgd_aggregate(w, g10, 0.1),
+           lambda: pm.fedsgd_aggregate_plain(w, g10, 0.1),
+           "fedsgd_aggregate_kernel", (1 + 10 + 3) * 4 * n, (9 + 3) * n)
+
+    # masked_update_2d on one input per C of SIZES' seeds
+    ok, err = True, 0.0
+    for _ in SIZES:
+        g = arr(rng.normal(size=shape))
+        m = arr(rng.random(shape) < 0.6)
+        ko = pm.masked_update_2d(w, g, m, 0.05)
+        po = pm.masked_update_plain(w, g, m, 0.05)
+        ok &= bits_equal(ko, po)
+        err = max(err, max_abs_err([ko], [po]))
+    record("masked_update_2d", bool(ok), err,
+           lambda: pm.masked_update_2d(w, g, m, 0.05),
+           lambda: pm.masked_update_plain(w, g, m, 0.05),
+           "masked_update_kernel", 4 * 4 * n, 3 * n)
     if fails:
         raise AssertionError(f"kernels differ from their plain versions: "
                              f"{fails}")
@@ -295,7 +400,11 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
 
 # -- phase 3: the main path -----------------------------------------------------
 
-def run_backend(backend, dev, ds, clients, sp, ch, sched, params):
+def run_backend(backend, dev, ds, clients, sp, ch, sched, params, *,
+                cfg=SLICE, evaluate=True, **scenario):
+    """Train LeNet on one backend over `sched`; `scenario` reaches the
+    trainer (fault_model, aggregator, channel_noise). Returns (trainer,
+    history, training seconds without evaluation)."""
     loss = make_loss_fn(lenet_apply)
     eval_fn = make_eval_fn(lenet_apply, ds.x_test, ds.y_test, device=dev)
     eval_s = [0.0]
@@ -307,23 +416,32 @@ def run_backend(backend, dev, ds, clients, sp, ch, sched, params):
         eval_s[0] += time.perf_counter() - t
         return out
 
-    tr = FederatedTrainer(loss, params, clients, eta=SLICE["eta"],
-                          batch_size=SLICE["batch"], seed=0, backend=backend,
-                          device=dev)
+    tr = FederatedTrainer(loss, params, clients, eta=cfg["eta"],
+                          batch_size=cfg["batch"], seed=0, backend=backend,
+                          device=dev, **scenario)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hist = tr.run(sched, sp, ch.uplink, ch.downlink, eval_fn=timed_eval,
-                  eval_every=10, stop_delay=SLICE["t0"],
-                  stop_energy=SLICE["e0"])
+    hist = tr.run(sched, sp, ch.uplink, ch.downlink,
+                  eval_fn=timed_eval if evaluate else None, eval_every=10,
+                  stop_delay=cfg["t0"], stop_energy=cfg["e0"])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0 - eval_s[0]
     return tr, hist, train_s
 
 
-def profile_rounds(dev, clients, sp, ch, sched, params, n=5) -> dict:
+# the port's kernels as torch.profiler names them
+PORT_SYMBOLS = ("importance_masks_kernel", "fedsgd_aggregate_weighted_kernel",
+                "exponent_histogram_kernel", "fedsgd_aggregate_kernel",
+                "client_rank_sort_kernel", "client_rank_sort_generic_kernel",
+                "masked_update_kernel")
+
+
+def profile_rounds(dev, clients, sp, ch, sched, params, n=5, cfg=SLICE,
+                   **scenario) -> dict:
     """Where a packed round's time goes: the first rounds of the schedule
     again, under torch.profiler (after one warm round); the device's busy
-    time against the host's wall clock, and the kernels that take most."""
+    time against the host's wall clock, the port's kernels' share, and the
+    kernels that take most. `scenario` reaches the trainer."""
     from torch.profiler import ProfilerActivity, profile
 
     def rounds(lo, hi):
@@ -333,8 +451,8 @@ def profile_rounds(dev, clients, sp, ch, sched, params, n=5) -> dict:
                                    freq=sched.freq[lo:hi])
 
     tr = FederatedTrainer(make_loss_fn(lenet_apply), params, clients,
-                          eta=SLICE["eta"], batch_size=SLICE["batch"],
-                          seed=0, backend="packed", device=dev)
+                          eta=cfg["eta"], batch_size=cfg["batch"],
+                          seed=0, backend="packed", device=dev, **scenario)
     tr.run(rounds(0, 1), sp, ch.uplink, ch.downlink)
     rest = rounds(1, n + 1)
     torch.cuda.synchronize()
@@ -350,13 +468,234 @@ def profile_rounds(dev, clients, sp, ch, sched, params, n=5) -> dict:
     busy_ms = sum(us for _, _, us in evs) / 1e3
     if not evs:
         return {"profile": "not measured: the trace shows no device time"}
+    port_ms = sum(us for k, _, us in evs
+                  if any(sym in k for sym in PORT_SYMBOLS)) / 1e3
     return {"profile_rounds": n, "wall_ms_per_round": wall_ms / n,
             "device_busy_ms_per_round": busy_ms / n,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "port_kernels_device_ms_per_round": port_ms / n,
             "kernel_launches_per_round": sum(c for _, c, _ in evs) / n,
             "top_kernels": [{"name": k[:120], "calls_per_round": c / n,
                              "device_ms_per_round": us / 1e3 / n}
                             for k, c, us in evs[:8]]}
+
+
+# -- phases 4-6: the scenario axes ----------------------------------------------
+
+def attack_env(dev):
+    """The attack slice through the port's numpy copies, as the JAX
+    package's build_environment builds it from
+    benchmarks/robust_aggregation.attack_spec(ExpConfig(), ..., 0.3)."""
+    c = ATTACK
+    ds = make_dataset("synthetic-mnist", n_train=c["n_train"],
+                      n_test=c["n_test"], noise=c["noise"], seed=c["seed"])
+    parts = partition_by_dirichlet(ds.y_train, c["n_clients"], c["sigma"],
+                                   rng=np.random.default_rng(c["seed"]))
+    clients = [ClientData(ds.x_train[i], ds.y_train[i]) for i in parts]
+    test_hist = np.bincount(ds.y_test, minlength=10).astype(float)
+    phi = phis(np.stack([cl.label_histogram(10) for cl in clients]),
+               test_hist[None])
+    sp = SystemParams.table1(c["n_clients"], dataset="mnist",
+                             batch_size=c["batch"])
+    ch = ChannelModel(c["n_clients"], path_loss=1e-5, seed=c["seed"])
+    consts = BoundConstants(rounds_S=c["rounds"] - 1, batch_Z=c["batch"],
+                            eta=c["eta"])
+    sched = solve_p1(phi, c["e0"], c["t0"], ch.uplink, ch.downlink,
+                     sp, consts, AOConfig(fix_selection=True, outer_iters=3,
+                                          selection_method="paper",
+                                          phi_coupling="mean"))
+    params = lenet_init(torch.Generator().manual_seed(c["seed"]), device=dev)
+    return ds, clients, sp, ch, sched, params
+
+
+def first_rounds(sched, n):
+    return dataclasses.replace(sched, a=sched.a[:n], lam=sched.lam[:n],
+                               power=sched.power[:n], freq=sched.freq[:n])
+
+
+def compare_backends(label, pk, ref) -> list[str]:
+    """Packed against reference: parameters bit for bit, v as values,
+    losses, per-round counts and counters equal."""
+    (tr_pk, h_pk), (tr_ref, h_ref) = pk, ref
+    problems = []
+    bits = sum(int((tr_pk.params[k].view(torch.int32)
+                    != tr_ref.params[k].view(torch.int32)).sum())
+               for k in tr_pk.params)
+    if bits:
+        problems.append(f"{label}: {bits} parameter bits differ")
+    for k in tr_pk.params:
+        if not torch.equal(tr_pk.global_grad[k], tr_ref.global_grad[k]):
+            problems.append(f"{label}: v[{k}] differs")
+        if not bool(torch.isfinite(tr_pk.params[k]).all()):
+            problems.append(f"{label}: non-finite parameters in {k}")
+    if not np.array_equal([m.train_loss for m in h_pk],
+                          [m.train_loss for m in h_ref], equal_nan=True):
+        problems.append(f"{label}: per-round train losses differ")
+    for f in ("n_faulted", "n_quarantined", "n_agg_adjusted"):
+        if [getattr(m, f) for m in h_pk] != [getattr(m, f) for m in h_ref]:
+            problems.append(f"{label}: per-round {f} differs")
+    if tr_pk.fault_counters != tr_ref.fault_counters:
+        problems.append(f"{label}: fault counters differ")
+    if tr_pk.agg_counters != tr_ref.agg_counters:
+        problems.append(f"{label}: aggregation counters differ")
+    return problems
+
+
+def attack_phase(dev, env):
+    """60 rounds of each aggregator under the attack, both backends.
+    Returns (problems, the coord_median run's launches, its packed
+    trainer)."""
+    c = ATTACK
+    problems, acc = [], {}
+    want = {"mean": {}, "coord_median": {"n_excluded": 480},
+            "trimmed_mean": {"n_trimmed": 360}}
+    median_launches = median_trainer = None
+    for name, kw in ATTACK_AGGS:
+        scenario = dict(
+            fault_model=ScaledMalicious(rate=c["rate"], scale=c["scale"],
+                                        seed=c["seed"], exact=True),
+            aggregator=make_aggregator(name, **kw))
+        pm.reset_launches()
+        tr_pk, h_pk, s_pk = run_backend("packed", dev, *env, cfg=c,
+                                        **scenario)
+        launches = dict(pm.LAUNCHES)
+        tr_ref, h_ref, s_ref = run_backend("reference", dev, *env, cfg=c,
+                                           **scenario)
+        n = len(h_pk)
+        problems += compare_backends(f"attack/{name}", (tr_pk, h_pk),
+                                     (tr_ref, h_ref))
+        if n != c["rounds"]:
+            problems.append(f"attack/{name}: ran {n} rounds")
+        if tr_pk.fault_counters["n_corrupt_finite"] != 180:
+            problems.append(f"attack/{name}: n_corrupt_finite "
+                            f"{tr_pk.fault_counters['n_corrupt_finite']}")
+        if tr_pk.agg_counters != want[name]:
+            problems.append(f"attack/{name}: counters {tr_pk.agg_counters}")
+        robust = name != "mean"
+        expect = {"client_rank_sort": n if robust else 0,
+                  "importance_mask_2d": n, "exponent_histogram": n,
+                  "fedsgd_aggregate_weighted": 0 if robust else n}
+        for k, v in expect.items():
+            if launches[k] != v:
+                problems.append(f"attack/{name}: {k} launched "
+                                f"{launches[k]} times, expected {v}")
+        acc[name] = h_pk[-1].test_accuracy
+        print(json.dumps({
+            "attack": name, "rounds": n, "packed_round_ms": 1e3 * s_pk / n,
+            "reference_round_ms": 1e3 * s_ref / n,
+            "test_accuracy": [(m.round, m.test_accuracy) for m in h_pk
+                              if m.test_accuracy is not None],
+            "fault_counters": tr_pk.fault_counters,
+            "agg_counters": tr_pk.agg_counters, "launches": launches}))
+        if name == "coord_median":
+            median_launches, median_trainer = launches, tr_pk
+            print(json.dumps({"attack_profile": name, **profile_rounds(
+                dev, *env[1:], cfg=c, **scenario)}))
+    for name in ("coord_median", "trimmed_mean"):
+        if acc[name] is None or not acc[name] > 0.3:
+            problems.append(f"attack/{name}: round-59 accuracy {acc[name]} "
+                            "<= 0.3")
+        elif not acc["mean"] <= acc[name] - 0.05:
+            problems.append(f"attack: the attacked mean ({acc['mean']}) is "
+                            f"not 0.05 below {name} ({acc[name]})")
+    return problems, median_launches, median_trainer
+
+
+def fault_phase(dev, env):
+    """10 rounds of each fault axis, packed against reference."""
+    ds, clients, sp, ch, sched, params = env
+    env10 = (ds, clients, sp, ch, first_rounds(sched, 10), params)
+    cases = [
+        ("mixed+mean", dict(fault_model=MixedFaults(
+            dropout_rate=0.25, corrupt_rate=0.25, seed=5)),
+         ("n_dropped", "n_quarantined")),
+        ("corrupt_nan+mean", dict(fault_model=CorruptUpload(
+            rate=0.4, mode="nan", seed=5)), ("n_quarantined",)),
+        ("gaussian_poison+norm_clip", dict(
+            fault_model=GaussianPoison(rate=0.4, sigma=0.5, seed=5),
+            aggregator=make_aggregator("norm_clip")), ("n_corrupt_finite",)),
+        ("sign_flip+multi_krum+noise", dict(
+            fault_model=SignFlip(rate=0.4, scale=2.0, seed=5),
+            aggregator=make_aggregator("multi_krum", f=1),
+            channel_noise=GaussianAggregateNoise(std=1e-3)),
+         ("n_corrupt_finite",)),
+    ]
+    problems = []
+    for label, scenario, bites in cases:
+        pm.reset_launches()
+        tr_pk, h_pk, s_pk = run_backend("packed", dev, *env10, cfg=ATTACK,
+                                        evaluate=False, **scenario)
+        launches = dict(pm.LAUNCHES)
+        tr_ref, h_ref, s_ref = run_backend("reference", dev, *env10,
+                                           cfg=ATTACK, evaluate=False,
+                                           **scenario)
+        problems += compare_backends(f"faults/{label}", (tr_pk, h_pk),
+                                     (tr_ref, h_ref))
+        for k in bites:
+            if not tr_pk.fault_counters[k] > 0:
+                problems.append(f"faults/{label}: {k} stayed 0")
+        if "aggregator" not in scenario and \
+                launches["fedsgd_aggregate_weighted"] != len(h_pk):
+            problems.append(f"faults/{label}: the weighted kernel missed "
+                            "rounds")
+        print(json.dumps({"faults": label, "rounds": len(h_pk),
+                          "packed_round_ms": 1e3 * s_pk / len(h_pk),
+                          "reference_round_ms": 1e3 * s_ref / len(h_pk),
+                          "fault_counters": tr_pk.fault_counters,
+                          "agg_counters": tr_pk.agg_counters,
+                          "launches": launches}))
+    return problems
+
+
+def entry_point_phase(dev, tr, env):
+    """The entry points of the two kernels no trainer path calls, at the
+    trained attack model: one unweighted FedSGD step over ten clients'
+    uploads (one batch each), then the pruned-checkpoint update (w - eta*g)
+    * mask at lambda = 0.5, packed and leaf by leaf. Returns (problems,
+    launches)."""
+    ds, clients, *_ = env
+    eta, b = ATTACK["eta"], ATTACK["batch"]
+    eng, pack = tr.engine, tr.pack
+    ups = []
+    for cl in clients:
+        x = torch.as_tensor(cl.x[:b], device=dev)
+        y = torch.as_tensor(cl.y[:b], device=dev)
+        ups.append(eng._value_and_grad(tr._w, x, y,
+                                       torch.ones(b, device=dev))[1])
+    grads = torch.stack(ups)
+    problems = []
+    pm.reset_launches()
+    w2, g, step = ops.packed_fedsgd_update(tr._w, grads, eta)
+    q = ops.importance(w2, g)
+    thr = kth_smallest_threshold(q, eng.prunable,
+                                 int(0.5 * pack.n_prunable))
+    _, mask = ops.packed_importance_mask(w2, g, eng.prunable, thr)
+    wp = ops.packed_masked_update(w2, g, mask, eta)
+    leaves = [ops.masked_update(a, gg, mm, eta) for a, gg, mm in zip(
+        pack.unpack(w2).values(), pack.unpack(g).values(),
+        pack.unpack(mask).values())]
+    torch.cuda.synchronize()
+    launches = dict(pm.LAUNCHES)
+    if launches["fedsgd_aggregate"] != 1 or \
+            launches["masked_update_2d"] != 1 + len(leaves):
+        problems.append(f"entry points: launches {launches}")
+    for a, (k, bb) in zip(leaves, pack.unpack(wp).items()):
+        if not bits_equal(a.contiguous(), bb.contiguous()):
+            problems.append(f"entry points: leaf {k} != packed update")
+    unit = ops.packed_fedsgd_update_weighted(
+        tr._w, grads, torch.ones(len(ups), device=dev),
+        torch.tensor(np.float32(1.0 / len(ups)), device=dev), eng._eta)
+    if not all(bits_equal(x, y) for x, y in zip((w2, g, step), unit)):
+        problems.append("entry points: unweighted != unit-weighted")
+    pruned = float((mask[eng.prunable > 0] == 0).float().mean())
+    acc = make_eval_fn(lenet_apply, ds.x_test, ds.y_test,
+                       device=dev)(pack.unpack(wp))
+    if not (0.45 < pruned < 0.55 and np.isfinite(acc[0])):
+        problems.append(f"entry points: pruned share {pruned}, eval {acc}")
+    print(json.dumps({"entry_points": "fedsgd step + pruned checkpoint",
+                      "pruned_share": pruned, "test_loss": acc[0],
+                      "test_accuracy": acc[1], "launches": launches}))
+    return problems, launches
 
 
 def main() -> int:
@@ -380,16 +719,21 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
+    walls = {}
     t = time.perf_counter()
     _build.load()
-    print(f"kernels built in {time.perf_counter() - t:.2f} s "
+    walls["build"] = time.perf_counter() - t
+    print(f"kernels built in {walls['build']:.2f} s "
           f"({_build.library_path().name})")
 
+    t = time.perf_counter()
     ds, clients, sp, ch, sched, params = slice_env(dev)
     pack = ParamPack.build(params)
     kernels = check_kernels(dev, pack, name)
+    walls["kernels"] = time.perf_counter() - t
 
-    # the main path, packed backend: counts from this run only
+    # the pruned-FedSGD path, packed backend: counts from this run only
+    t = time.perf_counter()
     pm.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     tr_pk, h_pk, s_pk = run_backend("packed", dev, ds, clients, sp, ch,
@@ -432,8 +776,8 @@ def main() -> int:
             problems.append(f"packed != reference in v[{key}]")
         v_zero_signs += int((va.view(torch.int32)
                              != vb.view(torch.int32)).sum())
-        for t in (a, va):
-            if t.shape != b.shape or not bool(torch.isfinite(t).all()):
+        for x in (a, va):
+            if x.shape != b.shape or not bool(torch.isfinite(x).all()):
                 problems.append(f"bad shape or non-finite values in {key}")
     if w_bits:
         problems.append(f"{w_bits} parameter bits differ between backends")
@@ -448,16 +792,40 @@ def main() -> int:
                       "v_signed_zero_differences": v_zero_signs,
                       "final_accuracy": final_acc}))
     print(json.dumps(profile_rounds(dev, clients, sp, ch, sched, params)))
+    walls["pruned_fedsgd_path"] = time.perf_counter() - t
 
+    t = time.perf_counter()
+    env = attack_env(dev)
+    attack_problems, median_launches, median_tr = attack_phase(dev, env)
+    problems += attack_problems
+    walls["attack_slice"] = time.perf_counter() - t
+    t = time.perf_counter()
+    problems += fault_phase(dev, env)
+    walls["fault_axes"] = time.perf_counter() - t
+    t = time.perf_counter()
+    entry_problems, entry_launches = entry_point_phase(dev, median_tr, env)
+    problems += entry_problems
+    walls["entry_points"] = time.perf_counter() - t
+    print(json.dumps({"phase_wall_s": walls}))
+
+    # each kernel's launches come from the path that runs it, counted from
+    # 0 just before that path and read just after
+    paths = {"client_rank_sort": ("attack slice, coord_median, packed",
+                                  median_launches),
+             "fedsgd_aggregate": ("entry points", entry_launches),
+             "masked_update_2d": ("entry points", entry_launches)}
     rows = []
     for kname, res in kernels.items():
+        path, counts = paths.get(kname, ("pruned-FedSGD slice, packed",
+                                         launches))
         rows.append({"name": kname, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[kname],
-                     "launches": launches[kname],
+                     "launches": counts[kname], "path": path,
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],
                      "bound_ms": res["bound_ms"],
-                     "bound_by": res["bound_by"], "library_ms": None,
+                     "bound_by": res["bound_by"],
+                     "library_ms": res["library_ms"],
                      "check": "bitwise" if res["ok"] else "FAILED"})
     print(json.dumps({"kernels": rows}))
     if problems:

@@ -1,7 +1,7 @@
 """Parameter-efficient FedSGD trainer (paper Sec. II-A, eqs. 2-7).
 
 The port of ``repro/core/federated.py`` (one device, one round per dispatch,
-mean aggregation, plain FedSGD). Per round s:
+plain FedSGD). Per round s:
 
   1. the server broadcasts the previous global gradient v^(s-1);
   2. each selected client computes the importance Q = (v * rho)^2 (eq. 4)
@@ -9,6 +9,14 @@ mean aggregation, plain FedSGD). Per round s:
   3. the client computes a mini-batch gradient on the pruned model (eq. 5)
      and uploads it masked;
   4. the server averages the uploads (eq. 6) and steps w <- w - eta*G (eq. 7).
+
+Beyond the paper, as in the JAX package (DESIGN.md §9-§11): a
+``channel_noise`` model (the server observes mean + noise, drawn per round
+in the packed layout), a ``fault_model`` (dropouts, stragglers, corrupted
+uploads and byzantine attacks, drawn on the host per (seed, round, client)
+and consumed identically by both backends), and a robust ``aggregator``
+(core/aggregators.py) in place of the mean. Every upload passes the
+always-on non-finite quarantine; a round with no survivor skips the update.
 
 Two backends, as in the JAX package:
 
@@ -41,23 +49,13 @@ import torch
 
 from repro_torch.core import pruning
 from repro_torch.core.optimizer_ao import Schedule
-from repro_torch.core.packing import ParamPack
-from repro_torch.core.round_engine import RoundEngine
+from repro_torch.core.packing import LANES, ParamPack
+from repro_torch.core.round_engine import RoundEngine, bucket_capacity
+from repro_torch.device import resolve_device
 from repro_torch.wireless.comm import (SystemParams, per_client_delay,
                                        round_energy)
 
 Params = dict[str, torch.Tensor]
-
-
-def resolve_device(device=None) -> torch.device:
-    """None means CUDA, which must then be available."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 @dataclasses.dataclass
@@ -84,8 +82,13 @@ class RoundMetrics:
     cumulative_energy: float
     test_loss: float | None = None
     test_accuracy: float | None = None
+    # uploads that never arrived (dropout / straggler draw) and
     # arrived-but-non-finite uploads the quarantine dropped
+    n_faulted: int = 0
     n_quarantined: int = 0
+    # clients the robust reducer trimmed / clipped / excluded this round
+    # (the aggregator's `stat_field` names which); 0 on the mean path
+    n_agg_adjusted: int = 0
 
 
 def _not_ported(what: str, item: str):
@@ -123,12 +126,6 @@ class FederatedTrainer:
             _not_ported("rounds_per_dispatch != 1 (block dispatch)", "7")
         if shards not in (None, 1):
             _not_ported("shards > 1 (multi-device sharding)", "13")
-        if channel_noise is not None:
-            _not_ported("channel_noise", "9")
-        if fault_model is not None:
-            _not_ported("fault_model", "9")
-        if aggregator is not None:
-            _not_ported("aggregator (robust aggregation)", "9")
         if local_scheme is not None:
             _not_ported("local_scheme", "10")
         if client_store is not None:
@@ -156,13 +153,30 @@ class FederatedTrainer:
         self.prune_spec = prune_spec
         self.backend = backend
         self.n_fallback_rounds = 0
-        self.fault_counters = {"n_quarantined": 0, "n_skipped_rounds": 0}
+        # channel noise (wireless/channel.GaussianAggregateNoise protocol:
+        # sample_packed(round, shape, valid)), drawn on the host per round
+        # in the packed layout; the reference backend unpacks the same draw
+        self.channel_noise = channel_noise
+        self._noise_ref_pack: ParamPack | None = None
+        self._noise_valid: np.ndarray | None = None
+        # client faults (core/faults.FaultModel): host draws keyed (seed,
+        # round, kind), consumed identically by both backends
+        self.fault_model = fault_model
+        self.fault_counters = {"n_dropped": 0, "n_quarantined": 0,
+                               "n_skipped_rounds": 0, "n_corrupt_finite": 0}
+        # robust aggregation (core/aggregators.py); None keeps the mean
+        self.aggregator = aggregator
+        self.aggregator_key = (aggregator.spec_key
+                               if aggregator is not None else "mean")
+        self.agg_counters = ({aggregator.stat_field: 0}
+                             if aggregator is not None else {})
         params = {k: t.detach().to(self.device) for k, t in params.items()}
         if backend == "packed":
             self.pack = ParamPack.build(params, prune_spec)
             self.engine = RoundEngine(loss_fn, self.pack, eta=self.eta,
                                       weighted_loss_fn=self._weighted_loss,
                                       max_clients=len(self.clients),
+                                      aggregator=aggregator,
                                       device=self.device)
             self._w, self._v = self.engine.init_buffers(params)
         else:
@@ -170,6 +184,13 @@ class FederatedTrainer:
             self._params = params
             self._global_grad = {k: torch.zeros_like(t)
                                  for k, t in params.items()}
+
+    def reset(self, params: Params, seed: int, *, channel_noise=None,
+              fault_model=None) -> None:
+        """The sweep service's trainer-reuse hook (a fresh run over the same
+        wiring); not ported yet."""
+        _not_ported("FederatedTrainer.reset (trainer reuse by the sweep "
+                    "service)", "12")
 
     # Params / global gradient are stored packed on the packed backend; the
     # properties give both backends the same dict view.
@@ -269,10 +290,13 @@ class FederatedTrainer:
         return grads, masks, float(loss)
 
     @torch.no_grad()
-    def server_step(self, grads: list[Params]) -> None:
-        """Eqs. (6)-(7): average the uploads, FedSGD update. Every op is its
-        own eager dispatch, so eta*g is rounded before the subtraction,
-        exactly as the packed engine's aggregate computes it."""
+    def server_step(self, grads: list[Params],
+                    noise: Params | None = None) -> None:
+        """Eqs. (6)-(7): average the uploads, FedSGD update. `noise` (a
+        dict, `_noise_tree`) is the noisy aggregation channel: the server
+        observes mean(g) + noise and broadcasts and steps with it. Every op
+        is its own eager dispatch, so eta*g is rounded before the
+        subtraction, exactly as the packed engine's aggregate computes it."""
         if not grads:
             return
         inv = 1.0 / len(grads)
@@ -280,28 +304,145 @@ class FederatedTrainer:
         for extra in grads[1:]:
             g = {k: g[k] + extra[k] for k in g}
         g = {k: t * inv for k, t in g.items()}
+        if noise is not None:
+            g = {k: t + noise[k] for k, t in g.items()}
         self.global_grad = g
         self.params = {k: w - self.eta * g[k].to(w.dtype)
                        for k, w in self.params.items()}
 
+    # -- scenario operands (noise, poison) ----------------------------------
+
+    def _noise_layout(self) -> ParamPack:
+        """The packed layout noise and poison are drawn in: the engine's
+        pack on the packed backend, a layout-only pack on the reference
+        backend."""
+        if self.pack is not None:
+            return self.pack
+        if self._noise_ref_pack is None:
+            self._noise_ref_pack = ParamPack.build(self._params,
+                                                   self.prune_spec)
+        return self._noise_ref_pack
+
+    def _valid_lanes(self) -> np.ndarray:
+        if self._noise_valid is None:
+            self._noise_valid = self._noise_layout().valid_mask()
+        return self._noise_valid
+
+    def _noise_packed(self, s: int) -> np.ndarray:
+        """Round-s aggregation noise as a packed [R, 128] host array with
+        padding lanes zeroed."""
+        pack = self._noise_layout()
+        return self.channel_noise.sample_packed(s, (pack.rows, LANES),
+                                                self._valid_lanes())
+
+    def _noise_tree(self, s: int) -> Params:
+        """The same round-s draw as a dict (reference backend): unpack is a
+        pure gather, so every coordinate gets the packed engine's value."""
+        return self._noise_layout().unpack(
+            torch.as_tensor(self._noise_packed(s), device=self.device))
+
+    def _poison_stack(self, fault) -> np.ndarray | None:
+        """A fault draw's lazy additive poison in the packed [C_sel, R, 128]
+        layout (padding lanes 0.0), shared by both backends."""
+        if fault is None or getattr(fault, "poison", None) is None:
+            return None
+        pack = self._noise_layout()
+        return fault.poison((pack.rows, LANES), self._valid_lanes())
+
+    # -- rounds -------------------------------------------------------------
+
     def _reference_round(self, selected: list[int], lam_s: np.ndarray,
-                         batches: list):
-        """Per-client loop with host-side thresholds; a non-finite upload is
-        quarantined host-side (the eager form of the engine's guard).
-        Returns (per-client losses, surviving upload count)."""
+                         batches: list, s: int = 0, fault=None):
+        """Per-client loop with host-side thresholds, the fault draw applied
+        eagerly as the packed engine applies it: every selected client
+        computes its update, corruption factors scale the upload, poison is
+        added, uploads that never arrived are dropped, a non-finite upload
+        is quarantined, and `server_step` averages the survivors (and skips
+        the update when none survive). A robust aggregator routes through
+        `_reference_robust_round`. Returns (per-client losses, surviving
+        upload count, reducer count or None)."""
+        if self.aggregator is not None:
+            return self._reference_robust_round(selected, lam_s, batches,
+                                                s=s, fault=fault)
         grads, losses = [], []
-        for n, batch in zip(selected, batches):
+        ok = (np.asarray(fault.upload_ok, bool) if fault is not None
+              else np.ones(len(selected), bool))
+        cf = fault.corrupt if fault is not None else None
+        po = self._poison_stack(fault)
+        for j, (n, batch) in enumerate(zip(selected, batches)):
             g, _, loss = self.client_update(n, float(lam_s[n]), batch=batch)
             losses.append(loss)
+            if not ok[j]:
+                continue                     # the upload never arrived
+            if cf is not None:
+                c = torch.tensor(np.float32(cf[j]), device=self.device)
+                g = {k: t * c for k, t in g.items()}
+            if po is not None:
+                # added to EVERY arriving upload (zeros for clean clients),
+                # as the engine adds the whole stack: g + 0.0 turns -0.0
+                # into +0.0 on both backends alike
+                pz = self._noise_layout().unpack(
+                    torch.as_tensor(po[j], device=self.device))
+                g = {k: t + pz[k] for k, t in g.items()}
             if all(bool(torch.isfinite(t).all()) for t in g.values()):
                 grads.append(g)
-        self.server_step(grads)
-        return losses, len(grads)
+        self.server_step(
+            grads, noise=self._noise_tree(s) if self.channel_noise else None)
+        return losses, len(grads), None
 
-    def _round(self, selected: list[int], lam_s: np.ndarray):
+    @torch.no_grad()
+    def _reference_robust_round(self, selected: list[int],
+                                lam_s: np.ndarray, batches: list, s: int = 0,
+                                fault=None):
+        """Eager robust round over the SAME bucket-padded [C_b, R, 128]
+        stack as the packed engine: each selected client's masked gradient
+        packed at its position, faults applied as ``cf * g + poison``, the
+        effective weight ``arrived & finite``, padding rows zero with weight
+        0 (the reducers are weight-aware and bucket-capacity invariant, so
+        zero padding and the engine's replicated batches give the same
+        bits). The same `Aggregator.reduce` runs, and the update is the
+        eager form of the engine's inv = 1 tail. No survivor: no update."""
+        pack = self._noise_layout()
+        ok = (np.asarray(fault.upload_ok, bool) if fault is not None
+              else np.ones(len(selected), bool))
+        cf = fault.corrupt if fault is not None else None
+        po = self._poison_stack(fault)
+        losses, gps, cws = [], [], []
+        for j, (n, batch) in enumerate(zip(selected, batches)):
+            g, _, loss = self.client_update(n, float(lam_s[n]), batch=batch)
+            losses.append(loss)
+            gp = pack.pack(g)
+            if cf is not None:
+                gp = gp * torch.tensor(np.float32(cf[j]), device=self.device)
+            if po is not None:
+                gp = gp + torch.as_tensor(po[j], device=self.device)
+            fin = bool(torch.isfinite(gp).all())
+            gps.append(gp)
+            cws.append(1.0 if (ok[j] and fin) else 0.0)
+        c_b = bucket_capacity(len(selected), max_clients=len(self.clients))
+        zero = torch.zeros((pack.rows, LANES), dtype=torch.float32,
+                           device=self.device)
+        gps += [zero] * (c_b - len(selected))
+        cws += [0.0] * (c_b - len(selected))
+        cw = torch.as_tensor(np.asarray(cws, np.float32), device=self.device)
+        ghat, ast = self.aggregator.reduce(torch.stack(gps), cw)
+        n_ok = int(np.asarray(cws).sum())
+        if n_ok > 0:
+            g = pack.unpack(ghat)
+            if self.channel_noise:
+                nz = self._noise_tree(s)
+                g = {k: t + nz[k] for k, t in g.items()}
+            self.global_grad = g
+            self.params = {k: w - self.eta * g[k].to(w.dtype)
+                           for k, w in self.params.items()}
+        return losses, n_ok, ast
+
+    def _round(self, selected: list[int], lam_s: np.ndarray, s: int = 0,
+               fault=None):
         """Steps 2-4 for one round; batches are drawn once, in selected
         order, so both backends consume the identical RNG sequence.
-        Returns (losses, n_ok) without synchronizing on the packed path."""
+        Returns (losses, n_ok, agg_stat) without synchronizing on the packed
+        path (agg_stat is None on the mean path)."""
         batches = [self._sample_batch(self.clients[n]) for n in selected]
         stackable = len({b[0].shape for b in batches}) <= 1
         if self.backend == "packed" and not stackable:
@@ -314,7 +455,8 @@ class FederatedTrainer:
             # reference loop, through the dict views of the packed buffers
             self.n_fallback_rounds += 1
         if self.backend != "packed" or not stackable:
-            return self._reference_round(selected, lam_s, batches)
+            return self._reference_round(selected, lam_s, batches, s=s,
+                                         fault=fault)
         lam_sel = np.asarray([lam_s[n] for n in selected], np.float64)
         xs = torch.as_tensor(np.stack([b[0] for b in batches]),
                              device=self.device)
@@ -325,8 +467,15 @@ class FederatedTrainer:
             self._w, self._v, xs, ys, lam_sel,
             # all-ones weights carry no information: the engine keeps a
             # device copy of them
-            sample_weights=None if sws.all() else sws)
-        return losses, self.engine.last_n_ok
+            sample_weights=None if sws.all() else sws,
+            noise=self._noise_packed(s) if self.channel_noise else None,
+            upload_weights=(fault.upload_ok.astype(np.float32)
+                            if fault is not None else None),
+            corrupt=fault.corrupt if fault is not None else None,
+            poison=self._poison_stack(fault))
+        ast = (self.engine.last_agg_stat if self.aggregator is not None
+               else None)
+        return losses, self.engine.last_n_ok, ast
 
     # -- full run -----------------------------------------------------------
 
@@ -356,23 +505,52 @@ class FederatedTrainer:
         if start_round:
             _not_ported("run(start_round=...) (checkpoint resume)", "8")
         history: list[RoundMetrics] = []
-        pending: list[tuple[RoundMetrics, Any, Any]] = []
+        # rounds whose losses / survivor counts are still device values:
+        # (metrics, losses, n_ok, fault draw, reducer count)
+        pending: list[tuple[RoundMetrics, Any, Any, Any, Any]] = []
 
         def materialize():
-            for m, losses, n_ok in pending:
+            for m, losses, n_ok, fault, ast in pending:
+                mask = (np.asarray(fault.upload_ok, bool)
+                        if fault is not None else None)
                 if losses is not None:
                     if isinstance(losses, torch.Tensor):
                         losses = losses.cpu()
+                    # float64 mean over the arrived uploads' fp32 losses
+                    # (the server never observes a dropped client's loss)
                     arr = np.asarray(losses, np.float64)
+                    if mask is not None:
+                        arr = arr[mask]
                     m.train_loss = (float(arr.mean()) if arr.size
                                     else float("nan"))
                 n_sel = len(m.selected)
+                n_up = int(mask.sum()) if mask is not None else n_sel
+                m.n_faulted = n_sel - n_up
                 if n_ok is not None:
                     ok = int(n_ok)
-                    m.n_quarantined = max(0, n_sel - ok)
+                    m.n_quarantined = max(0, n_up - ok)
                     if n_sel and ok == 0:
                         self.fault_counters["n_skipped_rounds"] += 1
+                self.fault_counters["n_dropped"] += m.n_faulted
                 self.fault_counters["n_quarantined"] += m.n_quarantined
+                # corrupt-but-FINITE arrivals, which the isfinite guard
+                # cannot see, counted from the draw
+                if fault is not None:
+                    arrived = (mask if mask is not None
+                               else np.ones(n_sel, bool))
+                    ncf = 0
+                    if fault.corrupt is not None:
+                        cfv = np.asarray(fault.corrupt, np.float64)
+                        ncf += int((arrived & np.isfinite(cfv)
+                                    & (cfv != 1.0)).sum())
+                    flags = getattr(fault.poison, "flags", None)
+                    if flags is not None:
+                        ncf += int((arrived & np.asarray(flags, bool)).sum())
+                    self.fault_counters["n_corrupt_finite"] += ncf
+                if ast is not None and self.aggregator is not None:
+                    m.n_agg_adjusted = int(ast)
+                    self.agg_counters[self.aggregator.stat_field] += \
+                        m.n_agg_adjusted
             pending.clear()
 
         n_rounds = schedule.a.shape[0]
@@ -388,24 +566,32 @@ class FederatedTrainer:
             e = round_energy(a_s, lam_s, p_s, f_s, h_up, h_down, sp)
             cum_t += d
             cum_e += e
-            infos.append((selected, lam_s, d, e, cum_t, cum_e))
+            fault = None
+            if self.fault_model is not None and selected:
+                sel_arr = np.asarray(selected, int)
+                fault = self.fault_model.draw(
+                    s, len(self.clients), sel_arr,
+                    delays=per[sel_arr], deadline=d)
+            infos.append((selected, lam_s, d, e, cum_t, cum_e, fault))
             if stop_delay is not None and cum_t >= stop_delay:
                 break
             if stop_energy is not None and cum_e >= stop_energy:
                 break
 
-        for s, (selected, lam_s, d, e, cum_t, cum_e) in enumerate(infos):
+        for s, (selected, lam_s, d, e, cum_t, cum_e,
+                fault) in enumerate(infos):
             if selected:
-                losses, n_ok = self._round(selected, lam_s)
+                losses, n_ok, ast = self._round(selected, lam_s, s=s,
+                                                fault=fault)
             else:
-                losses = n_ok = None
+                losses = n_ok = ast = None
             m = RoundMetrics(
                 round=s, train_loss=float("nan"), selected=selected,
                 mean_lambda=(float(lam_s[selected].mean())
                              if selected else 0.0),
                 delay=d, energy=e,
                 cumulative_delay=cum_t, cumulative_energy=cum_e)
-            pending.append((m, losses, n_ok))
+            pending.append((m, losses, n_ok, fault, ast))
             if eval_fn is not None and (s % eval_every == 0
                                         or s == n_rounds - 1):
                 materialize()

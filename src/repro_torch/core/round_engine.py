@@ -1,7 +1,7 @@
 """Single-device packed round engine (paper Sec. II-A, eqs. 2-7).
 
-The port of ``repro/core/round_engine.py`` (its single-device, mean-
-aggregate paths). One ``round_step`` runs a whole FedSGD round on the
+The port of ``repro/core/round_engine.py`` (its single-device, one-round-
+per-dispatch paths). One ``round_step`` runs a whole FedSGD round on the
 device over the packed ``[R, 128]`` parameter buffer (core/packing.py):
 
   1. importance Q = (w * v)^2 (eq. 4), denormals zero;
@@ -12,14 +12,19 @@ device over the packed ``[R, 128]`` parameter buffer (core/packing.py):
      every selected client has the same k, else one mask per client;
   4. per-client mini-batch gradients on the pruned model (eq. 5), taken by
      autograd with respect to the packed buffer, masked on the device;
-  5. the non-finite quarantine, then the fused weighted aggregate + FedSGD
-     step kernel (eqs. 6-7); the mean gradient is the next round's v.
+  5. the fault operands (per-client factors `cf`, additive poison), the
+     non-finite quarantine, then the fused weighted aggregate + FedSGD step
+     kernel (eqs. 6-7) — or, with a robust `aggregator`, its reducer (the
+     rank-sort kernel for the median and the trimmed mean) and the same
+     update tail with inv = 1; with channel noise the server steps with
+     mean + noise. The aggregate is the next round's v.
 
 The client axis is padded to the JAX package's bucket size (`bucket_capacity`);
 padding clients replicate the last real batch and carry weight 0, so they
 never touch the update. Ragged clients ride per-sample 0/1 weights through
 the weighted loss. Only the integers k and the scalar 1/C come from the
-host; nothing in the round syncs the device.
+host, with the fault and noise operands; nothing in the round syncs the
+device.
 
 On the CPU the kernels' plain versions run and the engine reproduces the
 reference trainer value for value; on CUDA the kernels are bit-identical to
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import ParamPack
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -109,26 +115,36 @@ class RoundEngine:
     loss_fn(params, x, y) -> scalar is differentiated through `pack.unpack`,
     so gradients live on the packed buffer. weighted_loss_fn(params, x, y,
     sample_weights) carries ragged clients; without it sample weights are
-    ignored. The kernels are the CUDA ones on a CUDA device and their plain
-    versions on the CPU (kernels/ops.py, impl="auto").
+    ignored. `aggregator` (core/aggregators.py) replaces the weighted mean
+    with a robust reducer; None keeps the mean path. The kernels are the
+    CUDA ones on a CUDA device and their plain versions on the CPU
+    (kernels/ops.py, impl="auto"); device=None means CUDA.
     """
 
     def __init__(self, loss_fn: Callable, pack: ParamPack, *, eta: float,
                  weighted_loss_fn: Callable | None = None,
-                 max_clients: int | None = None, device="cpu"):
+                 max_clients: int | None = None, aggregator=None,
+                 device=None):
         self.pack = pack
         self.eta = float(eta)
         self.max_clients = int(max_clients) if max_clients else None
-        self.device = torch.device(device)
+        self.aggregator = aggregator
+        self.device = resolve_device(device)
         self.prunable = torch.as_tensor(pack.prunable_mask(),
                                         device=self.device)
         self._eta = torch.tensor(np.float32(eta), device=self.device)
+        self._one = torch.tensor(np.float32(1.0), device=self.device)
+        self._zero_stat = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
         self.buckets_used: set[int] = set()
         # device constants by (bucket, selected count) / sample-weight shape
         self._cw_cache: dict[tuple, torch.Tensor] = {}
         self._sw_cache: dict[tuple, torch.Tensor] = {}
         # survivor count of the most recent round (lazy device int32)
         self.last_n_ok = None
+        # the robust reducer's count of the most recent round (clients
+        # trimmed / clipped / excluded; 0 on the mean path), lazy int32
+        self.last_agg_stat = None
         if weighted_loss_fn is not None:
             def packed_loss(wp, x, y, sw):
                 return weighted_loss_fn(pack.unpack(wp), x, y, sw)
@@ -166,35 +182,66 @@ class RoundEngine:
             grads.append(g * masks[c])
         return torch.stack(losses), torch.stack(grads)
 
-    def _aggregate_update(self, w, v, grads, cw, inv):
-        """Quarantine + weighted aggregate + FedSGD step. When no client
-        survives the quarantine, (w, v) are carried unchanged."""
+    def _aggregate_update(self, w, v, grads, cw, inv, noise=None, cf=None,
+                          poison=None):
+        """Faults, quarantine, aggregate and FedSGD step.
+
+        `cf` ([C] per-client factors, 1.0 = clean) scales each client's
+        masked gradient, then `poison` ([C, R, L], zero = clean) is added —
+        the corrupt-upload and byzantine axes (core/faults.py). The
+        always-on non-finite guard zeroes the weight of any client that went
+        non-finite and renormalizes over the survivors. A robust aggregator
+        then reduces the stack with those weights and its survivor-normalized
+        aggregate takes the update tail with inv = 1.0 (exact); the mean
+        path takes the weighted aggregate kernel, or, with channel `noise`
+        ([R, L], zero on padding lanes), the plain weighted sum and the tail
+        that rounds inv*gsum before adding the noise. When no client
+        survives, (w, v) are carried unchanged.
+        Returns (w', v', step, n_ok, agg_stat)."""
+        if cf is not None:
+            grads = grads * cf[:, None, None]
+        if poison is not None:
+            grads = grads + poison
         cw_eff, inv_eff, n_ok, alive = ops.packed_client_quarantine(
             grads, cw, inv)
-        w2, g, step = ops.packed_fedsgd_update_weighted(
-            w, grads, cw_eff, inv_eff, self._eta)
+        if self.aggregator is not None:
+            ghat, ast = self.aggregator.reduce(grads, cw_eff)
+            w2, g, step = ops.packed_apply_mean_update(
+                w, ghat, self._one, self._eta, noise=noise)
+        elif noise is None:
+            ast = self._zero_stat
+            w2, g, step = ops.packed_fedsgd_update_weighted(
+                w, grads, cw_eff, inv_eff, self._eta)
+        else:
+            ast = self._zero_stat
+            gsum = ops.packed_weighted_grad_sum(grads, cw_eff)
+            w2, g, step = ops.packed_apply_mean_update(
+                w, gsum, inv_eff, self._eta, noise=noise)
         w2 = torch.where(alive, w2, w)
         g = torch.where(alive, g, v)
-        return w2, g, step, n_ok
+        return w2, g, step, n_ok, ast
 
-    def _round_shared(self, w, v, xs, ys, sw, cw, inv, k):
-        """One shared-lambda round."""
+    def _round_shared(self, w, v, xs, ys, sw, cw, inv, k, **faults):
+        """One shared-lambda round; `faults` are _aggregate_update's
+        noise / cf / poison."""
         q = ops.importance(w, v)
         thr = kth_smallest_threshold(q, self.prunable, k)
         _, mask = ops.packed_importance_mask(w, v, self.prunable, thr)
         pruned = w * mask
         losses, grads = self._grads_shared(pruned, mask, xs, ys, sw)
-        w2, g, step, n_ok = self._aggregate_update(w, v, grads, cw, inv)
-        return w2, g, losses, thr, step, n_ok
+        w2, g, step, n_ok, ast = self._aggregate_update(w, v, grads, cw, inv,
+                                                        **faults)
+        return w2, g, losses, thr, step, n_ok, ast
 
-    def _round_multi(self, w, v, xs, ys, sw, cw, inv, ks):
+    def _round_multi(self, w, v, xs, ys, sw, cw, inv, ks, **faults):
         """One per-client-lambda round."""
         q = ops.importance(w, v)
         thr = kth_smallest_threshold(q, self.prunable, ks)      # [C]
         _, masks = ops.packed_importance_masks(w, v, self.prunable, thr)
         losses, grads = self._grads_multi(w, masks, xs, ys, sw)
-        w2, g, step, n_ok = self._aggregate_update(w, v, grads, cw, inv)
-        return w2, g, losses, thr, step, n_ok
+        w2, g, step, n_ok, ast = self._aggregate_update(w, v, grads, cw, inv,
+                                                        **faults)
+        return w2, g, losses, thr, step, n_ok, ast
 
     # -- public API ---------------------------------------------------------
 
@@ -206,13 +253,25 @@ class RoundEngine:
         return w, torch.zeros_like(w)
 
     @torch.no_grad()
-    def round_step(self, w, v, xs, ys, lams, sample_weights=None):
+    def round_step(self, w, v, xs, ys, lams, sample_weights=None,
+                   noise=None, upload_weights=None, corrupt=None,
+                   poison=None):
         """One full round. xs: [C, B, ...], ys: [C, B] (tensors or arrays),
         lams: [C] host-side pruning ratios of the selected clients;
         sample_weights: optional [C, B] 0/1 per-sample weights (ragged
-        clients padded to B). Returns (w', v', losses [C], threshold, step),
-        all device tensors; nothing is synced to the host (`last_n_ok`
-        holds the round's lazy survivor count)."""
+        clients padded to B).
+
+        The scenario operands, all host arrays: `noise` [R, L] aggregation
+        channel noise (zero on padding lanes) added to the aggregate before
+        the update; `upload_weights` [C] 0/1 — 0 marks an upload that never
+        arrived (the client rides the padding path, and the host mean scalar
+        renormalizes over the survivors); `corrupt` [C] gradient factors
+        (1.0 clean, NaN poisoned); `poison` [C, R, L] additive upload
+        poison (zeros for clean clients).
+
+        Returns (w', v', losses [C], threshold, step), all device tensors;
+        nothing is synced to the host (`last_n_ok` and `last_agg_stat` hold
+        the round's lazy survivor count and reducer count)."""
         lams = np.atleast_1d(np.asarray(lams, np.float64))
         if np.any((lams < 0.0) | (lams >= 1.0)):
             raise ValueError(f"lambda must be in [0,1), got {lams}")
@@ -244,24 +303,60 @@ class RoundEngine:
             xs, ys = tile(xs), tile(ys)
             if sample_weights is not None:
                 sw = tile(sw)
-        cw = self._cw_cache.get((c_b, n_clients))
-        if cw is None:
+        if upload_weights is None:
+            cw = self._cw_cache.get((c_b, n_clients))
+            if cw is None:
+                cw_host = np.zeros(c_b, np.float32)
+                cw_host[:n_clients] = 1.0
+                cw = self._cw_cache[(c_b, n_clients)] = torch.as_tensor(
+                    cw_host, device=dev)
+            # 1/C on host, like the reference server_step's 1/len(grads)
+            inv = np.float32(1.0 / n_clients)
+        else:
+            # the fault draw rides the padding clients' 0/1 weight operand;
+            # the mean renormalizes over the survivors exactly as the
+            # reference server_step's 1/len(surviving grads) does
+            uw = np.asarray(upload_weights, np.float32)
+            if uw.shape != (n_clients,):
+                raise ValueError(
+                    f"upload_weights shape {uw.shape} != ({n_clients},)")
             cw_host = np.zeros(c_b, np.float32)
-            cw_host[:n_clients] = 1.0
-            cw = self._cw_cache[(c_b, n_clients)] = torch.as_tensor(
-                cw_host, device=dev)
-        # 1/C on host, like the reference server_step's 1/len(grads)
-        inv = np.float32(1.0 / n_clients)
+            cw_host[:n_clients] = uw
+            cw = torch.as_tensor(cw_host, device=dev)
+            surv = float(np.asarray(uw, np.float64).sum())
+            inv = np.float32(1.0 / surv) if surv > 0 else np.float32(0.0)
+        faults = {}
+        if poison is not None:
+            po = np.asarray(poison, np.float32)
+            if po.shape[0] != n_clients:
+                raise ValueError(
+                    f"poison leading dim {po.shape[0]} != {n_clients}")
+            if pad:
+                # padding clients stay clean: the additive identity is 0
+                po = np.concatenate(
+                    [po, np.zeros((pad,) + po.shape[1:], np.float32)])
+            faults["poison"] = torch.as_tensor(po, device=dev)
+        if corrupt is not None or poison is not None:
+            cf_host = np.ones(c_b, np.float32)   # padding clients clean
+            if corrupt is not None:
+                cf_host[:n_clients] = np.asarray(corrupt, np.float32)
+            faults["cf"] = torch.as_tensor(cf_host, device=dev)
+        if noise is not None:
+            faults["noise"] = torch.as_tensor(np.asarray(noise, np.float32),
+                                              device=dev)
 
         if np.all(ks == ks[0]):
-            out = self._round_shared(w, v, xs, ys, sw, cw, inv, int(ks[0]))
+            out = self._round_shared(w, v, xs, ys, sw, cw, inv, int(ks[0]),
+                                     **faults)
         else:
             ks_b = np.concatenate(
                 [ks, np.full(pad, ks[-1], np.int32)]) if pad else ks
             out = self._round_multi(w, v, xs, ys, sw, cw, inv,
-                                    torch.as_tensor(ks_b, device=dev))
-        w2, g, losses, thr, step, n_ok = out
+                                    torch.as_tensor(ks_b, device=dev),
+                                    **faults)
+        w2, g, losses, thr, step, n_ok, ast = out
         self.last_n_ok = n_ok
+        self.last_agg_stat = ast
         if pad:
             losses = losses[:n_clients]
             if thr.ndim:                      # per-client thresholds

@@ -36,6 +36,14 @@ _SIGNATURES = {
                                   ctypes.c_longlong, _P, _P, _P, _P),
     # q, prunable, n, hist, stream
     "exponent_histogram": (_P, _P, ctypes.c_longlong, _P, _P),
+    # w, grads, n_clients, inv, eta, n, w_out, g_out, step_out, stream
+    "fedsgd_aggregate": (_P, _P, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_float, ctypes.c_longlong, _P, _P, _P, _P),
+    # w, g, mask, eta, n, out, stream
+    "masked_update": (_P, _P, _P, ctypes.c_float, ctypes.c_longlong, _P, _P),
+    # grads, cw, n_clients, n, out, keys (scratch for C > 32), stream
+    "client_rank_sort": (_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P,
+                         _P),
 }
 
 _lock = threading.Lock()

@@ -9,17 +9,29 @@ mirrors ``repro/kernels/ops.py`` and only checks that choice:
   * "cuda"  — the kernel; raises on a CPU tensor;
   * "torch" — the plain version; raises on a CUDA tensor.
 
-The quarantine, the weighted sum and the mean-update tail are plain torch
-in both packages' non-kernel paths; eager torch rounds every op on its own,
-so the FedSGD step's ``eta * g`` is never FMA-contracted with the
-subtraction (the fence ``repro/kernels/ops._rounded_product`` builds inside
-a jitted graph is implicit here).
+The quarantine, the weighted sum, the mean-update tail and the robust
+reducers around the rank sort are plain torch, as the JAX package computes
+them outside any Pallas kernel; eager torch rounds every op on its own, so
+the FedSGD step's ``eta * g`` is never FMA-contracted with the subtraction
+(the fence ``repro/kernels/ops._rounded_product`` builds inside a jitted
+graph is implicit here).
+
+Denormals in the reducers: XLA:CPU (and the TPU) treat subnormal inputs as
+zero and flush a result whose exact value is below FLT_MIN to a zero of its
+sign. The median's ``(lo + hi) * 0.5`` and the trimmed mean's sum and
+scale are the reducers' own arithmetic on gradient values, so their plain
+versions here state the same flush (``_flush``, ``_flush_mul``);
+tests/test_torch_aggregators.py pins it against the JAX package.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import pruning_mask as _pm
+
+LANES = _pm.LANES
+FLT_MIN = _pm.FLT_MIN
+INT32_MAX = _pm.INT32_MAX
 
 # q = (w*v)^2 with denormals zero: the round engine's threshold input
 importance = _pm.importance
@@ -62,6 +74,54 @@ def packed_fedsgd_update_weighted(w, grads, cweights, inv, eta, *,
     return _pm.fedsgd_aggregate_weighted(w, grads, cweights, inv, eta)
 
 
+def packed_fedsgd_update(w, grads, eta, *, impl="auto"):
+    """Unweighted eqs. (6)-(7): average the stacked masked gradients
+    [C,R,128] and take the FedSGD step, returning (w', mean_grad, step).
+    Not used by the round engine (which always aggregates with weights);
+    with all-ones weights and inv = float32(1/C) the weighted entry point
+    gives the same bits wherever the first client's gradient is not -0.0."""
+    _check_impl(impl, w)
+    return _pm.fedsgd_aggregate(w, grads, eta)
+
+
+def packed_masked_update(w, g, mask, eta, *, impl="auto"):
+    """(w - eta*g) * mask on one packed buffer, one launch for the whole
+    model: the packed form of the per-leaf `masked_update`, for
+    pruned-checkpoint workflows (the round engine never masks w). Each op is
+    rounded on its own, as the JAX package's eager
+    ``ref.masked_update_ref``; its jitted ``ops.packed_masked_update``
+    contracts w - eta*g into an FMA and can differ by the rounding of
+    eta*g."""
+    _check_impl(impl, w)
+    return _pm.masked_update_2d(w, g, mask, eta)
+
+
+def _to_tiles(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Any tensor -> ([rows, 128] zero-padded fp32 tiles, element count)."""
+    flat = x.reshape(-1).float()
+    n = flat.shape[0]
+    pad = (-n) % LANES
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, LANES).contiguous(), n
+
+
+def _from_tiles(t: torch.Tensor, n: int, shape, dtype) -> torch.Tensor:
+    return t.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def masked_update(w, g, mask, eta, *, impl="auto"):
+    """(w - eta*g) * mask for one tensor of any shape (per-leaf form of
+    `packed_masked_update`): flattened, zero-padded to whole 128-lane rows,
+    one kernel launch, and cut back to w's shape and dtype."""
+    _check_impl(impl, w)
+    wt, n = _to_tiles(w)
+    gt, _ = _to_tiles(g)
+    mt, _ = _to_tiles(mask)
+    return _from_tiles(_pm.masked_update_2d(wt, gt, mt, eta), n, w.shape,
+                       w.dtype)
+
+
 # the plain tail pieces, as the JAX package's ops names them
 packed_weighted_grad_sum = _pm.weighted_grad_sum
 packed_apply_mean_update = _pm.apply_mean_update
@@ -86,3 +146,145 @@ def packed_client_quarantine(grads, cweights, inv):
         torch.where(n_ok > 0.0, 1.0 / torch.clamp(n_ok, min=1.0),
                     torch.zeros_like(n_ok)))
     return cw_eff, inv_eff, n_ok.int(), n_ok > 0.0
+
+
+# -- robust aggregation ---------------------------------------------------------
+
+def packed_client_rank_sort(grads, cweights, *, impl="auto"):
+    """Per-coordinate rank sort along the client axis of a [C, R, 128]
+    stack; zero-weight (padding / quarantined) clients sort last, so every
+    rank < n_valid holds a real value. The client_rank_sort kernel on CUDA,
+    its stable-sort plain version on the CPU."""
+    _check_impl(impl, grads)
+    return _pm.client_rank_sort(grads, cweights)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's denormals-are-zero: a subnormal becomes a zero of its
+    sign."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+
+
+def _flush_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b flushed as XLA:CPU flushes it: to a zero of the product's sign
+    when the exact product is below FLT_MIN, even where it rounds up to
+    FLT_MIN (a product of two fp32 values is exact in fp64)."""
+    y = a * b
+    tiny = (a.double() * b.double()).abs() < FLT_MIN
+    return torch.where(tiny, y * 0.0, y)
+
+
+def _at_rank(sorted_vals: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """sorted_vals[rank] for a device int scalar rank (no host sync)."""
+    return sorted_vals.index_select(0, rank.reshape(1).long())[0]
+
+
+def _sorted_median(sorted_vals, nn):
+    """Midpoint of ranks (nn-1)//2 and nn//2 of a rank-sorted stack: the
+    median over the nn valid lanes, with the flush of every input and of the
+    sum and the halving."""
+    lo = _flush(_at_rank(sorted_vals, (nn - 1) // 2))
+    hi = _flush(_at_rank(sorted_vals, nn // 2))
+    return _flush_mul(_flush(lo + hi), torch.full_like(lo, 0.5))
+
+
+def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
+                            beta=0.1, tau=None, f=1, m=None):
+    """Weight-aware Byzantine-robust reduction of a packed gradient stack:
+    the port of ``repro/kernels/ops.py::packed_robust_aggregate``.
+
+    grads: [C, R, 128] stacked per-client masked gradients; cweights: [C]
+    effective validity weights (0 marks padding, dropped and quarantined
+    clients: `packed_client_quarantine`'s cw_eff). Returns ``(ghat,
+    stat)``: the survivor-normalized robust aggregate [R, 128] fp32 (the
+    caller applies it with inv = 1.0) and an int32 diagnostic count
+    (clients trimmed / clipped / excluded; 0 when nobody is valid).
+    Zero-weight lanes never influence an output bit, so the result is
+    invariant to the bucket capacity C. Nothing here syncs the host.
+
+    Kinds: "coord_median" and "trimmed_mean" sort through the
+    client_rank_sort kernel; "norm_clip" (min(1, tau/||g_c||), tau None or
+    <= 0: the median valid norm) and "multi_krum" (keep the m, default
+    n-f, clients with the smallest sums of their n-f-2 nearest squared
+    distances; one Gram matmul) are plain torch, as in the JAX package.
+    The norms and the Gram matrix reduce in torch's order, not XLA's."""
+    g = grads.float()
+    cw = cweights.float()
+    dev = g.device
+    valid = cw > 0.0
+    n = valid.int().sum()
+    nn = torch.clamp(n, min=1)
+    c_b = g.shape[0]
+    if kind == "coord_median":
+        sv = packed_client_rank_sort(g, cw, impl=impl)
+        ghat = _sorted_median(sv, nn)
+        # clients outside the (one- or two-element) median window
+        stat = torch.clamp(n - 2 + (n & 1), min=0)
+    elif kind == "trimmed_mean":
+        if not 0.0 <= beta < 0.5:
+            raise ValueError(f"trimmed_mean beta must be in [0, 0.5), "
+                             f"got {beta}")
+        sv = packed_client_rank_sort(g, cw, impl=impl)
+        t = torch.floor(_pm.f32_scalar(beta, g) * nn.float()).int()
+        keep = torch.clamp(nn - 2 * t, min=1)
+        acc = torch.zeros(g.shape[1:], dtype=torch.float32, device=dev)
+        for c in range(c_b):                 # rank order
+            acc = torch.where((c >= t) & (c < nn - t),
+                              _flush(acc + _flush(sv[c])), acc)
+        ghat = _flush_mul(acc, 1.0 / keep.float())
+        stat = torch.minimum(2 * t, n)
+    elif kind == "norm_clip":
+        gm = g.reshape(c_b, -1)
+        norms = torch.sqrt((gm * gm).sum(dim=1))
+        if tau is None or float(tau) <= 0.0:
+            key = torch.where(valid, _pm.order_keys(norms),
+                              torch.full_like(n, INT32_MAX))
+            idx = torch.sort(key, stable=True).indices
+            tau_t = _sorted_median(norms[idx], nn)
+        else:
+            tau_t = _pm.f32_scalar(tau, g)
+        # a quarantined client's NaN norm fails both compares: factor 1.0,
+        # and its weight is already 0 in the sum
+        clipped = valid & (norms > tau_t)
+        factor = torch.where(norms > tau_t, tau_t / norms,
+                             torch.ones_like(norms))
+        gsum = packed_weighted_grad_sum(g * factor[:, None, None], cw)
+        ghat = gsum * (1.0 / nn.float())
+        stat = clipped.int().sum()
+    elif kind == "multi_krum":
+        if int(f) < 0:
+            raise ValueError(f"multi_krum f must be >= 0, got {f}")
+        if m is not None and int(m) < 1:
+            raise ValueError(f"multi_krum m must be >= 1, got {m}")
+        gm = g.reshape(c_b, -1)
+        gram = gm @ gm.T                     # one matmul: all pairwise inners
+        sq = torch.diagonal(gram)
+        # 2*gram is exact, so no contraction can perturb the expression
+        d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+        inf = torch.full_like(d2, float("inf"))
+        eye = torch.eye(c_b, dtype=torch.bool, device=dev)
+        pair_ok = valid[:, None] & valid[None, :] & ~eye
+        sd = torch.sort(torch.where(pair_ok, d2, inf), dim=1).values
+        # each valid row has n-1 finite entries and k_nb <= n-2, so no +inf
+        # sentinel reaches a valid client's score
+        k_nb = torch.clamp(n - int(f) - 2, min=1, max=max(c_b - 1, 1))
+        score = torch.zeros(c_b, dtype=torch.float32, device=dev)
+        for j in range(c_b):                 # rank order
+            score = torch.where(j < k_nb, score + sd[:, j], score)
+        score = torch.where(valid, score, inf[0])
+        # valid clients first even on tied +inf scores (the sentinel is
+        # strictly above the +inf key), stable on remaining ties
+        skey = torch.where(valid, _pm.order_keys(score),
+                           torch.full_like(n, INT32_MAX))
+        m_sel = n - int(f) if m is None else torch.full_like(n, int(m))
+        m_sel = torch.minimum(torch.clamp(m_sel, min=1), nn)
+        order = torch.sort(skey, stable=True).indices
+        rank_ok = (torch.arange(c_b, device=dev) < m_sel).float()
+        sel = torch.zeros(c_b, dtype=torch.float32, device=dev).scatter(
+            0, order, rank_ok)
+        gsum = packed_weighted_grad_sum(g, sel * cw)
+        ghat = gsum * (1.0 / m_sel.float())
+        stat = torch.clamp(n - m_sel, min=0)
+    else:
+        raise ValueError(f"unknown robust aggregate kind {kind!r}")
+    return ghat, stat.int()

@@ -1,4 +1,4 @@
-"""The pruned-FedSGD round's kernels: CUDA wrappers and plain versions.
+"""The federated round's kernels: CUDA wrappers and plain versions.
 
 Each function here has three parts:
 
@@ -22,17 +22,24 @@ prune every zero-importance weight that JAX keeps.
 
 Shapes follow the packed layout: buffers [R, 128*k] fp32, client stacks
 [C, R, 128*k] fp32.
+
+The client-rank sort moves bits and does no arithmetic, so it needs no
+flush; the robust reducers that consume it state theirs (kernels/ops.py).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 LANES = 128
 FLT_MIN = torch.finfo(torch.float32).tiny
+INT32_MAX = 2**31 - 1
 
 # one count per kernel, bumped only where the kernel is launched
 LAUNCHES = {"importance_mask_2d": 0, "importance_mask_batched": 0,
-            "fedsgd_aggregate_weighted": 0, "exponent_histogram": 0}
+            "fedsgd_aggregate_weighted": 0, "exponent_histogram": 0,
+            "fedsgd_aggregate": 0, "client_rank_sort": 0,
+            "masked_update_2d": 0}
 
 
 def reset_launches() -> None:
@@ -74,10 +81,14 @@ def weighted_grad_sum(grads, cweights):
     return acc
 
 
-def apply_mean_update(w, gsum, inv, eta):
-    """g = gsum * inv, step = eta * g, w' = w - step: (w', g, step). Eager
-    torch rounds every op on its own, so nothing is FMA-contracted."""
+def apply_mean_update(w, gsum, inv, eta, noise=None):
+    """g = gsum * inv (+ noise), step = eta * g, w' = w - step: (w', g,
+    step). Eager torch rounds every op on its own, so nothing is
+    FMA-contracted: the product inv * gsum is rounded before the noise is
+    added, as the JAX package's fenced noisy tail does."""
     g = gsum * inv
+    if noise is not None:
+        g = g + noise
     step = eta * g
     return w.float() - step, g, step
 
@@ -85,6 +96,49 @@ def apply_mean_update(w, gsum, inv, eta):
 def fedsgd_aggregate_weighted_plain(w, grads, cweights, inv, eta):
     """(w', g, step) of the weighted FedSGD step."""
     return apply_mean_update(w, weighted_grad_sum(grads, cweights), inv, eta)
+
+
+def f32_scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A host scalar as an fp32 0-dim tensor on `like`'s device (rounded
+    from double as jnp.asarray(x, float32) rounds it)."""
+    return torch.tensor(np.float32(x), device=like.device)
+
+
+def fedsgd_aggregate_plain(w, grads, eta):
+    """(w', g, step) of the unweighted FedSGD step: the sum in client-stack
+    order from the first client's gradient, times float32(1/C)."""
+    acc = grads[0].float()
+    for c in range(1, grads.shape[0]):
+        acc = acc + grads[c].float()
+    return apply_mean_update(w, acc, f32_scalar(1.0 / grads.shape[0], w),
+                             f32_scalar(eta, w))
+
+
+def masked_update_plain(w, g, mask, eta):
+    """(w - eta*g) * mask, each op rounded on its own."""
+    return (w.float() - f32_scalar(eta, w) * g.float()) * mask.float()
+
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Monotone int32 total-order keys of fp32 values: b ^ ((b >> 31) &
+    0x7fffffff) on the bit pattern (an arithmetic shift) compares like the
+    values, -0.0 strictly below +0.0."""
+    b = x.float().contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def client_rank_sort_plain(grads, cweights):
+    """[C, R, L] sorted per coordinate along the client axis by
+    `order_keys`, zero-weight clients keyed INT32_MAX (last): a stable sort
+    of the keys and a gather, bitwise the transposition network's output on
+    every rank (the network swaps only on a strict >, so it is stable)."""
+    g = grads.float()
+    key = order_keys(g)
+    invalid = ~(cweights.float() > 0.0)
+    key = torch.where(invalid[:, None, None],
+                      torch.full_like(key, INT32_MAX), key)
+    idx = torch.sort(key, dim=0, stable=True).indices
+    return torch.gather(g, 0, idx)
 
 
 def exponent_histogram_plain(q, prunable):
@@ -211,6 +265,86 @@ def fedsgd_aggregate_weighted(w, grads, cweights, inv, eta):
               *(o.data_ptr() for o in outs), _stream(w))
     LAUNCHES["fedsgd_aggregate_weighted"] += 1
     return tuple(outs)
+
+
+def fedsgd_aggregate(w, grads, eta):
+    """Unweighted eqs. (6)-(7) fused: (w', g, step) from one pass.
+
+    Replaces ``repro/kernels/pruning_mask.py::fedsgd_aggregate``. w: [R,L];
+    grads: [C,R,L]; eta: host scalar. g = (g[0] + ... + g[C-1]) *
+    float32(1/C), rounded op by op in the order the xla mirror writes
+    (step = eta * g, w' = w - step). Bound by bytes:
+    reads w and C gradients, writes three buffers."""
+    if not w.is_cuda:
+        return fedsgd_aggregate_plain(w, grads, eta)
+    from repro_torch.kernels import _build
+    shape = _packed_shape(w)
+    n_clients = int(grads.shape[0])
+    if n_clients < 1:
+        raise ValueError("need at least one client gradient")
+    _check("w", w, shape, w.device)
+    _check("grads", grads, (n_clients,) + shape, w.device)
+    outs = [torch.empty(shape, dtype=torch.float32, device=w.device)
+            for _ in range(3)]
+    with torch.cuda.device(w.device):
+        _call(_build.load().fedsgd_aggregate, w.data_ptr(), grads.data_ptr(),
+              n_clients, float(np.float32(1.0 / n_clients)),
+              float(np.float32(eta)), w.numel(),
+              *(o.data_ptr() for o in outs), _stream(w))
+    LAUNCHES["fedsgd_aggregate"] += 1
+    return tuple(outs)
+
+
+def masked_update_2d(w, g, mask, eta):
+    """Fused (w - eta*g) * mask on one packed buffer.
+
+    Replaces ``repro/kernels/pruning_mask.py::masked_update_2d``. w, g,
+    mask: [R, 128*k] fp32; eta: host scalar. Bound by bytes: 3 reads and 1
+    write of one buffer."""
+    if not w.is_cuda:
+        return masked_update_plain(w, g, mask, eta)
+    from repro_torch.kernels import _build
+    shape = _packed_shape(w)
+    for nm, t in (("w", w), ("g", g), ("mask", mask)):
+        _check(nm, t, shape, w.device)
+    out = torch.empty(shape, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        _call(_build.load().masked_update, w.data_ptr(), g.data_ptr(),
+              mask.data_ptr(), float(np.float32(eta)), w.numel(),
+              out.data_ptr(), _stream(w))
+    LAUNCHES["masked_update_2d"] += 1
+    return out
+
+
+def client_rank_sort(grads, cweights):
+    """Per-coordinate stable sort of a [C, R, 128*k] stack along clients.
+
+    Replaces ``repro/kernels/pruning_mask.py::client_rank_sort``, the first
+    stage of the coordinate-wise median and the trimmed mean. cweights: [C]
+    fp32 on the device; a client whose weight is not > 0 sorts last. Any C
+    runs in the kernel: up to 32 in registers, beyond that over an int32
+    key scratch the wrapper allocates. Bound by bytes: one read and one
+    write of the stack."""
+    if not grads.is_cuda:
+        return client_rank_sort_plain(grads, cweights)
+    from repro_torch.kernels import _build
+    if grads.ndim != 3 or grads.shape[0] < 1:
+        raise ValueError(f"expected a [C >= 1, R, {LANES}*k] stack, "
+                         f"got {tuple(grads.shape)}")
+    shape = _packed_shape(grads[0])
+    n_clients = int(grads.shape[0])
+    _check("grads", grads, (n_clients,) + shape, grads.device, vector=False)
+    _check("cweights", cweights, (n_clients,), grads.device, vector=False)
+    out = torch.empty_like(grads)
+    n = shape[0] * shape[1]
+    keys = (torch.empty((n_clients,) + shape, dtype=torch.int32,
+                        device=grads.device) if n_clients > 32 else None)
+    with torch.cuda.device(grads.device):
+        _call(_build.load().client_rank_sort, grads.data_ptr(),
+              cweights.data_ptr(), n_clients, n, out.data_ptr(),
+              None if keys is None else keys.data_ptr(), _stream(grads))
+    LAUNCHES["client_rank_sort"] += 1
+    return out
 
 
 def exponent_histogram(q, prunable):

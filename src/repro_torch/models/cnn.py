@@ -13,6 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init
 
 Params = dict[str, torch.Tensor]
@@ -47,6 +48,8 @@ def _max_pool_2x2(x):
 
 def lenet_init(gen: torch.Generator, *, num_classes: int = 10,
                in_channels: int = 1, device=None) -> Params:
+    """LeNet-5 parameters from `gen`, on `device` (None: CUDA)."""
+    device = resolve_device(device)
     z = dict(dtype=torch.float32, device=device)
     return {
         "conv1": _conv_init(gen, (5, 5, in_channels, 6), device),
@@ -78,6 +81,8 @@ def lenet_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
 def mlp_edge_init(gen: torch.Generator, *, hidden: int = 128,
                   num_classes: int = 10, in_dim: int = 784,
                   device=None) -> Params:
+    """mlp-edge parameters from `gen`, on `device` (None: CUDA)."""
+    device = resolve_device(device)
     z = dict(dtype=torch.float32, device=device)
     return {"fc1": (torch.randn((in_dim, hidden), generator=gen) * 0.05
                     ).to(device),
@@ -126,7 +131,9 @@ def make_weighted_loss_fn(apply_fn):
 
 def make_eval_fn(apply_fn, x_test, y_test, batch: int = 500, device=None):
     """eval_fn(params) -> (mean test loss, mean test accuracy), averaged over
-    batches of `batch` as the JAX package does."""
+    batches of `batch` as the JAX package does. The test set lives on
+    `device` (None: CUDA)."""
+    device = resolve_device(device)
     x_test = torch.as_tensor(np.asarray(x_test), device=device)
     y_test = torch.as_tensor(np.asarray(y_test), device=device).long()
 

@@ -1,5 +1,6 @@
 """Wireless edge substrate: channels, rates, delay and energy models (Sec. II-B/C)."""
-from repro_torch.wireless.channel import ChannelModel, rayleigh_gains
+from repro_torch.wireless.channel import (ChannelModel, GaussianAggregateNoise,
+                                          rayleigh_gains)
 from repro_torch.wireless.comm import (
     SystemParams,
     uplink_rate,
@@ -16,7 +17,7 @@ from repro_torch.wireless.comm import (
 )
 
 __all__ = [
-    "ChannelModel", "rayleigh_gains", "SystemParams",
+    "ChannelModel", "GaussianAggregateNoise", "rayleigh_gains", "SystemParams",
     "uplink_rate", "downlink_rate",
     "computation_delay", "communication_delay", "per_client_delay",
     "round_delay", "total_delay",

@@ -9,21 +9,40 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 Each kernel is held bit for bit to its plain PyTorch version on the same
 device, at the LeNet slice's packed shape (R = 1024) with 1, 3 and 8
-clients, and a few rounds of the trainer run through the kernels with the
-packed backend equal to the reference backend.
+clients (the rank sort, the unweighted aggregate and the masked update at
+C in {1, 3, 8, 10, 16, 33}, past the sort's 32-client register network),
+and a few rounds of the trainer run through the kernels with the packed
+backend equal to the reference backend, under the mean and under a robust
+reducer with an attack.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import ClientData, FederatedTrainer  # noqa: E402
+from repro_torch.core import (ClientData, FederatedTrainer,  # noqa: E402
+                              ScaledMalicious, make_aggregator)
 from repro_torch.core import round_engine as tre  # noqa: E402
 from repro_torch.core.optimizer_ao import Schedule  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.wireless import ChannelModel, SystemParams  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test: the suite runs in parallel
+    workers beside XLA's thread pools, and torch's default pool (a thread
+    per core in every worker) oversubscribes the cores several times over.
+    The port's tests use small tensors, where one thread loses little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 LANES = 128
 
@@ -98,7 +117,80 @@ def test_kernels_match_plain_versions(dev, n_clients):
     assert pm.LAUNCHES == {"importance_mask_2d": 1,
                            "importance_mask_batched": 1,
                            "fedsgd_aggregate_weighted": 1,
-                           "exponent_histogram": 1}
+                           "exponent_histogram": 1, "fedsgd_aggregate": 0,
+                           "client_rank_sort": 0, "masked_update_2d": 0}
+
+
+def _rank_stack(dev, n_clients, rows=1024, seed=0):
+    """[C, rows, 128] with ties, +-0.0 and +-inf on valid clients and NaN on
+    zero-weight ones."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(n_clients, rows, LANES)).astype(np.float32)
+    tie = rng.random(g.shape) < 0.3
+    pool = np.asarray([-1.5, -0.0, 0.0, 0.25, 3.0, np.inf, -np.inf],
+                      np.float32)
+    g[tie] = rng.choice(pool, size=int(tie.sum()))
+    cw = np.ones(n_clients, np.float32)
+    if n_clients > 2:
+        cw[[1, -1]] = 0.0
+        g[1] = np.nan
+    return torch.from_numpy(g).to(dev), torch.from_numpy(cw).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clients", [1, 3, 8, 10, 16, 33])
+def test_new_kernels_match_plain_versions(dev, n_clients):
+    g, cw = _rank_stack(dev, n_clients, seed=n_clients)
+    w = torch.randn(1024, LANES, generator=torch.Generator().manual_seed(1)
+                    ).to(dev)
+    mask = (g[0] > 0).float()
+    pm.reset_launches()
+    assert_bitwise(pm.client_rank_sort(g, cw),
+                   pm.client_rank_sort_plain(g, cw))
+    finite = torch.nan_to_num(g, nan=0.5, posinf=2.0, neginf=-2.0)
+    for a, b in zip(pm.fedsgd_aggregate(w, finite, 0.1),
+                    pm.fedsgd_aggregate_plain(w, finite, 0.1)):
+        assert_bitwise(a, b)
+    assert_bitwise(pm.masked_update_2d(w, finite[0], mask, 0.05),
+                   pm.masked_update_plain(w, finite[0], mask, 0.05))
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES["client_rank_sort"] == 1
+    assert pm.LAUNCHES["fedsgd_aggregate"] == 1
+    assert pm.LAUNCHES["masked_update_2d"] == 1
+
+
+@pytest.mark.cuda
+def test_robust_trainer_rounds_through_the_rank_sort(dev):
+    """Three rounds of mlp-edge on the card under a scaled-malicious attack
+    with the coordinate-wise median: the rank sort launches once a round,
+    the weighted aggregate never, and packed equals reference."""
+    rng = np.random.default_rng(5)
+    clients = [ClientData(rng.normal(size=(40, 28, 28, 1)).astype(np.float32),
+                          rng.integers(0, 10, 40).astype(np.int32))
+               for _ in range(5)]
+    a = np.ones((3, 5))
+    sched = Schedule(a=a, lam=np.full((3, 5), 0.3), power=0.3 * a,
+                     freq=3e8 * a, theta=0.0, energy=0.0, delay=0.0,
+                     feasible=True)
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(5), device="cpu")
+    ch = ChannelModel(5)
+    out = {}
+    for backend in ("packed", "reference"):
+        pm.reset_launches()
+        tr = FederatedTrainer(
+            cnn.make_loss_fn(cnn.mlp_edge_apply), params, clients, eta=0.1,
+            batch_size=16, seed=0, backend=backend,
+            fault_model=ScaledMalicious(rate=0.4, scale=10.0, seed=1),
+            aggregator=make_aggregator("coord_median"))
+        hist = tr.run(sched, SystemParams.table1(5), ch.uplink, ch.downlink)
+        out[backend] = (tr, hist, dict(pm.LAUNCHES))
+    (tp, hp, lp), (tr_, hr, _) = out["packed"], out["reference"]
+    assert lp["client_rank_sort"] == 3
+    assert lp["fedsgd_aggregate_weighted"] == 0
+    assert [m.train_loss for m in hp] == [m.train_loss for m in hr]
+    assert tp.agg_counters == tr_.agg_counters == {"n_excluded": 12}
+    for k in tp.params:
+        assert_bitwise(tp.params[k], tr_.params[k])
 
 
 @pytest.mark.cuda
@@ -113,6 +205,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="on cuda"):
         pm.fedsgd_aggregate_weighted(t["w"], t["grads"], t["cw"].cpu(),
                                      t["inv"], t["eta"])
+    with pytest.raises(ValueError, match="on cuda"):
+        pm.client_rank_sort(t["grads"], t["cw"].cpu())
+    with pytest.raises(ValueError, match="shape"):
+        pm.masked_update_2d(t["w"], t["v"][:256], t["pr"], 0.1)
     # the plain version is for CPU tensors only
     with pytest.raises(ValueError, match="'torch'"):
         ops.packed_importance_masks(t["w"], t["v"], t["pr"], t["thr"],
@@ -128,7 +224,7 @@ def test_packed_backend_on_cuda_needs_a_weighted_loss():
     clients = [ClientData(rng.normal(size=(n, 28, 28, 1)).astype(np.float32),
                           rng.integers(0, 10, n).astype(np.int32))
                for n in (40, 9)]
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4), device="cpu")
     plain = cnn.make_loss_fn(cnn.mlp_edge_apply)
 
     def loss(p, x, y):                  # no .weighted companion
@@ -170,7 +266,7 @@ def test_trainer_rounds_through_the_kernels(dev):
     sched = Schedule(a=a, lam=lam, power=0.3 * np.ones_like(a),
                      freq=3e8 * np.ones_like(a), theta=0.0, energy=0.0,
                      delay=0.0, feasible=True)
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(3))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(3), device="cpu")
     ch = ChannelModel(4)
     out = {}
     for backend in ("packed", "reference"):

@@ -9,6 +9,8 @@
   equal, train losses to rtol 1e-3, final weights to atol 1e-4 (fp32 GEMMs
   reduce in another order in XLA and PyTorch; the masks then see importances
   that differ in the last bits, and six rounds of SGD carry that forward).
+* The same pipeline under a scaled-malicious attack with the coordinate-wise
+  median, and under NaN uploads with the mean: every count exactly equal.
 * The port imports neither JAX nor the JAX package, and its entry points
   default to CUDA.
 """
@@ -30,8 +32,22 @@ import repro_torch.core as tcore  # noqa: E402
 import repro_torch.data as tdata  # noqa: E402
 import repro_torch.wireless as twireless  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.federated import resolve_device  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test: the suite runs in parallel
+    workers beside XLA's thread pools, and torch's default pool (a thread
+    per core in every worker) oversubscribes the cores several times over.
+    The port's tests use small tensors, where one thread loses little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _pipeline(core, data, wireless, *, n_clients, n_train, n_test, rounds,
@@ -108,7 +124,7 @@ def test_pipeline_matches_jax_end_to_end():
                                  backend="packed", device="cpu")
     th = ttr.run(tsched, t[4], t[5].uplink, t[5].downlink,
                  eval_fn=cnn.make_eval_fn(cnn.lenet_apply, ds.x_test,
-                                          ds.y_test), **run)
+                                          ds.y_test, device="cpu"), **run)
 
     assert len(th) == len(jh) == 6
     for a, b in zip(th, jh):
@@ -125,6 +141,80 @@ def test_pipeline_matches_jax_end_to_end():
     for k, v in jtr.params.items():
         np.testing.assert_allclose(ttr.params[k].numpy(), np.asarray(v),
                                    rtol=0, atol=1e-4)
+
+
+SCENARIOS = {
+    "scaled_malicious+coord_median": (
+        lambda m: m.ScaledMalicious(rate=0.3, scale=10.0, seed=0, exact=True),
+        "coord_median"),
+    "corrupt_nan+mean": (
+        lambda m: m.CorruptUpload(rate=0.3, mode="nan", seed=11), "mean"),
+}
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_scenario_matches_jax_end_to_end(scenario):
+    """The same small pipeline under an attack with a robust reducer and
+    under NaN uploads with the mean: selection, the energy/delay ledger and
+    every fault and aggregation count exactly equal (they come from the
+    host draws and the survivor counts), train losses to rtol 1e-3, weights
+    to atol 1e-4 under the mean as above. Under the median, gradients that
+    differ in their last bits (XLA and torch GEMMs) can swap the ranks of
+    two close client values at a coordinate, which moves that coordinate by
+    eta times half their gap instead of by the gradients' own difference:
+    there at most 1 coordinate in 10,000 may exceed atol 1e-4, and none
+    1e-2."""
+    import repro.core.aggregators as jagg
+    import repro.core.faults as jfaults
+    import repro_torch.core.aggregators as tagg
+    import repro_torch.core.faults as tfaults
+
+    make_fault, agg = SCENARIOS[scenario]
+    cfg = dict(n_clients=6, n_train=600, n_test=200, rounds=6, e0=5.0,
+               t0=3.0)
+    j = _pipeline(jcore, jdata, jwireless, **cfg)
+    t = _pipeline(tcore, tdata, twireless, **cfg)
+    jp = jcnn.lenet_init(jax.random.key(0))
+    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    run = dict(stop_delay=cfg["t0"], stop_energy=cfg["e0"])
+    jtr = jcore.FederatedTrainer(jcnn.make_loss_fn(jcnn.lenet_apply), jp,
+                                 j[2], eta=0.1, batch_size=32, seed=0,
+                                 backend="packed", shards=1,
+                                 rounds_per_dispatch=1,
+                                 fault_model=make_fault(jfaults),
+                                 aggregator=jagg.make_aggregator(agg))
+    jh = jtr.run(j[6], j[4], j[5].uplink, j[5].downlink, **run)
+    ttr = tcore.FederatedTrainer(cnn.make_loss_fn(cnn.lenet_apply), tp,
+                                 t[2], eta=0.1, batch_size=32, seed=0,
+                                 backend="packed", device="cpu",
+                                 fault_model=make_fault(tfaults),
+                                 aggregator=tagg.make_aggregator(agg))
+    th = ttr.run(t[6], t[4], t[5].uplink, t[5].downlink, **run)
+
+    assert len(th) == len(jh) == 6
+    for a, b in zip(th, jh):
+        assert (a.round, a.selected, a.mean_lambda) == (
+            b.round, b.selected, b.mean_lambda)
+        assert (a.delay, a.energy, a.cumulative_delay,
+                a.cumulative_energy) == (b.delay, b.energy,
+                                         b.cumulative_delay,
+                                         b.cumulative_energy)
+        assert (a.n_faulted, a.n_quarantined, a.n_agg_adjusted) == (
+            b.n_faulted, b.n_quarantined, b.n_agg_adjusted)
+        np.testing.assert_allclose(a.train_loss, b.train_loss, rtol=1e-3)
+    assert ttr.fault_counters == jtr.fault_counters
+    assert ttr.agg_counters == jtr.agg_counters
+    assert ttr.aggregator_key == jtr.aggregator_key
+    bit = (ttr.fault_counters["n_corrupt_finite"] if agg != "mean"
+           else ttr.fault_counters["n_quarantined"])
+    assert bit > 0                               # the scenario really bites
+    diff = np.concatenate([np.abs(ttr.params[k].numpy()
+                                  - np.asarray(v)).ravel()
+                           for k, v in jtr.params.items()])
+    if agg == "mean":
+        assert diff.max() <= 1e-4
+    else:
+        assert (diff > 1e-4).mean() <= 1e-4 and diff.max() <= 1e-2
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -157,8 +247,29 @@ def test_entry_points_default_to_cuda():
         return
     clients = [tcore.ClientData(np.zeros((4, 28, 28, 1), np.float32),
                                 np.zeros(4, np.int32))]
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(0))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcore.FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
                                clients, eta=0.1, batch_size=4)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_engine_eval_and_inits_default_to_cuda():
+    """RoundEngine, make_eval_fn and the model inits take device=None as
+    CUDA, like FederatedTrainer: on a host without a card they raise rather
+    than run on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("the host has a card: device=None resolves to it")
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(0), device="cpu")
+    calls = [
+        lambda: tcore.RoundEngine(cnn.make_loss_fn(cnn.mlp_edge_apply),
+                                  tcore.ParamPack.build(params), eta=0.1),
+        lambda: cnn.make_eval_fn(cnn.mlp_edge_apply,
+                                 np.zeros((2, 28, 28, 1), np.float32),
+                                 np.zeros(2, np.int32)),
+        lambda: cnn.lenet_init(torch.Generator().manual_seed(0)),
+        lambda: cnn.mlp_edge_init(torch.Generator().manual_seed(0)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

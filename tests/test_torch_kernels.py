@@ -7,7 +7,11 @@ them on the CPU — and through the port's `repro_torch.kernels.ops`, whose
 CPU path is each kernel's plain PyTorch version. Every output must carry the
 same fp32 bits. The inputs hold the cases the round relies on: exact-zero
 and underflowing importances (denormals are zero), a subnormal threshold
-(round 0's nextafter(0)), NaN gradients on zero-weight clients.
+(round 0's nextafter(0)), NaN gradients on zero-weight clients, and for the
+rank sort NaN on zero-weight clients, +-0.0, ties and +-inf on valid ones.
+The masked update is held bit for bit to the eager reference
+(``ref.masked_update_ref``); the jitted JAX entry point contracts its
+w - eta*g into an FMA and is held within one ulp of eta*g.
 
 The hand-written CUDA kernels are held to the same plain versions on the
 card by tests/test_torch_cuda.py.
@@ -22,9 +26,25 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.round_engine import kth_smallest_threshold  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import round_engine as tre  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test: the suite runs in parallel
+    workers beside XLA's thread pools, and torch's default pool (a thread
+    per core in every worker) oversubscribes the cores several times over.
+    The port's tests use small tensors, where one thread loses little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
 
 LANES = 128
 # jitted once per (coarse, k shape): the inputs below share one shape
@@ -169,7 +189,7 @@ def _aggregate_inputs(rows, n_clients, seed):
 
 
 @pytest.mark.parametrize("rows,impl", CASES)
-@pytest.mark.parametrize("n_clients", [1, 3, 8])
+@pytest.mark.parametrize("n_clients", [1, 3, 8, 10])
 def test_fedsgd_update_weighted_matches_jax(rows, impl, n_clients):
     w, grads, cw, inv = _aggregate_inputs(rows, n_clients, seed=n_clients)
     eta = np.float32(0.1)
@@ -216,6 +236,147 @@ def test_quarantine_and_aggregate_tail_match_jax(n_clients):
                                               torch.tensor(eta))
     for a, b in zip(tout, jout):
         assert_bitwise(a, b)
+
+
+# -- fedsgd_aggregate (unweighted) -------------------------------------------------
+
+@pytest.mark.parametrize("rows,impl", CASES)
+@pytest.mark.parametrize("n_clients", [1, 3, 8, 10])
+def test_fedsgd_update_matches_jax(rows, impl, n_clients):
+    """g bit for bit. The port's step is eta*g rounded on its own, the
+    sequence the JAX mirror writes (and the eager reference loop and the
+    weighted aggregate compute). XLA:CPU reassociates that mirror, and the
+    interpret-mode Pallas kernel, into (eta * float32(1/C)) * sum: the same
+    bits when 1/C is a power of two (C = 1, 8), within two ulps of the step
+    otherwise (C = 3, 10)."""
+    rng = np.random.default_rng(20 + n_clients)
+    w = rng.normal(size=(rows, LANES)).astype(np.float32)
+    grads = rng.normal(size=(n_clients, rows, LANES)).astype(np.float32)
+    grads[0, 3, :9] = -0.0                  # the sum starts from client 0
+    eta = 0.1
+    jw, jg, js = (np.asarray(a) for a in jops.packed_fedsgd_update(
+        w, grads, eta, impl=impl))
+    tw, tg, ts = tops.packed_fedsgd_update(_t(w), _t(grads), eta)
+    assert_bitwise(tg, jg)
+    assert_bitwise(ts, np.float32(eta) * jg)
+    assert_bitwise(tw, w - ts.numpy())
+    acc = grads[0].copy()
+    for c in range(1, n_clients):
+        acc = acc + grads[c]
+    assert_bitwise(js, (np.float32(eta) * np.float32(1 / n_clients)) * acc)
+    if n_clients in (1, 8):
+        assert_bitwise(ts, js)
+        if impl == "xla":
+            assert_bitwise(tw, jw)
+    else:
+        # two roundings of three reals, each side: within two ulps
+        np.testing.assert_allclose(ts.numpy(), js, rtol=2 * 2.0**-23, atol=0)
+        assert bool((_bits(ts) != _bits(js)).any())
+    if impl == "pallas":
+        # the interpret-mode kernel also contracts its own w - step
+        np.testing.assert_allclose(tw.numpy(), jw, rtol=1e-6, atol=1e-8)
+
+
+def test_fedsgd_update_equals_weighted_with_unit_weights():
+    """The contract between the two aggregates: all-ones weights and
+    inv = float32(1/C) give the unweighted kernel's bits (inputs without
+    -0.0, whose sign the weighted sum's +0.0 start would normalise)."""
+    rng = np.random.default_rng(8)
+    w = _t(rng.normal(size=(256, LANES)).astype(np.float32))
+    grads = _t(rng.normal(size=(10, 256, LANES)).astype(np.float32))
+    eta = torch.tensor(np.float32(0.1))
+    a = tops.packed_fedsgd_update(w, grads, 0.1)
+    b = tops.packed_fedsgd_update_weighted(
+        w, grads, torch.ones(10), torch.tensor(np.float32(1 / 10)), eta)
+    for x, y in zip(a, b):
+        assert_bitwise(x, y)
+
+
+# -- client_rank_sort -------------------------------------------------------------
+
+def _rank_inputs(rows, n_clients, seed):
+    """[C, rows, 128] with the sort's cases: ties (values from a small pool),
+    +-0.0 and +-inf on valid clients, NaN and garbage on zero-weight ones."""
+    rng = np.random.default_rng(seed)
+    pool = np.asarray([-1.5, -0.0, 0.0, 0.25, 0.25, 3.0, np.inf, -np.inf],
+                      np.float32)
+    g = rng.normal(size=(n_clients, rows, LANES)).astype(np.float32)
+    tie = rng.random(g.shape) < 0.3
+    g[tie] = rng.choice(pool, size=int(tie.sum()))
+    cw = np.ones(n_clients, np.float32)
+    if n_clients > 2:
+        cw[[1, -1]] = 0.0
+        g[1] = np.nan
+        g[-1, ::2] = 1e30
+    return g, cw
+
+
+@pytest.mark.parametrize("rows,impl", CASES)
+@pytest.mark.parametrize("n_clients", [1, 3, 8, 10])
+def test_client_rank_sort_matches_jax_on_every_rank(rows, impl, n_clients):
+    g, cw = _rank_inputs(rows, n_clients, seed=n_clients)
+    want = jops.packed_client_rank_sort(jnp.asarray(g), jnp.asarray(cw),
+                                        impl=impl)
+    got = tops.packed_client_rank_sort(_t(g), _t(cw))
+    # every rank, the zero-weight tail included (the network is stable);
+    # int32 views, since NaN never equals itself
+    assert_bitwise(got, want)
+    nv = int(cw.sum())
+    keys = pm.order_keys(got[:nv])
+    assert bool((keys[1:] >= keys[:-1]).all())
+
+
+def test_order_keys_are_monotone():
+    x = np.asarray([-np.inf, -3.0, -1e-40, -0.0, 0.0, 1e-40, 2.0, np.inf],
+                   np.float32)
+    k = pm.order_keys(_t(x))
+    assert bool((k[1:] > k[:-1]).all())
+
+
+# -- masked_update_2d --------------------------------------------------------------
+
+def _masked_update_gap(got, jit, eta, g):
+    """|port - jitted| beyond its bound, half an ulp of eta*g plus one ulp
+    of the result; <= 0 everywhere when the FMA is the only difference."""
+    diff = np.abs(got.numpy().astype(np.float64) - jit)
+    bound = (0.5 * np.spacing(np.abs(np.float32(eta) * g))
+             + np.spacing(np.abs(jit)))
+    return diff - bound
+
+
+@pytest.mark.parametrize("rows,impl", CASES)
+def test_masked_update_matches_jax(rows, impl):
+    rng = np.random.default_rng(rows)
+    w = rng.normal(size=(rows, LANES)).astype(np.float32)
+    g = rng.normal(size=(rows, LANES)).astype(np.float32)
+    m = (rng.random((rows, LANES)) < 0.7).astype(np.float32)
+    eta = 0.05
+    got = tops.packed_masked_update(_t(w), _t(g), _t(m), eta)
+    assert_bitwise(got, jref.masked_update_ref(w, g, m, eta))
+    # the jitted entry point computes fmaf(-eta, g, w) * m: it differs from
+    # the rounded-product form by at most half an ulp of eta*g (the one
+    # rounding it skips) plus one ulp of the result
+    jit = np.asarray(jops.packed_masked_update(w, g, m, eta, impl=impl))
+    assert (_masked_update_gap(got, jit, eta, g) <= 0).all()
+    fma = (np.float32(w.astype(np.float64) - np.float64(np.float32(eta))
+                      * g.astype(np.float64)) * m)
+    assert_bitwise(jit, fma)
+    # 5,022 of 131,072 coordinates at R = 1024, 1,328 of 32,768 at R = 256
+    contracted = int((_bits(got) != _bits(jit)).sum())
+    assert contracted == {256: 1328, 1024: 5022}[rows]
+
+
+@pytest.mark.parametrize("shape", [(129,), (7, 13), (5, 5, 6, 16)])
+def test_masked_update_per_leaf_matches_jax(shape):
+    rng = np.random.default_rng(len(shape))
+    w = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    m = (rng.random(shape) < 0.5).astype(np.float32)
+    got = tops.masked_update(_t(w), _t(g), _t(m), 0.1)
+    assert got.shape == shape and got.dtype == torch.float32
+    assert_bitwise(got, jref.masked_update_ref(w, g, m, 0.1))
+    jit = np.asarray(jops.masked_update(w, g, m, 0.1))
+    assert (_masked_update_gap(got, jit, 0.1, g) <= 0).all()
 
 
 # -- kth_smallest_threshold ------------------------------------------------------
@@ -305,4 +466,11 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
                                  torch.tensor([1.0, 0.0]),
                                  torch.tensor(np.float32(1.0)),
                                  torch.tensor(np.float32(0.1)))
+    pm.fedsgd_aggregate(w, torch.stack([v, v]), 0.1)
+    pm.client_rank_sort(torch.stack([v, w]), torch.tensor([1.0, 1.0]))
+    pm.masked_update_2d(w, v, pr, 0.1)
+    assert set(pm.LAUNCHES) == {
+        "importance_mask_2d", "importance_mask_batched",
+        "fedsgd_aggregate_weighted", "exponent_histogram",
+        "fedsgd_aggregate", "client_rank_sort", "masked_update_2d"}
     assert set(pm.LAUNCHES.values()) == {0}

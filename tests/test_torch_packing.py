@@ -188,14 +188,15 @@ def test_eval_fn_matches_jax():
     jp, tp = _params("lenet", seed=4)
     x, y = _batch(4, n=120)
     jev = jcnn.make_eval_fn(jcnn.lenet_apply, x, y, batch=50)(jp)
-    tev = cnn.make_eval_fn(cnn.lenet_apply, x, y, batch=50)(tp)
+    tev = cnn.make_eval_fn(cnn.lenet_apply, x, y, batch=50,
+                          device="cpu")(tp)
     np.testing.assert_allclose(tev[0], jev[0], rtol=1e-5)
     assert tev[1] == jev[1]
 
 
 def test_seeded_init_is_deterministic_with_jax_distributions():
-    a = cnn.lenet_init(torch.Generator().manual_seed(0))
-    b = cnn.lenet_init(torch.Generator().manual_seed(0))
+    a = cnn.lenet_init(torch.Generator().manual_seed(0), device="cpu")
+    b = cnn.lenet_init(torch.Generator().manual_seed(0), device="cpu")
     jp = jcnn.lenet_init(jax.random.key(0))
     assert list(a) == list(jp)
     for k in a:
@@ -203,7 +204,7 @@ def test_seeded_init_is_deterministic_with_jax_distributions():
         assert torch.equal(a[k], b[k])
     # dense_init: normal * 1/sqrt(fan_in)
     assert abs(float(a["fc1"].std()) * np.sqrt(784) - 1.0) < 0.02
-    m = cnn.mlp_edge_init(torch.Generator().manual_seed(0))
+    m = cnn.mlp_edge_init(torch.Generator().manual_seed(0), device="cpu")
     assert {k: tuple(v.shape) for k, v in m.items()} == {
         k: tuple(v.shape) for k, v in jcnn.mlp_edge_init(
             jax.random.key(0)).items()}

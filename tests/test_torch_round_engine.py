@@ -33,6 +33,21 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.wireless import ChannelModel, SystemParams  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test: the suite runs in parallel
+    workers beside XLA's thread pools, and torch's default pool (a thread
+    per core in every worker) oversubscribes the cores several times over.
+    The port's tests use small tensors, where one thread loses little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 MODELS = {"lenet": (jcnn.lenet_init, jcnn.lenet_apply, cnn.lenet_apply),
           "mlp-edge": (jcnn.mlp_edge_init, jcnn.mlp_edge_apply,
                        cnn.mlp_edge_apply)}
@@ -111,7 +126,7 @@ def test_bucket_capacity_matches_jax():
 
 
 def test_round_step_rejects_bad_lambda():
-    tp = cnn.mlp_edge_init(torch.Generator().manual_seed(0))
+    tp = cnn.mlp_edge_init(torch.Generator().manual_seed(0), device="cpu")
     eng = RoundEngine(cnn.make_loss_fn(cnn.mlp_edge_apply),
                       ParamPack.build(tp), eta=0.1, device="cpu")
     w, v = eng.init_buffers(tp)
@@ -124,7 +139,7 @@ def test_round_step_rejects_bad_lambda():
 def test_all_clients_quarantined_keeps_the_model():
     """A round whose every upload is non-finite is skipped on the device:
     (w, v) come back unchanged and the survivor count is 0."""
-    tp = cnn.mlp_edge_init(torch.Generator().manual_seed(1))
+    tp = cnn.mlp_edge_init(torch.Generator().manual_seed(1), device="cpu")
     eng = RoundEngine(cnn.make_loss_fn(cnn.mlp_edge_apply),
                       ParamPack.build(tp), eta=0.1, device="cpu")
     w, v = eng.init_buffers(tp)
@@ -191,7 +206,7 @@ def test_mlp_edge_packed_matches_reference_10_rounds(lam_kind):
     a = (rng.random((10, 10)) < 0.6).astype(float)
     a[:, 0] = 1.0
     lam = 0.35 if lam_kind == "shared" else rng.uniform(0.0, 0.8, (10, 10))
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(2))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(2), device="cpu")
     out = _run_pair(clients, params, cnn.make_loss_fn(cnn.mlp_edge_apply),
                     _schedule(a, lam), batch_size=16)
     _assert_backends_equal(out)
@@ -202,7 +217,7 @@ def test_mlp_edge_packed_matches_reference_10_rounds(lam_kind):
 @pytest.mark.parametrize("lam", [0.4, [0.0, 0.3, 0.6]])
 def test_lenet_packed_matches_reference_3_rounds(lam):
     clients = _env(3, 240, seed=3, ragged_sizes=(11,))
-    params = cnn.lenet_init(torch.Generator().manual_seed(3))
+    params = cnn.lenet_init(torch.Generator().manual_seed(3), device="cpu")
     out = _run_pair(clients, params, cnn.make_loss_fn(cnn.lenet_apply),
                     _schedule(np.ones((3, 3)), lam), batch_size=16)
     _assert_backends_equal(out)
@@ -213,7 +228,7 @@ def test_ragged_round_without_weighted_loss_falls_back_on_cpu():
     runs a round with a ragged client through the reference loop, and the
     others through the engine; both kinds equal the reference backend."""
     clients = _env(3, 240, seed=6, ragged_sizes=(11,))
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(6))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(6), device="cpu")
     plain = cnn.make_loss_fn(cnn.mlp_edge_apply)
 
     def loss(p, x, y):                  # no .weighted: batches stay ragged
@@ -230,7 +245,7 @@ def test_ragged_round_without_weighted_loss_falls_back_on_cpu():
 
 def test_trainer_state_views_round_trip():
     clients = _env(3, 120, seed=4)
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4), device="cpu")
     tr = FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
                           clients, eta=0.1, batch_size=8, device="cpu")
     doubled = {k: 2.0 * t for k, t in tr.params.items()}
@@ -241,12 +256,11 @@ def test_trainer_state_views_round_trip():
 
 def test_unported_options_raise_not_implemented():
     clients = _env(2, 60, seed=5)
-    params = cnn.mlp_edge_init(torch.Generator().manual_seed(5))
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(5), device="cpu")
     loss = cnn.make_loss_fn(cnn.mlp_edge_apply)
     for kw in (dict(rounds_per_dispatch=4), dict(rounds_per_dispatch="auto"),
-               dict(shards=2), dict(channel_noise=object()),
-               dict(fault_model=object()), dict(aggregator=object()),
-               dict(local_scheme=object()), dict(client_store="streamed"),
+               dict(shards=2), dict(local_scheme=object()),
+               dict(client_store="streamed"),
                dict(client_store="replicated"), dict(client_store="auto")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
@@ -259,3 +273,5 @@ def test_unported_options_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tr.run(sched, SystemParams.table1(2), ch.uplink, ch.downlink,
                    **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tr.reset(params, seed=1)
