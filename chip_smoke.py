@@ -41,7 +41,29 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
   6. the entry points that no trainer path calls: one FedSGD step of the
      unweighted aggregate over ten clients' uploads at the trained attack
      model, and the pruned-checkpoint masked update, packed and per leaf;
-  7. one JSON line listing the kernels, then the result line.
+  7. the LM stack's kernels against their plain versions in bf16 (the
+     JAX package's bf16 kernel tolerance, 2e-2): flash attention at
+     granite's prefill buckets and at gemma2's head dim 256 with its
+     softcap in its bend, globally and under a window of 256 that masks
+     keys (each branch must change the result), decode attention with
+     ragged positions, the SSD chunk at
+     mamba2's shapes; times, bounds and the library call
+     (scaled_dot_product_attention) beside them;
+  8. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
+     served by the continuous-batching engine through the flash kernel:
+     16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
+     slots; flash launches == 40 x 16, engine tokens == a sequential
+     generation over the same padded prefill; the prefill's last-token
+     logits in fp32 on the same weights within 1e-3 (relative L2) of the
+     naive path's, with a planted fault (keys one position late) above
+     that limit, and every flash launch of the bf16 prefill within 2e-2
+     of the plain version on its own inputs; then a profiled window; and
+     the decode kernel on the served caches, every
+     layer, each row at its last request's position;
+  9. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
+     (slots reused; tokens == a fresh sequential generation), and the SSD
+     entry point on layer 0's real inputs for a 512-token prompt;
+ 10. one JSON line listing the ten kernels, then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -81,9 +103,10 @@ from repro_torch.models import (lenet_apply, lenet_init, make_eval_fn,  # noqa: 
 from repro_torch.wireless import (ChannelModel,  # noqa: E402
                                   GaussianAggregateNoise, SystemParams)
 
-# (memory bytes/s, fp32 FLOP/s outside the tensor cores) by the device name
-# torch reports, from NVIDIA's data sheet (H100 SXM, 700 W)
-PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# (memory bytes/s, fp32 FLOP/s outside the tensor cores, dense bf16 tensor
+# FLOP/s) by the device name torch reports, from NVIDIA's data sheet (H100
+# SXM, 700 W)
+PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 SOURCE = "src/repro_torch/kernels/csrc/pruning_mask.cu"
 REPLACES = {
     "importance_mask_2d": "src/repro/kernels/pruning_mask.py:50",
@@ -208,7 +231,7 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
     rng = np.random.default_rng(0)
     shape = (pack.rows, LANES)
     n = shape[0] * shape[1]
-    bw, flops = peaks(card)
+    bw, flops, _ = peaks(card)
     pr = torch.as_tensor(pack.prunable_mask(), device=dev)
     n_valid = int(pack.n_prunable)
 
@@ -698,6 +721,587 @@ def entry_point_phase(dev, tr, env):
     return problems, launches
 
 
+# -- phases 7-10: the LM stack, serving granite-3-2b and mamba2-130m ----------
+
+LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "decode_attention":
+                  "src/repro_torch/kernels/csrc/decode_attention.cu",
+              "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
+LM_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
+               "decode_attention": "src/repro/kernels/decode_attention.py:60",
+               "ssd_chunk": "src/repro/kernels/ssd_chunk.py:49"}
+# the kernel tolerance of the JAX package's tests (tests/test_kernels.py)
+BF16_TOL = 2e-2
+# logits_rel_l2: |kernel - naive| / |naive| over the last-token logits of
+# one fp32 prefill; fp32 rounding carried through 40 layers stays orders
+# below it, a kernel that reads the causal band one key off lands above it
+GRANITE = dict(n_requests=16, new_tokens=32, max_batch=8, max_seq=2048,
+               buckets=(256, 512, 1024), len_lo=130, len_hi=1000,
+               n_sequential=3, logits_rel_l2=1e-3)
+MAMBA = dict(n_requests=8, new_tokens=32, max_batch=4, max_seq=2048,
+             len_lo=100, len_hi=600, entry_len=512, chunk=128)
+
+
+def bf16_close(a, b) -> bool:
+    """|a - b| <= 2e-2 + 2e-2 |b| everywhere (the bf16 kernel tolerance),
+    and the same non-finite pattern."""
+    a, b = a.float(), b.float()
+    if a.shape != b.shape or not torch.equal(torch.isfinite(a),
+                                             torch.isfinite(b)):
+        return False
+    fin = torch.isfinite(b)
+    return bool(((a - b).abs()[fin] <= BF16_TOL + BF16_TOL * b.abs()[fin])
+                .all())
+
+
+def measure(name, ok, err, call, plain_call, symbol, nbytes, nflops, card,
+            library_call=None, **extra):
+    """One kernel's row: per-call time, the plain version's, the library
+    call's, the kernel alone on the device trace, and the bound from the
+    bytes (3.35 TB/s) and the live FLOPs at the bf16 tensor-core peak."""
+    bw, _, bf16 = peaks(card)
+    ms, plain = time_ms(call, reps=50), time_ms(plain_call, reps=20)
+    lib = time_ms(library_call, reps=50) if library_call is not None \
+        else None
+    dev_ms = kernel_device_ms(call, symbol, reps=20)
+    bound = max(nbytes / bw, nflops / bf16) * 1e3
+    row = dict(ok=bool(ok), max_abs_err=err, ms=ms, plain_ms=plain,
+               device_ms=dev_ms, bound_ms=bound, library_ms=lib,
+               bound_by="bytes" if nbytes / bw >= nflops / bf16
+               else "operations", bytes=nbytes, flops=nflops, **extra)
+    print(json.dumps({"kernel": name, **row}))
+    return row
+
+
+def _abs_err(a, b) -> float:
+    return max_abs_err([a.float()], [b.float()])
+
+
+def causal_pairs(s: int, window: int = 0) -> int:
+    """Unmasked (q, k) pairs of causal self-attention over s tokens."""
+    if not window:
+        return s * (s + 1) // 2
+    q = np.arange(s)
+    return int(np.minimum(q + 1, window).sum())
+
+
+def lm_kernel_phase(dev, card):
+    """The three LM kernels against their plain versions on random bf16
+    inputs at the served models' shapes: flash attention at granite's
+    prefill buckets and gemma2's head dim 256 with its softcap (global
+    and local layer), decode attention at granite's [8, 2048, 8, 64] and
+    gemma2's head dim with ragged positions, the SSD chunk at mamba2's.
+    Returns (problems, flash timing row at granite's 1024 bucket)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(0)
+    problems = []
+
+    def rand(shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+
+    # gemma2's rows: q scaled by 50 puts the scores (~N(0, 50^2)) in the
+    # softcap's bend, and the local row's window is cut from gemma2's 4096
+    # to 256 so that it masks keys at 1024 tokens; each row must differ
+    # from the same plain call without its cap / window, or that branch
+    # went unchecked
+    flash_rows = {}
+    for label, (s, hq, hkv, d, window, cap, q_scale) in {
+            "granite S256": (256, 32, 8, 64, 0, 0.0, 1.0),
+            "granite S512": (512, 32, 8, 64, 0, 0.0, 1.0),
+            "granite S1024": (1024, 32, 8, 64, 0, 0.0, 1.0),
+            "gemma2 global S1024 cap 50": (1024, 16, 8, 256, 0, 50.0, 50.0),
+            "gemma2 local S1024 window 256 cap 50":
+                (1024, 16, 8, 256, 256, 50.0, 50.0)}.items():
+        q, k, v = rand((1, hq, s, d), q_scale), rand((1, hkv, s, d)), \
+            rand((1, hkv, s, d))
+        kw = dict(causal=True, window=window, cap=cap)
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        ok = bf16_close(out, ref)
+        if not ok:
+            problems.append(f"flash_attention {label}: differs from plain")
+        for branch, off in (("cap", dict(kw, cap=0.0)),
+                            ("window", dict(kw, window=0))):
+            if kw[branch] and bf16_close(
+                    fa.flash_attention_plain(q, k, v, **off), ref):
+                problems.append(f"flash_attention {label}: the {branch} "
+                                "changes nothing at these inputs")
+        lib = None
+        if not cap:
+            lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        nbytes = 2 * (2 * hq + 2 * hkv) * s * d
+        flash_rows[label] = measure(
+            "flash_attention", ok, _abs_err(out, ref),
+            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention(q, k, v, **kw),
+            lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_plain(q, k, v,
+                                                                  **kw),
+            "flash_attention_kernel", nbytes,
+            4 * d * hq * causal_pairs(s, window), card, library_call=lib,
+            shape=label)
+
+    # decode: ragged positions, 0 and the full cache included
+    for label, (hq, hkv, d) in {"granite": (32, 8, 64),
+                                "gemma2": (16, 8, 256)}.items():
+        b, skv = 8, 2048
+        q, k, v = rand((b, hq, 1, d)), rand((b, skv, hkv, d)), \
+            rand((b, skv, hkv, d))
+        pos = torch.tensor([0, 1, 130, 517, 1000, 1031, 2047, 2048],
+                           dtype=torch.int32, device=dev)
+        out = da.decode_attention(q, k, v, pos)
+        ref = da.decode_attention_plain(q, k, v, pos)
+        ok = bf16_close(out, ref) and bool((out[0] == 0).all())
+        print(json.dumps({"kernel": "decode_attention", "check": label,
+                          "equal": ok, "max_abs_err": _abs_err(out, ref)}))
+        if not ok:
+            problems.append(f"decode_attention {label}: differs from plain")
+
+    # ssd_chunk at mamba2's head (P 64), state (N 128), chunk 128
+    x = rand((1, 128, 24, 64), 0.3)
+    bb, cc = rand((1, 128, 128), 0.3), rand((1, 128, 128), 0.3)
+    dt = F.softplus(rand((1, 128, 24)).float())
+    a_log = torch.log(torch.linspace(1.0, 16.0, 24, device=dev))
+    outs = sc.ssd_chunk(x, bb, cc, dt, a_log)
+    refs = sc.ssd_chunk_plain(x, bb, cc, dt, a_log)
+    ok = all(bf16_close(o, r) for o, r in zip(outs, refs))
+    print(json.dumps({"kernel": "ssd_chunk", "check": "random mamba2 chunk",
+                      "equal": ok, "max_abs_err": max(
+                          _abs_err(o, r) for o, r in zip(outs, refs))}))
+    if not ok:
+        problems.append("ssd_chunk: differs from plain on a random chunk")
+    return problems, flash_rows
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _sequential(params, cfg, rt, eng, prompt, new, dev):
+    """Sequential greedy generation of one request with a batch-one cache,
+    prefilling exactly the padded bucket the engine prefills."""
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, 1, eng.max_seq, device=dev)
+    toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()
+    T.prefill(params, toks[None], cache, cfg, rt)
+    tok, pos, out = int(prompt[-1]), len(prompt) - 1, []
+    for _ in range(new):
+        lg, _ = T.decode_step(params, torch.tensor([[tok]], device=dev),
+                              cache, pos, cfg, rt)
+        tok = int(lg[0].argmax())
+        out.append(tok)
+        pos += 1
+    return out
+
+
+def drive_engine(eng):
+    """run_to_completion's loop with its two halves timed on the card:
+    admissions (the prefills) and decode steps."""
+    t_pre = t_dec = 0.0
+    steps = 0
+    while True:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        t_pre += time.perf_counter() - t
+        if not eng.active and not eng.queue:
+            break
+        t = time.perf_counter()
+        eng.step()                   # ends in a host copy of the tokens
+        t_dec += time.perf_counter() - t
+        steps += 1
+    return t_pre, t_dec, steps
+
+
+def device_idle(fn) -> dict:
+    """Device busy and idle share over fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    except (AssertionError, RuntimeError) as err:
+        return {"profile": f"not measured: {err}"}
+    evs = sorted(_device_events(prof), key=lambda e: -e[2])
+    if not evs:
+        return {"profile": "not measured: the trace shows no device time"}
+    busy_ms = sum(us for _, _, us in evs) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches": sum(c for _, c, _ in evs),
+            "top_kernels": [{"name": k[:100], "calls": c,
+                             "device_ms": us / 1e3}
+                            for k, c, us in evs[:6]]}
+
+
+def granite_phase(dev, card):
+    """granite-3-2b at full width and depth in bf16, random weights from a
+    torch.Generator seeded with 0 on the card, served by the engine with
+    the flash kernel: 16 greedy requests of 32 new tokens, prompts of
+    130-1000 tokens (numpy seed 0), so every bucket is above 128. Returns
+    (problems, engine, the flash launches of the engine run, the final
+    occupant of each slot)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    from repro_torch.serving import ServingEngine
+    c = GRANITE
+    cfg = get_config("granite-3-2b")
+    rt = Runtime(attn_impl="cuda")
+    t = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
+    init_s = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    lens = rng.integers(c["len_lo"], c["len_hi"] + 1, size=c["n_requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    eng = ServingEngine(params, cfg, max_batch=c["max_batch"],
+                        max_seq=c["max_seq"], prompt_buckets=c["buckets"],
+                        rt=rt, device=dev)
+    for pr in prompts:
+        eng.submit(pr, max_new_tokens=c["new_tokens"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_pre, t_dec, steps = drive_engine(eng)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    peak = _peak_gib()
+    done = list(eng.finished)
+    problems = []
+    if len(done) != c["n_requests"]:
+        problems.append(f"granite: {len(done)} of {c['n_requests']} finished")
+    want = cfg.num_layers * c["n_requests"]
+    if launches["flash_attention"] != want:
+        problems.append(f"granite: flash_attention launched "
+                        f"{launches['flash_attention']} times, expected "
+                        f"{want}")
+    padded = sum(len(eng.prefill_tokens(pr)) for pr in prompts)
+    generated = sum(len(st.generated) for st in done)
+    print(json.dumps({
+        "serving": "granite-3-2b", "params": n_params,
+        "init_s": init_s, "requests_finished": len(done),
+        "prompt_tokens": int(lens.sum()), "prefill_tokens_padded": padded,
+        "prefill_s": t_pre, "prefill_tokens_per_s": padded / t_pre,
+        "generated_tokens": generated, "decode_s": t_dec,
+        "decode_tokens_per_s": generated / t_dec, "engine_steps": steps,
+        "ms_per_engine_step": 1e3 * t_dec / max(steps, 1),
+        "peak_gib": peak, "launches": launches}))
+
+    # engine == sequential generation over the same padded prefill, for
+    # the first request of each bucket (and more, up to n_sequential)
+    by_uid = {st.request.uid: st.generated for st in done}
+    firsts = {}
+    for uid, pr in enumerate(prompts):
+        firsts.setdefault(len(eng.prefill_tokens(pr)), uid)
+    check = sorted(firsts.values())
+    check += [u for u in range(len(prompts)) if u not in check]
+    check = sorted(check[:max(c["n_sequential"], len(firsts))])
+    for uid in check:
+        seq = _sequential(params, cfg, rt, eng, prompts[uid],
+                          c["new_tokens"], dev)
+        if by_uid.get(uid) != seq:
+            problems.append(f"granite: request {uid} engine tokens "
+                            f"{by_uid.get(uid)} != sequential {seq}")
+    print(json.dumps({"granite_engine_vs_sequential": check,
+                      "equal": not any("sequential" in p for p in problems)}))
+
+    logit_problems, logit_row = prefill_logits_check(
+        params, cfg, eng, prompts[int(np.argmax(lens))], dev)
+    problems += logit_problems
+    print(json.dumps(logit_row))
+    occupants = {}
+    for st in done:                      # finish order: the last one stays
+        occupants[st.slot] = st.pos
+    return problems, eng, launches, occupants
+
+
+def _to_float(tree):
+    return {k: _to_float(v) if isinstance(v, dict)
+            else v.float() if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def _rel_l2(a, b) -> float:
+    return float((a - b).double().norm() / b.double().norm())
+
+
+def prefill_logits_check(params, cfg, eng, prompt, dev):
+    """The served prefill's last-token logits, kernel path against the
+    naive path, for the longest prompt. The gate is in fp32 on the same
+    weights: in bf16 the two plain paths (chunked, naive) already drift
+    apart by about the bf16 tolerance over 40 layers, which would swamp a
+    kernel fault. A planted fault (the kernel fed keys and values one
+    position late: a one-token look-ahead) is read the same way and must
+    land above the limit. The bf16 prefill itself is checked layer by
+    layer: each flash launch against the plain version on the same q, k, v
+    (bf16 2e-2). Returns (problems, row)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    c = GRANITE
+    toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()[None]
+    sound = kops.flash_attention
+
+    def prefill(p, pcfg, impl, flash=sound):
+        kops.flash_attention = flash
+        try:
+            cache = T.init_cache(pcfg, 1, c["max_seq"], device=dev)
+            return T.prefill(p, toks, cache, pcfg, Runtime(attn_impl=impl))[0]
+        finally:
+            kops.flash_attention = sound
+
+    layers = []
+
+    def checked(q, k, v, **kw):
+        out = sound(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), **kw)
+        layers.append((bf16_close(out, ref.transpose(1, 2)),
+                       _abs_err(out, ref.transpose(1, 2))))
+        return out
+
+    def late_band(q, k, v, **kw):
+        return sound(q, k.roll(-1, 1), v.roll(-1, 1), **kw)
+
+    bf = {impl: prefill(params, cfg, impl) for impl in ("naive", "chunked")}
+    bf["cuda"] = prefill(params, cfg, "cuda", checked)
+    p32, cfg32 = _to_float(params), dataclasses.replace(cfg, dtype="float32")
+    f32 = {impl: prefill(p32, cfg32, impl) for impl in ("naive", "cuda")}
+    f32["fault"] = prefill(p32, cfg32, "cuda", late_band)
+    del p32
+    torch.cuda.empty_cache()
+    sound_rel = _rel_l2(f32["cuda"], f32["naive"])
+    fault_rel = _rel_l2(f32["fault"], f32["naive"])
+    row = {"granite_prefill_logits": f"{toks.shape[1]} tokens",
+           "fp32_rel_l2_cuda_vs_naive": sound_rel,
+           "fp32_rel_l2_planted_fault_vs_naive": fault_rel,
+           "fp32_tolerance_rel_l2": c["logits_rel_l2"],
+           "fp32_max_abs": float((f32["cuda"] - f32["naive"]).abs().max()),
+           "bf16_layers_checked": len(layers),
+           "bf16_layers_within_2e-2": sum(ok for ok, _ in layers),
+           "bf16_layer_max_abs_err": max((e for _, e in layers), default=None),
+           # bf16's own drift, for scale: not gated
+           "bf16_rel_l2_cuda_vs_naive": _rel_l2(bf["cuda"], bf["naive"]),
+           "bf16_rel_l2_chunked_vs_naive": _rel_l2(bf["chunked"], bf["naive"]),
+           "bf16_same_argmax": bool(bf["cuda"].argmax()
+                                    == bf["naive"].argmax())}
+    problems = []
+    if not (sound_rel <= c["logits_rel_l2"] < fault_rel
+            and all(bool(torch.isfinite(x).all()) for x in f32.values())):
+        problems.append(f"granite: fp32 prefill logits cuda vs naive rel L2 "
+                        f"{sound_rel}, planted fault {fault_rel}, limit "
+                        f"{c['logits_rel_l2']}")
+    if len(layers) != cfg.num_layers or not all(ok for ok, _ in layers):
+        problems.append(f"granite: bf16 prefill flash launches vs plain: "
+                        f"{sum(ok for ok, _ in layers)} of {len(layers)} "
+                        f"within 2e-2, expected {cfg.num_layers}")
+    return problems, row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def granite_window(eng) -> dict:
+    """Device idle share of the engine over a profiled window: 8 more
+    requests of 8 tokens at 300-token prompts on the served engine."""
+    rng = np.random.default_rng(1)
+    for _ in range(8):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, size=300).astype(
+            np.int32), max_new_tokens=8)
+    return {"granite_profile_window": "8 requests x 8 tokens, 300-token "
+            "prompts", **device_idle(eng.run_to_completion)}
+
+
+def decode_entry_phase(dev, card, eng, occupants):
+    """ops.decode_attention on the served engine's real layer caches
+    [8, 2048, 8, 64], each row at its last request's position, every
+    layer once (launches counted from 0); held to the plain version on
+    every layer and to the model's decode attention on two layers."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.models import attention as attn
+    import torch.nn.functional as F
+    cfg = eng.cfg
+    cache_k, cache_v = eng.cache["k"], eng.cache["v"]
+    b = eng.max_batch
+    pos_list = [int(occupants.get(s, 0)) for s in range(b)]
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=(b, 1, cfg.num_heads,
+                                          cfg.head_dim)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    problems, err = [], 0.0
+    reset_launches()
+    outs = [ops.decode_attention(q, cache_k[i], cache_v[i], pos)
+            for i in range(cfg.num_layers)]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["decode_attention"] != cfg.num_layers:
+        problems.append(f"decode entry: {launches['decode_attention']} "
+                        "launches")
+    ok = True
+    for i, out in enumerate(outs):
+        ref = da.decode_attention_plain(q.transpose(1, 2), cache_k[i],
+                                        cache_v[i], pos).transpose(1, 2)
+        ok &= bf16_close(out, ref)
+        err = max(err, _abs_err(out, ref))
+        if i in (0, cfg.num_layers - 1):
+            for r in range(b):
+                m = attn.decode_attention(q[r:r + 1], cache_k[i, r:r + 1],
+                                          cache_v[i, r:r + 1], pos_list[r])
+                ok &= bf16_close(out[r:r + 1], m)
+    if not ok:
+        problems.append("decode entry: kernel differs from the plain version "
+                        "or the model's decode attention")
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    live = sum(pos_list)
+    nbytes = 2 * (2 * live * hkv * d + 2 * b * cfg.num_heads * d) + 4 * b
+    valid = (torch.arange(eng.max_seq, device=dev)[None, :]
+             < pos[:, None].long())[:, None, None, :]
+    k0t, v0t = cache_k[0].transpose(1, 2), cache_v[0].transpose(1, 2)
+    qt = q.transpose(1, 2)
+    row = measure(
+        "decode_attention", ok, err,
+        lambda: ops.decode_attention(q, cache_k[0], cache_v[0], pos),
+        lambda: da.decode_attention_plain(qt, cache_k[0], cache_v[0], pos),
+        "decode_attention_kernel", nbytes, 4 * d * cfg.num_heads * live,
+        card, library_call=lambda: F.scaled_dot_product_attention(
+            qt, k0t, v0t, attn_mask=valid, enable_gqa=True),
+        positions=pos_list)
+    return problems, launches, row
+
+
+def mamba_phase(dev, card):
+    """mamba2-130m at full width and depth in bf16 (random weights, seed
+    0 on the card): 8 greedy requests on 4 slots, so slots are reused;
+    tokens equal a fresh-cache sequential generation. Then the SSD entry
+    point, ops.ssd_chunked_pallas, on layer 0's real (x, B, C, dt) for a
+    512-token prompt, held to the plain version and to the model's
+    ssd_chunked with d_skip 0. Returns (problems, launches, row)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serving import ServingEngine
+    c = MAMBA
+    cfg = get_config("mamba2-130m")
+    rt = Runtime(attn_impl="cuda")
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    rng = np.random.default_rng(1)
+    lens = rng.integers(c["len_lo"], c["len_hi"] + 1, size=c["n_requests"])
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens]
+    eng = ServingEngine(params, cfg, max_batch=c["max_batch"],
+                        max_seq=c["max_seq"], rt=rt, device=dev)
+    for pr in prompts:
+        eng.submit(pr, max_new_tokens=c["new_tokens"])
+    torch.cuda.reset_peak_memory_stats()
+    t_pre, t_dec, steps = drive_engine(eng)
+    done = list(eng.finished)
+    problems = []
+    if len(done) != c["n_requests"]:
+        problems.append(f"mamba2: {len(done)} of {c['n_requests']} finished")
+    reused = len(done) - len({st.slot for st in done})
+    by_uid = {st.request.uid: st.generated for st in done}
+    mismatched = [uid for uid, pr in enumerate(prompts)
+                  if by_uid.get(uid) != _sequential(params, cfg, rt, eng, pr,
+                                                    c["new_tokens"], dev)]
+    if mismatched:
+        problems.append(f"mamba2: engine != fresh sequential for requests "
+                        f"{mismatched}")
+    generated = sum(len(st.generated) for st in done)
+    print(json.dumps({
+        "serving": "mamba2-130m", "requests_finished": len(done),
+        "slot_reuses": reused, "prompt_tokens": int(lens.sum()),
+        "prefill_s": t_pre, "prefill_tokens_per_s": int(lens.sum()) / t_pre,
+        "generated_tokens": generated, "decode_s": t_dec,
+        "decode_tokens_per_s": generated / t_dec, "engine_steps": steps,
+        "ms_per_engine_step": 1e3 * t_dec / max(steps, 1),
+        "peak_gib": _peak_gib(),
+        "engine_equals_sequential": not mismatched}))
+
+    # layer 0's real SSD inputs for a 512-token prompt
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=c["entry_len"]),
+                           device=dev).long()[None]
+    p0 = T._layer(params["blocks"], 0)
+    mix = p0["mixer"]
+    h = rms_norm(params["embed"][toks], p0["norm"], cfg.norm_eps)
+    _, xi, b, cc, dt = ssm_lib._split_proj(h @ mix["in_proj"], cfg)
+    conv, _ = ssm_lib._causal_conv(torch.cat([xi, b, cc], dim=-1),
+                                   mix["conv_w"], mix["conv_b"])
+    d_inner, heads, _ = ssm_lib.ssm_dims(cfg)
+    xi, b, cc = torch.split(conv, [d_inner, cfg.ssm_state, cfg.ssm_state],
+                            dim=-1)
+    x = xi.reshape(1, c["entry_len"], heads, cfg.ssm_head_dim)
+    dt = F.softplus(dt.float() + mix["dt_bias"])
+    a_log = mix["a_log"]
+    reset_launches()
+    y, fin = ops.ssd_chunked_pallas(x, b, cc, dt, a_log, chunk=c["chunk"])
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches["ssd_chunk"] != c["entry_len"] // c["chunk"]:
+        problems.append(f"mamba2 entry: {launches['ssd_chunk']} ssd_chunk "
+                        "launches")
+    y_cpu, fin_cpu = ops.ssd_chunked_pallas(
+        *(t.cpu() for t in (x, b, cc, dt, a_log)), chunk=c["chunk"])
+    y_m, fin_m = ssm_lib.ssd_chunked(x, b, cc, dt, a_log,
+                                     torch.zeros(heads, device=dev), cfg)
+    checks = {"plain": bf16_close(y.cpu(), y_cpu)
+              and bf16_close(fin.cpu(), fin_cpu),
+              "ssd_chunked": bf16_close(y, y_m) and bf16_close(fin, fin_m)}
+    print(json.dumps({"ssd_entry": f"layer 0, {c['entry_len']} tokens",
+                      "checks": checks,
+                      "max_abs_err_plain": _abs_err(y.cpu(), y_cpu),
+                      "max_abs_err_ssd_chunked": _abs_err(y, y_m),
+                      "launches": launches}))
+    if not all(checks.values()):
+        problems.append(f"mamba2 entry: {checks}")
+    # one chunk of the real inputs, timed
+    q = c["chunk"]
+    xc, bc, ccc, dtc = x[:, :q], b[:, :q], cc[:, :q], dt[:, :q]
+    outs = sc.ssd_chunk(xc, bc, ccc, dtc, a_log)
+    refs = sc.ssd_chunk_plain(xc, bc, ccc, dtc, a_log)
+    ok = all(bf16_close(o, r) for o, r in zip(outs, refs))
+    if not ok:
+        problems.append("ssd_chunk: differs from plain on the real chunk")
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    nbytes = (2 * 2 * q * heads * p + 2 * 2 * q * n + 4 * q * heads
+              + 4 * heads + 4 * heads * n * p + 4 * heads)
+    tri = q * (q + 1) // 2
+    nflops = 2 * tri * n + heads * (2 * tri * p + 2 * q * n * p)
+    row = measure("ssd_chunk", ok,
+                  max(_abs_err(o, r) for o, r in zip(outs, refs)),
+                  lambda: sc.ssd_chunk(xc, bc, ccc, dtc, a_log),
+                  lambda: sc.ssd_chunk_plain(xc, bc, ccc, dtc, a_log),
+                  "ssd_chunk_kernel", nbytes, nflops, card)
+    return problems, launches, row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -806,6 +1410,29 @@ def main() -> int:
     entry_problems, entry_launches = entry_point_phase(dev, median_tr, env)
     problems += entry_problems
     walls["entry_points"] = time.perf_counter() - t
+
+    # the LM stack. torch.cumsum on CUDA (the SSD scans') has no
+    # deterministic implementation, so deterministic mode goes off here;
+    # engine == sequential rests on the same ops at the same shapes
+    torch.use_deterministic_algorithms(False)
+    t = time.perf_counter()
+    lm_problems, flash_rows = lm_kernel_phase(dev, name)
+    problems += lm_problems
+    walls["lm_kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    g_problems, eng, flash_launches, occupants = granite_phase(dev, name)
+    problems += g_problems
+    d_problems, decode_launches, decode_row = decode_entry_phase(
+        dev, name, eng, occupants)
+    problems += d_problems
+    print(json.dumps(granite_window(eng)))
+    del eng
+    torch.cuda.empty_cache()
+    walls["granite_serving"] = time.perf_counter() - t
+    t = time.perf_counter()
+    m_problems, ssd_launches, ssd_row = mamba_phase(dev, name)
+    problems += m_problems
+    walls["mamba2_serving"] = time.perf_counter() - t
     print(json.dumps({"phase_wall_s": walls}))
 
     # each kernel's launches come from the path that runs it, counted from
@@ -827,6 +1454,27 @@ def main() -> int:
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"],
                      "check": "bitwise" if res["ok"] else "FAILED"})
+    flash_ok = all(r["ok"] for r in flash_rows.values())
+    for kname, res, path, counts in (
+            ("flash_attention", {**flash_rows["granite S1024"],
+                                 "ok": flash_ok},
+             "granite-3-2b serving engine", flash_launches),
+            ("decode_attention", decode_row,
+             "decode entry point on the served caches", decode_launches),
+            ("ssd_chunk", ssd_row,
+             "ssd_chunked_pallas entry point, mamba2 layer 0",
+             ssd_launches)):
+        rows.append({"name": kname, "route": "cuda",
+                     "source": LM_SOURCES[kname],
+                     "replaces": LM_REPLACES[kname],
+                     "launches": counts[kname], "path": path,
+                     "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                     "plain_ms": res["plain_ms"],
+                     "device_ms": res["device_ms"],
+                     "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"],
+                     "library_ms": res["library_ms"],
+                     "check": "bf16 2e-2" if res["ok"] else "FAILED"})
     print(json.dumps({"kernels": rows}))
     if problems:
         print("chip_smoke FAILED: " + "; ".join(problems), file=sys.stderr)

@@ -5,5 +5,8 @@ imports). It runs the paper's pipeline — Dirichlet split of
 synthetic-mnist, phi, the AO schedule (`core.optimizer_ao.solve_p1`), and
 pruned FedSGD on LeNet / mlp-edge (`core.federated.FederatedTrainer`) —
 with the round's Pallas kernels replaced by hand-written CUDA kernels for
-Hopper (`kernels/`). Entry points run on CUDA unless given device="cpu".
+Hopper (`kernels/`). It also serves the LM stack's dense and ssm families
+(`configs/`, `models/transformer.py`, `serving/`, `launch/serve.py`)
+through the attention and SSD kernels. Entry points run on CUDA unless
+given device="cpu".
 """

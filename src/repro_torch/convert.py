@@ -3,7 +3,9 @@
 The JAX package initialises its models with ``jax.random``, whose numbers
 torch cannot reproduce. A caller that wants both packages to start from the
 same weights exports the JAX parameter dict as numpy arrays
-(``{k: np.asarray(v) for k, v in params.items()}``) and hands it here.
+(``{k: np.asarray(v) for k, v in params.items()}``) and hands it here;
+the LM stack's nested, layer-stacked trees (parameters and caches) go
+through `lm_params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -15,3 +17,23 @@ def params_from_numpy(tree) -> dict[str, torch.Tensor]:
     """{name: array} -> {name: CPU tensor holding a copy, dtype kept}."""
     return {str(k): torch.from_numpy(np.array(v, copy=True))
             for k, v in tree.items()}
+
+
+def _tensor(a) -> torch.Tensor:
+    """One array as a CPU tensor. bfloat16 arrays (ml_dtypes.bfloat16,
+    which torch.from_numpy refuses) travel as their uint16 bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.array(a.view(np.uint16), copy=True)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def lm_params_from_numpy(tree):
+    """A nested dict of arrays (an LM parameter or cache tree, exported
+    with ``jax.tree.map(np.asarray, tree)``) -> the same nesting of CPU
+    tensors, dtype kept, like `params_from_numpy`; a caller that wants the
+    card moves them with ``.to``."""
+    if isinstance(tree, dict):
+        return {str(k): lm_params_from_numpy(v) for k, v in tree.items()}
+    return _tensor(tree)

@@ -19,14 +19,18 @@ import tempfile
 import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "pruning_mask.cu",)
+SOURCES = tuple(_CSRC / name for name in (
+    "pruning_mask.cu", "flash_attention.cu", "decode_attention.cu",
+    "ssd_chunk.cu"))
+HEADERS = (_CSRC / "common.cuh",)
 # No --use_fast_math and no -ftz: the kernels pin their own rounding with
 # __fmul_rn/__fadd_rn/__fsub_rn and flush denormals explicitly where the
 # reference does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I64S = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # w, v, prunable, thr, n_clients, n, q, masks, stream
     "importance_masks": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong,
@@ -44,6 +48,18 @@ _SIGNATURES = {
     # grads, cw, n_clients, n, out, keys (scratch for C > 32), stream
     "client_rank_sort": (_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P,
                          _P),
+    # q, k, v, o, dims[6], strides[12], is_bf16, causal, window, cap,
+    # scale, stream
+    "flash_attention": (_P, _P, _P, _P, _I64S, _I64S, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_float, _P),
+    # q, k, v, pos, o, dims[5], strides[10], is_bf16, scale, stream
+    "decode_attention": (_P, _P, _P, _P, _P, _I64S, _I64S, ctypes.c_int,
+                         ctypes.c_float, _P),
+    # x, b, c, dt, a_log, y, state, decay, dims[5], strides[13], is_bf16,
+    # stream
+    "ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _I64S, _I64S,
+                  ctypes.c_int, _P),
 }
 
 _lock = threading.Lock()
@@ -68,31 +84,45 @@ def _nvcc() -> str:
 
 def _source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path() -> pathlib.Path:
-    return BUILD_DIR / f"libpruning_mask_{_source_key()}.so"
+    return BUILD_DIR / f"librepro_torch_kernels_{_source_key()}.so"
+
+
+def _check_nvcc(cmd, returncode, stdout, stderr) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{stdout}{stderr}")
 
 
 def build() -> pathlib.Path:
-    """Compile the sources unless the hashed library already exists."""
+    """Compile the sources unless the hashed library already exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)                     # atomic: never a half-written .so
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [pathlib.Path(tmp) / (src.stem + ".o") for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outputs = [p.communicate() for p in procs]   # wait for all of them
+        for cmd, p, (so, se) in zip(cmds, procs, outputs):
+            _check_nvcc(cmd, p.returncode, so, se)
+        lib = pathlib.Path(tmp) / out.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(lib, out)                 # atomic: never a half-written .so
     return out
 
 
@@ -108,3 +138,24 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the library's C entry point `name` (it launches on the stream
+    passed last and returns cudaGetLastError()); raise if it failed."""
+    err = getattr(load(), name)(*args)
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def int64s(values) -> ctypes.Array:
+    """A host int64 array for a `const long long*` argument."""
+    values = [int(v) for v in values]
+    return (ctypes.c_longlong * len(values))(*values)
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of t's device, as a pointer-sized int."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,9 +1,12 @@
-"""Packed-buffer entry points of the round engine (core/packing.py layout).
+"""Entry points of the port's kernels: the packed-buffer ones of the round
+engine (core/packing.py layout) and the LM stack's attention and SSD ones.
 
-Each entry point calls its wrapper in kernels/pruning_mask.py, which
-launches the hand-written Hopper kernel on CUDA tensors and runs the plain
-PyTorch version (bit-identical to the kernel) on CPU tensors. ``impl``
-mirrors ``repro/kernels/ops.py`` and only checks that choice:
+Each entry point calls its wrapper (kernels/pruning_mask.py,
+flash_attention.py, decode_attention.py, ssd_chunk.py), which launches the
+hand-written Hopper kernel on CUDA tensors and runs the plain PyTorch
+version on CPU tensors (bit-identical for the round's kernels, within a
+stated tolerance for attention and SSD). ``impl`` mirrors
+``repro/kernels/ops.py`` and only checks that choice:
 
   * "auto"  — whatever the tensors' device gives;
   * "cuda"  — the kernel; raises on a CPU tensor;
@@ -27,7 +30,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pruning_mask as _pm
+from repro_torch.kernels import ssd_chunk as _sc
 
 LANES = _pm.LANES
 FLT_MIN = _pm.FLT_MIN
@@ -288,3 +294,65 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
     else:
         raise ValueError(f"unknown robust aggregate kind {kind!r}")
     return ghat, stat.int()
+
+
+# -- the LM stack: attention and SSD ------------------------------------------
+
+FLASH_BLOCK = 128     # the TPU kernel's default q and kv blocks
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, impl="auto"):
+    """Flash attention in model layout: q [B,S,Hq,D], k/v [B,S,Hkv,D] ->
+    [B,S,Hq,D]. The kernel reads the transposed views in place. Each
+    sequence must be a multiple of min(128, S), the TPU kernel's contract
+    at its default blocks; the CUDA kernel tiles on its own."""
+    _check_impl(impl, q)
+    sq, skv = q.shape[1], k.shape[1]
+    bq, bk = min(FLASH_BLOCK, sq), min(FLASH_BLOCK, skv)
+    if sq % bq or skv % bk:
+        raise ValueError(f"seq ({sq},{skv}) must divide blocks ({bq},{bk})")
+    o = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window,
+                            cap=cap)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q, k, v, pos, *, block_k=512, impl="auto"):
+    """Flash-decoding in model layout: q [B,1,Hq,D], cache k/v
+    [B,S,Hkv,D] read in place, pos the valid cache length (an int, or an
+    int tensor [B] for rows at different positions). Returns [B,1,Hq,D];
+    0 for a row at pos = 0, as the TPU kernel."""
+    _check_impl(impl, q)
+    return _da.decode_attention(q.transpose(1, 2), k, v, pos,
+                                block_k=block_k).transpose(1, 2)
+
+
+def ssd_chunked_pallas(x, b, c, dt, a_log, *, chunk=128, impl="auto"):
+    """The SSD scan with the ssd_chunk kernel per chunk and the inter-chunk
+    recurrence on the host: the counterpart of the JAX package's
+    ``ops.ssd_chunked_pallas`` (no D-skip, zero initial state).
+
+    x [B,S,H,P], b/c [B,S,N], dt [B,S,H] -> (y [B,S,H,P] in x's type,
+    final state [B,H,P,N] fp32). As there, each chunk's y_intra is rounded
+    to x's type before the inter-chunk term is added, and the kernel's
+    [N, P] chunk state is swapped to [P, N]."""
+    _check_impl(impl, x)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must divide chunk {q}")
+    a = -torch.exp(a_log.float())
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, s, q):
+        sl = slice(c0, c0 + q)
+        xc, bc, cc, dtc = x[:, sl], b[:, sl], c[:, sl], dt[:, sl]
+        y_intra, st_contrib, dec = _sc.ssd_chunk(xc, bc, cc, dtc, a_log)
+        # inter-chunk term: y_inter[s] = C_s . state * exp(acum_s)
+        acum = torch.cumsum(dtc.float() * a, dim=1)            # [B,q,H]
+        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cc.float(), state,
+                               torch.exp(acum))
+        state = state * dec[..., None, None] + st_contrib.transpose(-1, -2)
+        ys.append(y_intra.float() + y_inter)
+    return torch.cat(ys, dim=1).to(x.dtype), state

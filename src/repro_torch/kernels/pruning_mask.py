@@ -31,20 +31,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# one count per kernel of the port, bumped only where the kernel launches
+from repro_torch.kernels.counters import LAUNCHES, reset_launches  # noqa: F401
+
 LANES = 128
 FLT_MIN = torch.finfo(torch.float32).tiny
 INT32_MAX = 2**31 - 1
 
-# one count per kernel, bumped only where the kernel is launched
-LAUNCHES = {"importance_mask_2d": 0, "importance_mask_batched": 0,
-            "fedsgd_aggregate_weighted": 0, "exponent_histogram": 0,
-            "fedsgd_aggregate": 0, "client_rank_sort": 0,
-            "masked_update_2d": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def daz(x: torch.Tensor) -> torch.Tensor:
@@ -179,17 +172,6 @@ def _packed_shape(w: torch.Tensor) -> tuple[int, int]:
     return int(w.shape[0]), int(w.shape[1])
 
 
-def _call(fn, *args) -> None:
-    err = fn(*args)
-    if err:
-        raise RuntimeError(f"CUDA kernel {fn.__name__} failed to launch: "
-                           f"cudaError {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _importance_masks_cuda(w, v, prunable, thresholds, counter):
     from repro_torch.kernels import _build
     shape = _packed_shape(w)
@@ -203,9 +185,10 @@ def _importance_masks_cuda(w, v, prunable, thresholds, counter):
     masks = torch.empty((n_clients,) + shape, dtype=torch.float32,
                         device=w.device)
     with torch.cuda.device(w.device):
-        _call(_build.load().importance_masks, w.data_ptr(), v.data_ptr(),
-              prunable.data_ptr(), thresholds.data_ptr(), n_clients,
-              w.numel(), q.data_ptr(), masks.data_ptr(), _stream(w))
+        _build.launch("importance_masks", w.data_ptr(), v.data_ptr(),
+                      prunable.data_ptr(), thresholds.data_ptr(), n_clients,
+                      w.numel(), q.data_ptr(), masks.data_ptr(),
+                      _build.stream_of(w))
     LAUNCHES[counter] += 1
     return q, masks
 
@@ -259,10 +242,10 @@ def fedsgd_aggregate_weighted(w, grads, cweights, inv, eta):
     outs = [torch.empty(shape, dtype=torch.float32, device=w.device)
             for _ in range(3)]
     with torch.cuda.device(w.device):
-        _call(_build.load().fedsgd_aggregate_weighted, w.data_ptr(),
-              grads.data_ptr(), cweights.data_ptr(), n_clients,
-              inv.data_ptr(), eta.data_ptr(), w.numel(),
-              *(o.data_ptr() for o in outs), _stream(w))
+        _build.launch("fedsgd_aggregate_weighted", w.data_ptr(),
+                      grads.data_ptr(), cweights.data_ptr(), n_clients,
+                      inv.data_ptr(), eta.data_ptr(), w.numel(),
+                      *(o.data_ptr() for o in outs), _build.stream_of(w))
     LAUNCHES["fedsgd_aggregate_weighted"] += 1
     return tuple(outs)
 
@@ -287,10 +270,10 @@ def fedsgd_aggregate(w, grads, eta):
     outs = [torch.empty(shape, dtype=torch.float32, device=w.device)
             for _ in range(3)]
     with torch.cuda.device(w.device):
-        _call(_build.load().fedsgd_aggregate, w.data_ptr(), grads.data_ptr(),
-              n_clients, float(np.float32(1.0 / n_clients)),
-              float(np.float32(eta)), w.numel(),
-              *(o.data_ptr() for o in outs), _stream(w))
+        _build.launch("fedsgd_aggregate", w.data_ptr(), grads.data_ptr(),
+                      n_clients, float(np.float32(1.0 / n_clients)),
+                      float(np.float32(eta)), w.numel(),
+                      *(o.data_ptr() for o in outs), _build.stream_of(w))
     LAUNCHES["fedsgd_aggregate"] += 1
     return tuple(outs)
 
@@ -309,9 +292,9 @@ def masked_update_2d(w, g, mask, eta):
         _check(nm, t, shape, w.device)
     out = torch.empty(shape, dtype=torch.float32, device=w.device)
     with torch.cuda.device(w.device):
-        _call(_build.load().masked_update, w.data_ptr(), g.data_ptr(),
-              mask.data_ptr(), float(np.float32(eta)), w.numel(),
-              out.data_ptr(), _stream(w))
+        _build.launch("masked_update", w.data_ptr(), g.data_ptr(),
+                      mask.data_ptr(), float(np.float32(eta)), w.numel(),
+                      out.data_ptr(), _build.stream_of(w))
     LAUNCHES["masked_update_2d"] += 1
     return out
 
@@ -340,9 +323,10 @@ def client_rank_sort(grads, cweights):
     keys = (torch.empty((n_clients,) + shape, dtype=torch.int32,
                         device=grads.device) if n_clients > 32 else None)
     with torch.cuda.device(grads.device):
-        _call(_build.load().client_rank_sort, grads.data_ptr(),
-              cweights.data_ptr(), n_clients, n, out.data_ptr(),
-              None if keys is None else keys.data_ptr(), _stream(grads))
+        _build.launch("client_rank_sort", grads.data_ptr(),
+                      cweights.data_ptr(), n_clients, n, out.data_ptr(),
+                      None if keys is None else keys.data_ptr(),
+                      _build.stream_of(grads))
     LAUNCHES["client_rank_sort"] += 1
     return out
 
@@ -363,7 +347,8 @@ def exponent_histogram(q, prunable):
     _check("prunable", prunable, shape, q.device)
     hist = torch.zeros(256, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
-        _call(_build.load().exponent_histogram, q.data_ptr(),
-              prunable.data_ptr(), q.numel(), hist.data_ptr(), _stream(q))
+        _build.launch("exponent_histogram", q.data_ptr(),
+                      prunable.data_ptr(), q.numel(), hist.data_ptr(),
+                      _build.stream_of(q))
     LAUNCHES["exponent_histogram"] += 1
     return hist

@@ -13,7 +13,12 @@ clients (the rank sort, the unweighted aggregate and the masked update at
 C in {1, 3, 8, 10, 16, 33}, past the sort's 32-client register network),
 and a few rounds of the trainer run through the kernels with the packed
 backend equal to the reference backend, under the mean and under a robust
-reducer with an attack.
+reducer with an attack. The LM stack's kernels (flash attention, decode
+attention, the SSD chunk) are held to their plain versions within the
+JAX package's kernel tolerances (fp32 2e-5, bf16 2e-2) at the served
+models' head dims (64, 128, 256 with gemma2's softcap), with windows and
+ragged decode positions, and the serving engine runs a reduced model
+through the flash kernel.
 """
 import numpy as np
 import pytest
@@ -118,7 +123,9 @@ def test_kernels_match_plain_versions(dev, n_clients):
                            "importance_mask_batched": 1,
                            "fedsgd_aggregate_weighted": 1,
                            "exponent_histogram": 1, "fedsgd_aggregate": 0,
-                           "client_rank_sort": 0, "masked_update_2d": 0}
+                           "client_rank_sort": 0, "masked_update_2d": 0,
+                           "flash_attention": 0, "decode_attention": 0,
+                           "ssd_chunk": 0}
 
 
 def _rank_stack(dev, n_clients, rows=1024, seed=0):
@@ -288,3 +295,163 @@ def test_trainer_rounds_through_the_kernels(dev):
     for k in tp.params:
         assert_bitwise(tp.params[k], tr_.params[k])
         assert torch.equal(tp.global_grad[k], tr_.global_grad[k])
+
+
+# -- the LM stack's kernels ---------------------------------------------------
+
+LM_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _assert_close(a, b, dtype):
+    assert a.shape == b.shape and a.dtype == b.dtype
+    torch.testing.assert_close(a.float(), b.float(), **LM_TOL[dtype])
+
+
+def _normal(rng, shape, dev, dtype, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(
+        np.float32)).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", [
+    (1, 256, 32, 8, 64, True, 0, 0.0),        # granite prefill
+    (2, 384, 8, 2, 128, False, 0, 0.0),       # qwen-like head dim, GQA 4
+    (1, 512, 4, 2, 64, True, 100, 0.0),       # sliding window, skipped tiles
+    (1, 256, 16, 8, 256, True, 0, 50.0),      # gemma2 global layer
+    (1, 384, 16, 8, 256, True, 128, 50.0),    # gemma2 local layer
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
+                                              causal, window, cap):
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(d + s)
+    q = _normal(rng, (b, s, hq, d), dev, dtype)
+    k = _normal(rng, (b, s, hkv, d), dev, dtype)
+    v = _normal(rng, (b, s, hkv, d), dev, dtype)
+    kw = dict(causal=causal, window=window, cap=cap)
+    pm.reset_launches()
+    out = ops.flash_attention(q, k, v, **kw)       # model layout, by strides
+    assert pm.LAUNCHES["flash_attention"] == 1
+    plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), **kw).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, plain, dtype)
+    assert out.transpose(1, 2).is_contiguous() or out.is_contiguous()
+    kl = fa.flash_attention(q.transpose(1, 2).contiguous(),
+                            k.transpose(1, 2).contiguous(),
+                            v.transpose(1, 2).contiguous(), **kw)
+    _assert_close(kl.transpose(1, 2), plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 64), (16, 2, 128),
+                                      (16, 8, 256), (4, 4, 64)])
+def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
+    """Ragged positions (0, 1, mid, full, past the end) on a layer slice
+    of a stacked [L, B, S, Hkv, D] cache, read in place."""
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(hq + d)
+    b, skv = 5, 1024
+    cache_k = _normal(rng, (2, b, skv, hkv, d), dev, dtype)
+    cache_v = _normal(rng, (2, b, skv, hkv, d), dev, dtype)
+    q = _normal(rng, (b, 1, hq, d), dev, dtype)
+    pos = torch.tensor([0, 1, 517, skv, skv + 9], dtype=torch.int32,
+                       device=dev)
+    pm.reset_launches()
+    out = ops.decode_attention(q, cache_k[1], cache_v[1], pos)
+    assert pm.LAUNCHES["decode_attention"] == 1
+    plain = da.decode_attention_plain(q.transpose(1, 2), cache_k[1],
+                                      cache_v[1], pos).transpose(1, 2)
+    torch.cuda.synchronize()
+    _assert_close(out, plain, dtype)
+    assert bool((out[0] == 0).all())              # pos = 0: zero, as the TPU
+    one = ops.decode_attention(q[2:3], cache_k[1, 2:3], cache_v[1, 2:3], 517)
+    _assert_close(one, out[2:3], dtype)
+    from repro_torch.models.attention import decode_attention as model_dec
+    _assert_close(model_dec(q[2:3], cache_k[1, 2:3], cache_v[1, 2:3], 517),
+                  one, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q,h,p,n,alog_hi", [(1, 128, 24, 64, 128, 16.0),
+                                              (2, 64, 4, 32, 16, 4.0)])
+def test_ssd_chunk_kernel_matches_plain(dev, dtype, b, q, h, p, n, alog_hi):
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(q + n)
+    x = _normal(rng, (b, q, h, p), dev, dtype, 0.3)
+    bb = _normal(rng, (b, q, n), dev, dtype, 0.3)
+    cc = _normal(rng, (b, q, n), dev, dtype, 0.3)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, q, h), dev,
+                                              torch.float32))
+    a_log = torch.log(torch.linspace(1.0, alog_hi, h, device=dev))
+    pm.reset_launches()
+    outs = sc.ssd_chunk(x, bb, cc, dt, a_log)
+    assert pm.LAUNCHES["ssd_chunk"] == 1
+    plain = sc.ssd_chunk_plain(x, bb, cc, dt, a_log)
+    torch.cuda.synchronize()
+    _assert_close(outs[0], plain[0], dtype)
+    for a, c in zip(outs[1:], plain[1:]):
+        _assert_close(a, c, torch.float32 if dtype == torch.float32
+                      else torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_pallas_on_the_card_matches_the_cpu(dev):
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 2, 256, 4, 64, 32
+    x = _normal(rng, (b, s, h, p), dev, torch.float32, 0.3)
+    bb = _normal(rng, (b, s, n), dev, torch.float32, 0.3)
+    cc = _normal(rng, (b, s, n), dev, torch.float32, 0.3)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, s, h), dev,
+                                              torch.float32))
+    a_log = torch.log(torch.linspace(1.0, 4.0, h, device=dev))
+    pm.reset_launches()
+    y, fin = ops.ssd_chunked_pallas(x, bb, cc, dt, a_log, chunk=64)
+    assert pm.LAUNCHES["ssd_chunk"] == s // 64
+    yc, fc = ops.ssd_chunked_pallas(*(t.cpu() for t in (x, bb, cc, dt,
+                                                        a_log)), chunk=64)
+    torch.testing.assert_close(y.cpu(), yc, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(fin.cpu(), fc, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_serving_engine_runs_through_the_flash_kernel(dev):
+    """A reduced granite served on the card: every prefill longer than 128
+    tokens goes through the kernel, once per layer, and the engine's tokens
+    equal a sequential generation over the same padded prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("granite-3-2b").reduced()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    rt = Runtime(attn_impl="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (150, 300, 140, 260, 200)]
+    eng = ServingEngine(params, cfg, max_batch=2, max_seq=512, rt=rt,
+                        prompt_buckets=(256, 384), device=dev)
+    for pr in prompts:
+        eng.submit(pr, max_new_tokens=6)
+    pm.reset_launches()
+    done = eng.run_to_completion()
+    assert pm.LAUNCHES["flash_attention"] == cfg.num_layers * len(prompts)
+    assert len(done) == len(prompts)
+    by_uid = {st.request.uid: st.generated for st in done}
+    for uid in (0, 3):
+        cache = T.init_cache(cfg, 1, 512, device=dev)
+        pr = prompts[uid]
+        padded = torch.as_tensor(eng.prefill_tokens(pr), device=dev).long()
+        T.prefill(params, padded[None], cache, cfg, rt)
+        tok, pos, out = int(pr[-1]), len(pr) - 1, []
+        for _ in range(6):
+            lg, _ = T.decode_step(params, torch.tensor([[tok]], device=dev),
+                                  cache, pos, cfg, rt)
+            tok = int(lg[0].argmax())
+            out.append(tok)
+            pos += 1
+        assert by_uid[uid] == out

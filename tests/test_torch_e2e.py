@@ -229,7 +229,13 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
-assert "repro_torch.kernels._build" in sys.modules
+for need in ("repro_torch.kernels._build", "repro_torch.configs.registry",
+             "repro_torch.models.transformer", "repro_torch.models.ssm",
+             "repro_torch.kernels.flash_attention",
+             "repro_torch.kernels.decode_attention",
+             "repro_torch.kernels.ssd_chunk", "repro_torch.serving.engine",
+             "repro_torch.launch.serve"):
+    assert need in sys.modules, need
 print(len(names))
 """
     import os
@@ -238,7 +244,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 54
 
 
 def test_entry_points_default_to_cuda():
@@ -252,6 +258,20 @@ def test_entry_points_default_to_cuda():
         tcore.FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
                                clients, eta=0.1, batch_size=4)
     assert resolve_device("cpu").type == "cpu"
+    # the LM stack: model init, caches and the serving engine
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("granite-3-2b").reduced(layers=1, d_model=64, vocab=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.init_cache(cfg, 1, 16)
+    lm = T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(lm, cfg, max_seq=16)
+    assert ServingEngine(lm, cfg, max_seq=16, device="cpu").rt.attn_impl \
+        == "cuda"
 
 
 def test_engine_eval_and_inits_default_to_cuda():

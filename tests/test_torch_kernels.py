@@ -469,8 +469,15 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     pm.fedsgd_aggregate(w, torch.stack([v, v]), 0.1)
     pm.client_rank_sort(torch.stack([v, w]), torch.tensor([1.0, 1.0]))
     pm.masked_update_2d(w, v, pr, 0.1)
+    # the LM stack's wrappers share the counters
+    x = torch.zeros((1, 128, 2, 64))
+    tops.flash_attention(x, x, x)
+    tops.decode_attention(x[:, :1], x, x, 5)
+    tops.ssd_chunked_pallas(x, x[:, :, 0, :16], x[:, :, 0, :16], x[..., 0],
+                            torch.zeros(2), chunk=64)
     assert set(pm.LAUNCHES) == {
         "importance_mask_2d", "importance_mask_batched",
         "fedsgd_aggregate_weighted", "exponent_histogram",
-        "fedsgd_aggregate", "client_rank_sort", "masked_update_2d"}
+        "fedsgd_aggregate", "client_rank_sort", "masked_update_2d",
+        "flash_attention", "decode_attention", "ssd_chunk"}
     assert set(pm.LAUNCHES.values()) == {0}

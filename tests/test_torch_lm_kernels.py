@@ -1,0 +1,234 @@
+"""The LM stack's kernels of the port against the JAX package, on the CPU.
+
+Each plain PyTorch version (what the CUDA wrapper runs on CPU tensors) is
+held to the JAX package's Pallas kernel in interpret mode and to its
+``kernels/ref.py`` oracle, on the same numpy inputs, with the JAX
+package's own kernel tolerances (tests/test_kernels.py: fp32 2e-5, bf16
+2e-2): flash attention (causal or not, window, softcap, GQA, head dims 64
+and 128), decode attention (pos 1, mid, full; pos 0 pinned), the SSD chunk
+and the chunked SSD scan built on it.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.decode_attention import \
+    decode_attention as pallas_decode  # noqa: E402
+from repro.kernels.ssd_chunk import ssd_chunk as pallas_ssd_chunk  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread per test: the suite runs in parallel
+    workers beside XLA's thread pools, and torch's default pool (a thread
+    per core in every worker) oversubscribes the cores several times over.
+    The port's tests use small tensors, where one thread loses little."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+# the JAX package's kernel tolerances (tests/test_kernels.py:10)
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of `dtype` (both
+    round fp32 to bf16 to nearest even)."""
+    a = a.astype(np.float32)
+    return (jnp.asarray(a, jnp.dtype(dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _close(t, j, dtype):
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j, np.float32), **TOL[dtype])
+
+
+# -- flash attention ----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", [
+    (1, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 256, 8, 2, 64, False, 0, 0.0),
+    (1, 256, 4, 1, 128, True, 0, 0.0),
+    (1, 256, 4, 2, 64, True, 100, 0.0),
+    (1, 128, 4, 4, 64, True, 0, 20.0),
+])
+def test_flash_attention_plain_matches_pallas_and_ref(dtype, b, s, hq, hkv, d,
+                                                      causal, window, cap):
+    rng = np.random.default_rng(s + d)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(b, s, h, d)), dtype) for h in (hq, hkv, hkv))
+    kw = dict(causal=causal, window=window, cap=cap)
+    out = ops.flash_attention(tq, tk, tv, **kw)          # model layout
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    pallas = jops.flash_attention(jq, jk, jv, block_q=64, block_k=64, **kw)
+    _close(out, pallas, dtype)
+    oracle = ref.flash_attention_ref(*(jnp.swapaxes(t, 1, 2)
+                                       for t in (jq, jk, jv)), **kw)
+    _close(out, jnp.swapaxes(oracle, 1, 2), dtype)
+    kernel_layout = fa.flash_attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                                       tv.transpose(1, 2), **kw)
+    assert torch.equal(kernel_layout.transpose(1, 2), out)
+
+
+def test_flash_attention_keeps_the_block_contract():
+    q = torch.zeros((1, 200, 2, 64))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="'cuda'"):
+        ops.flash_attention(q[:, :128], q[:, :128], q[:, :128], impl="cuda")
+
+
+# -- decode attention ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,skv,hq,hkv,d,pos", [
+    (2, 512, 4, 2, 64, 1), (2, 512, 4, 2, 64, 200), (2, 512, 4, 2, 64, 512),
+    (1, 512, 8, 8, 128, 300)])
+def test_decode_attention_plain_matches_pallas_and_ref(dtype, b, skv, hq, hkv,
+                                                       d, pos):
+    rng = np.random.default_rng(pos)
+    jq, tq = _pair(rng.normal(size=(b, 1, hq, d)), dtype)
+    jk, tk = _pair(rng.normal(size=(b, skv, hkv, d)), dtype)
+    jv, tv = _pair(rng.normal(size=(b, skv, hkv, d)), dtype)
+    out = ops.decode_attention(tq, tk, tv, pos, block_k=256)
+    _close(out, jops.decode_attention(jq, jk, jv, pos, block_k=256), dtype)
+    oracle = ref.decode_attention_ref(jnp.swapaxes(jq, 1, 2), jk, jv, pos)
+    _close(out, jnp.swapaxes(oracle, 1, 2), dtype)
+    # one position per batch row: each row equals its own scalar call
+    rows = ops.decode_attention(tq, tk, tv, torch.tensor([pos, 1][:b]))
+    assert torch.equal(rows[:1], out[:1])
+
+
+def test_decode_attention_at_pos_0_is_zero_like_the_tpu_kernel():
+    """At pos = 0 the Pallas kernel skips every block and returns
+    acc / max(l, 1e-20) = 0; its oracle ref.decode_attention_ref is a
+    plain softmax over an all-masked row and returns the mean of v. The
+    port computes the kernel's function (ROADMAP section 3)."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(1, 4, 1, 64)).astype(np.float32)
+    k = rng.normal(size=(1, 256, 2, 64)).astype(np.float32)
+    v = rng.normal(size=(1, 256, 2, 64)).astype(np.float32)
+    out = da.decode_attention(*(torch.from_numpy(a) for a in (q, k, v)), 0)
+    assert float(out.abs().max()) == 0.0
+    pallas = pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0,
+                           block_k=128)
+    assert float(jnp.abs(pallas).max()) == 0.0
+    oracle = np.asarray(ref.decode_attention_ref(jnp.asarray(q),
+                                                 jnp.asarray(k),
+                                                 jnp.asarray(v), 0))
+    mean_v = np.repeat(v.mean(axis=1), 2, axis=1)[:, :, None]   # [1,4,1,64]
+    np.testing.assert_allclose(oracle, mean_v, rtol=1e-5, atol=1e-6)
+    assert np.abs(oracle).max() > 0.1
+
+
+def test_decode_attention_keeps_the_block_contract():
+    q, k = torch.zeros((1, 1, 2, 64)), torch.zeros((1, 384, 2, 64))
+    with pytest.raises(ValueError, match="block_k"):
+        ops.decode_attention(q, k, k, 10, block_k=256)
+
+
+# -- SSD ----------------------------------------------------------------------
+
+def _ssd_inputs(b, s, h, p, n, seed=0, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    x = 0.3 * rng.normal(size=(b, s, h, p))
+    bb = 0.3 * rng.normal(size=(b, s, n))
+    cc = 0.3 * rng.normal(size=(b, s, n))
+    dt = np.log1p(np.exp(rng.normal(size=(b, s, h)))).astype(np.float32)
+    a_log = np.log(np.linspace(1.0, 4.0, h)).astype(np.float32)
+    pairs = [_pair(a, dtype) for a in (x, bb, cc)]
+    pairs += [(jnp.asarray(a), torch.from_numpy(a)) for a in (dt, a_log)]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(1, 64, 2, 32, 16), (2, 128, 4, 64, 32)])
+def test_ssd_chunk_plain_matches_pallas_and_ref(dtype, dims):
+    jin, tin = _ssd_inputs(*dims, dtype=dtype)
+    y, state, decay = sc.ssd_chunk(*tin)
+    b, q, h, p, n = dims
+    assert y.dtype == tin[0].dtype and state.shape == (b, h, n, p)
+    py, pst, pdec = pallas_ssd_chunk(*jin)
+    _close(y, py, dtype)
+    # states and decays are fp32 on both sides
+    _close(state, pst, "float32" if dtype == "float32" else dtype)
+    _close(decay, pdec, "float32")
+    ry, rst, rdec = ref.ssd_chunk_ref(*jin)
+    _close(y, ry, dtype)
+    _close(state, jnp.swapaxes(rst, -1, -2),      # the oracle's [P, N]
+           "float32" if dtype == "float32" else dtype)
+    _close(decay, rdec, "float32")
+
+
+def test_ssd_chunked_pallas_matches_jax_and_the_model_scan():
+    """The host scan over kernel chunks against the JAX package's, and
+    against the port's model-path `ssd_chunked` with d_skip 0 (the
+    relation tests/test_kernels.py holds for JAX, at its 2e-4)."""
+    b, s, h, p, n = 2, 256, 4, 64, 32
+    jin, tin = _ssd_inputs(b, s, h, p, n, seed=1)
+    y, fin = ops.ssd_chunked_pallas(*tin, chunk=64)
+    jy, jfin = jops.ssd_chunked_pallas(*jin, chunk=64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(fin.numpy(), np.asarray(jfin), rtol=2e-5,
+                               atol=2e-5)
+    cfg = dataclasses.replace(get_config("mamba2-130m"), ssm_chunk=64,
+                              ssm_head_dim=p)
+    ym, fm = ssd_chunked(*tin[:4], tin[4], torch.zeros(h), cfg)
+    np.testing.assert_allclose(y.numpy(), ym.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(fin.numpy(), fm.numpy(), rtol=2e-4, atol=2e-4)
+    jcfg = dataclasses.replace(jax_get_config("mamba2-130m"), ssm_chunk=64,
+                               ssm_head_dim=p)
+    jym, jfm = jax_ssd_chunked(*jin[:4], jin[4], jnp.zeros(h), jcfg)
+    np.testing.assert_allclose(ym.numpy(), np.asarray(jym), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(fm.numpy(), np.asarray(jfm), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_ssd_chunked_pallas_rounds_y_intra_to_the_input_type():
+    """bf16 inputs: y_intra is rounded to bf16 before the inter-chunk term
+    is added (JAX's ops.ssd_chunked_pallas does so), and the result matches
+    JAX's at bf16 tolerance."""
+    jin, tin = _ssd_inputs(1, 128, 2, 32, 16, seed=2, dtype="bfloat16")
+    y, fin = ops.ssd_chunked_pallas(*tin, chunk=64)
+    jy, jfin = jops.ssd_chunked_pallas(*jin, chunk=64)
+    assert y.dtype == torch.bfloat16
+    _close(y, jy, "bfloat16")
+    _close(fin, jfin, "bfloat16")
+
+
+def test_lm_kernel_wrappers_do_not_count_on_the_cpu():
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    reset_launches()
+    _, tin = _ssd_inputs(1, 64, 2, 32, 16)
+    ops.ssd_chunked_pallas(*tin, chunk=32)
+    q = torch.zeros((1, 128, 2, 64))
+    ops.flash_attention(q, q, q)
+    ops.decode_attention(q[:, :1], q, q, 3)
+    assert LAUNCHES["flash_attention"] == LAUNCHES["decode_attention"] \
+        == LAUNCHES["ssd_chunk"] == 0
+    assert jax.default_backend() == "cpu"
