@@ -7,7 +7,9 @@ Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
 
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
-     kernel build (timed);
+     kernel build (timed), and the HGMMA (tensor-core) instructions of
+     each flash-attention function in the built library's SASS: the run
+     fails if a bf16 (wgmma) instantiation has none;
   2. every kernel against its plain PyTorch version at the main paths'
      shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks
      and weighted aggregate, C in {1, 3, 8, 10, 16, 33} for the rank sort,
@@ -46,9 +48,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
      keys (each branch must change the result), decode attention with
-     ragged positions, the SSD chunk at
-     mamba2's shapes; times, bounds and the library call
-     (scaled_dot_product_attention) beside them;
+     ragged positions at granite's and gemma2's cache shapes, the SSD chunk
+     at mamba2's shapes; times, bounds and the library call
+     (scaled_dot_product_attention) beside them, the device time summed
+     over every kernel the wrapper launches per call;
   8. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
      served by the continuous-batching engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
@@ -74,6 +77,8 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -183,11 +188,19 @@ def _device_events(prof):
     return out
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 50):
-    """Mean duration of the CUDA kernel named `kernel` per call, from
-    torch.profiler's device trace; None when the trace shows no device
-    time."""
+def kernel_device_ms(fn, symbols, reps: int = 50):
+    """Device time per wrapper call: the summed duration of every CUDA
+    kernel in torch.profiler's device trace whose name holds one of
+    `symbols` (each kernel a wrapper may launch), over the `reps` calls of
+    fn (one wrapper call each). Returns (ms, the kernel names that
+    matched, the number of such kernel events). ms is None when the trace
+    shows none of them, and the top device events are printed then. A
+    trace with fewer events than calls has lost some (every wrapper here
+    launches at least one kernel a call): that is printed, and ms is the
+    mean per event, which is per call for the one-launch wrappers."""
     from torch.profiler import ProfilerActivity, profile
+    if isinstance(symbols, str):
+        symbols = (symbols,)
     fn()
     torch.cuda.synchronize()
     try:
@@ -196,10 +209,78 @@ def kernel_device_ms(fn, kernel: str, reps: int = 50):
                 fn()
             torch.cuda.synchronize()
     except (AssertionError, RuntimeError):     # no device tracing here
-        return None
-    hits = [(n, us) for key, n, us in _device_events(prof) if kernel in key]
-    calls = sum(n for n, _ in hits)
-    return sum(us for _, us in hits) / calls / 1e3 if calls else None
+        return None, [], 0
+    events = _device_events(prof)
+    hits = [(key, n, us) for key, n, us in events
+            if any(sym in key for sym in symbols)]
+    n_events = sum(n for _, n, _ in hits)
+    names = sorted({key[:120] for key, _, _ in hits})
+    total_ms = sum(us for _, _, us in hits) / 1e3
+    if n_events < reps:
+        top = sorted(events, key=lambda e: -e[2])[:8]
+        print(json.dumps({"device_trace_incomplete": list(symbols),
+                          "calls": reps, "events": n_events,
+                          "top_device_events": [
+                              {"name": k[:120], "calls": c, "us": us}
+                              for k, c, us in top]}))
+        return (total_ms / n_events if n_events else None), names, n_events
+    return total_ms / reps, names, n_events
+
+
+def ptxas_attention_report() -> dict:
+    """Registers and spill bytes of each attention kernel instantiation,
+    from the ptxas report the build keeps beside the library."""
+    path = _build.ptxas_report_path()
+    if not path.exists():
+        return {"ptxas": "not measured: no report beside the library"}
+    out, name = {}, None
+    for line in path.read_text().splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            kern = re.search(r"(?<=\d)((?:flash|decode)_attention\w*?kernel)I"
+                             r"(.*)EvNS_", head.group(1))
+            name = None
+            if kern:
+                targs = re.findall(r"Li(\d+)E", kern.group(2))
+                dtype = "bf16" if "bfloat16" in kern.group(2) else "fp32" \
+                    if kern.group(2).startswith("f") else ""
+                name = f"{kern.group(1)}<{','.join(filter(None, [dtype, *targs]))}>"
+            continue
+        if name and "spill stores" in line:
+            out.setdefault(name, {})["spill_store_bytes"] = int(
+                re.search(r"(\d+) bytes spill stores", line).group(1))
+        if name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def sass_hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions in each flash_attention function of the
+    built kernel library, from `cuobjdump --dump-sass`."""
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+        / "bin" / "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            mangled = head.group(1)
+            kern = re.search(r"(?<=\d)(flash_attention\w*?kernel)I", mangled)
+            name = None
+            if kern:
+                targs = re.findall(r"Li(\d+)E", mangled)
+                if "kernelIf" in mangled:
+                    targs = ["float", *targs]
+                name = f"{kern.group(1)}<{','.join(targs)}>"
+                counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def slice_env(dev):
@@ -254,7 +335,7 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
         bytes and operations."""
         ms, plain = time_ms(call), time_ms(plain_call)
         lib = time_ms(library_call) if library_call is not None else None
-        dev_ms = kernel_device_ms(call, symbol)
+        dev_ms, _, _ = kernel_device_ms(call, symbol)
         bound = max(nbytes / bw, nflops / flops) * 1e3
         results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain,
                              device_ms=dev_ms, bound_ms=bound,
@@ -727,6 +808,13 @@ LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.c
               "decode_attention":
                   "src/repro_torch/kernels/csrc/decode_attention.cu",
               "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
+# the kernels each LM wrapper launches (names as in the device trace): the
+# flash wrapper takes the wgmma kernel for bf16 and the CUDA-core kernel
+# for fp32
+LM_SYMBOLS = {"flash_attention": ("flash_attention_kernel",
+                                  "flash_attention_wgmma_kernel"),
+              "decode_attention": ("decode_attention_kernel",),
+              "ssd_chunk": ("ssd_chunk_kernel",)}
 LM_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
                "decode_attention": "src/repro/kernels/decode_attention.py:60",
                "ssd_chunk": "src/repro/kernels/ssd_chunk.py:49"}
@@ -754,19 +842,23 @@ def bf16_close(a, b) -> bool:
                 .all())
 
 
-def measure(name, ok, err, call, plain_call, symbol, nbytes, nflops, card,
+def measure(name, ok, err, call, plain_call, symbols, nbytes, nflops, card,
             library_call=None, **extra):
     """One kernel's row: per-call time, the plain version's, the library
-    call's, the kernel alone on the device trace, and the bound from the
-    bytes (3.35 TB/s) and the live FLOPs at the bf16 tensor-core peak."""
+    call's, the wrapper's kernels on the device trace (per call, and which
+    symbols they were), and the bound from the bytes (3.35 TB/s) and the
+    live FLOPs at the bf16 tensor-core peak."""
     bw, _, bf16 = peaks(card)
     ms, plain = time_ms(call, reps=50), time_ms(plain_call, reps=20)
     lib = time_ms(library_call, reps=50) if library_call is not None \
         else None
-    dev_ms = kernel_device_ms(call, symbol, reps=20)
+    dev_ms, dev_symbols, dev_events = kernel_device_ms(call, symbols,
+                                                       reps=20)
     bound = max(nbytes / bw, nflops / bf16) * 1e3
     row = dict(ok=bool(ok), max_abs_err=err, ms=ms, plain_ms=plain,
-               device_ms=dev_ms, bound_ms=bound, library_ms=lib,
+               device_ms=dev_ms, device_symbols=dev_symbols,
+               device_events=dev_events,
+               bound_ms=bound, library_ms=lib,
                bound_by="bytes" if nbytes / bw >= nflops / bf16
                else "operations", bytes=nbytes, flops=nflops, **extra)
     print(json.dumps({"kernel": name, **row}))
@@ -840,9 +932,14 @@ def lm_kernel_phase(dev, card):
             lambda q=q, k=k, v=v, kw=kw: fa.flash_attention(q, k, v, **kw),
             lambda q=q, k=k, v=v, kw=kw: fa.flash_attention_plain(q, k, v,
                                                                   **kw),
-            "flash_attention_kernel", nbytes,
+            LM_SYMBOLS["flash_attention"], nbytes,
             4 * d * hq * causal_pairs(s, window), card, library_call=lib,
             shape=label)
+        syms = flash_rows[label]["device_symbols"]
+        if syms and not all("flash_attention_wgmma_kernel" in x
+                            for x in syms):
+            problems.append(f"flash_attention {label}: bf16 device time "
+                            f"from {syms}, not the wgmma kernel")
 
     # decode: ragged positions, 0 and the full cache included
     for label, (hq, hkv, d) in {"granite": (32, 8, 64),
@@ -855,10 +952,25 @@ def lm_kernel_phase(dev, card):
         out = da.decode_attention(q, k, v, pos)
         ref = da.decode_attention_plain(q, k, v, pos)
         ok = bf16_close(out, ref) and bool((out[0] == 0).all())
-        print(json.dumps({"kernel": "decode_attention", "check": label,
-                          "equal": ok, "max_abs_err": _abs_err(out, ref)}))
         if not ok:
             problems.append(f"decode_attention {label}: differs from plain")
+        live = int(pos.clamp(0, skv).sum())
+        valid = (torch.arange(skv, device=dev)[None, :]
+                 < pos[:, None].long())[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        measure(
+            "decode_attention", ok, _abs_err(out, ref),
+            lambda q=q, k=k, v=v, pos=pos: da.decode_attention(q, k, v, pos),
+            lambda q=q, k=k, v=v, pos=pos: da.decode_attention_plain(
+                q, k, v, pos),
+            LM_SYMBOLS["decode_attention"],
+            2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b,
+            4 * d * hq * live, card,
+            library_call=lambda q=q, kt=kt, vt=vt, valid=valid:
+                F.scaled_dot_product_attention(q, kt, vt, attn_mask=valid,
+                                               enable_gqa=True),
+            shape=f"{label} [{b}, {skv}, {hkv}, {d}] ragged",
+            positions=pos.tolist())
 
     # ssd_chunk at mamba2's head (P 64), state (N 128), chunk 128
     x = rand((1, 128, 24, 64), 0.3)
@@ -1182,7 +1294,7 @@ def decode_entry_phase(dev, card, eng, occupants):
         "decode_attention", ok, err,
         lambda: ops.decode_attention(q, cache_k[0], cache_v[0], pos),
         lambda: da.decode_attention_plain(qt, cache_k[0], cache_v[0], pos),
-        "decode_attention_kernel", nbytes, 4 * d * cfg.num_heads * live,
+        LM_SYMBOLS["decode_attention"], nbytes, 4 * d * cfg.num_heads * live,
         card, library_call=lambda: F.scaled_dot_product_attention(
             qt, k0t, v0t, attn_mask=valid, enable_gqa=True),
         positions=pos_list)
@@ -1298,7 +1410,7 @@ def mamba_phase(dev, card):
                   max(_abs_err(o, r) for o, r in zip(outs, refs)),
                   lambda: sc.ssd_chunk(xc, bc, ccc, dtc, a_log),
                   lambda: sc.ssd_chunk_plain(xc, bc, ccc, dtc, a_log),
-                  "ssd_chunk_kernel", nbytes, nflops, card)
+                  LM_SYMBOLS["ssd_chunk"], nbytes, nflops, card)
     return problems, launches, row
 
 
@@ -1329,6 +1441,15 @@ def main() -> int:
     walls["build"] = time.perf_counter() - t
     print(f"kernels built in {walls['build']:.2f} s "
           f"({_build.library_path().name})")
+    # the bf16 flash kernel must run on the tensor cores: HGMMA in its SASS
+    hgmma = sass_hgmma_counts()
+    print(json.dumps({"sass_hgmma": hgmma}))
+    print(json.dumps({"ptxas_attention": ptxas_attention_report()}))
+    wgmma_fns = [k for k in hgmma if "wgmma" in k]
+    if not wgmma_fns or not all(hgmma[k] > 0 for k in wgmma_fns):
+        print("chip_smoke FAILED: the bf16 flash kernel has no HGMMA "
+              f"instruction ({hgmma})", file=sys.stderr)
+        return 1
 
     t = time.perf_counter()
     ds, clients, sp, ch, sched, params = slice_env(dev)

@@ -25,9 +25,10 @@ SOURCES = tuple(_CSRC / name for name in (
 HEADERS = (_CSRC / "common.cuh",)
 # No --use_fast_math and no -ftz: the kernels pin their own rounding with
 # __fmul_rn/__fadd_rn/__fsub_rn and flush denormals explicitly where the
-# reference does.
+# reference does. -Xptxas -v reports each kernel's registers and spills,
+# kept beside the library (ptxas_report).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I64S = ctypes.POINTER(ctypes.c_longlong)
@@ -53,9 +54,10 @@ _SIGNATURES = {
     "flash_attention": (_P, _P, _P, _P, _I64S, _I64S, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float,
                         ctypes.c_float, _P),
-    # q, k, v, pos, o, dims[5], strides[10], is_bf16, scale, stream
-    "decode_attention": (_P, _P, _P, _P, _P, _I64S, _I64S, ctypes.c_int,
-                         ctypes.c_float, _P),
+    # q, k, v, pos, o, part, tickets, dims[6], strides[10], is_bf16,
+    # scale, stream
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I64S, _I64S,
+                         ctypes.c_int, ctypes.c_float, _P),
     # x, b, c, dt, a_log, y, state, decay, dims[5], strides[13], is_bf16,
     # stream
     "ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _I64S, _I64S,
@@ -94,6 +96,11 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"librepro_torch_kernels_{_source_key()}.so"
 
 
+def ptxas_report_path() -> pathlib.Path:
+    """ptxas's report (registers, spills per kernel) of the built library."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def _check_nvcc(cmd, returncode, stdout, stderr) -> None:
     if returncode != 0:
         raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
@@ -118,6 +125,7 @@ def build() -> pathlib.Path:
         outputs = [p.communicate() for p in procs]   # wait for all of them
         for cmd, p, (so, se) in zip(cmds, procs, outputs):
             _check_nvcc(cmd, p.returncode, so, se)
+        ptxas_report_path().write_text("".join(so + se for so, se in outputs))
         lib = pathlib.Path(tmp) / out.name
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)

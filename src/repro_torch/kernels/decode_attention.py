@@ -13,9 +13,11 @@ At pos = 0 no key is valid and the result is 0, as the TPU kernel returns
 same function. The JAX package's oracle ``ref.decode_attention_ref`` is a
 plain softmax there and returns the mean of v instead (ROADMAP section 3).
 
-Source: ``csrc/decode_attention.cu``, which states its bound and design.
-D in {64, 128, 256}, Hq / Hkv in {1, 2, 4, 8}, fp32 or bf16; the cache
-rows and q must be 16-byte aligned.
+Source: ``csrc/decode_attention.cu``, which states its bound and design:
+the key axis is split across blocks (``split_chunk``), each block writes an
+fp32 partial (m, l, acc) of its chunk, and the last block of each (batch
+row, kv head) merges them, in one launch. D in {64, 128, 256}, Hq / Hkv in
+{1, 2, 4, 8}, fp32 or bf16; the cache rows and q must be 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -25,9 +27,36 @@ import torch
 
 from repro_torch.kernels.counters import LAUNCHES
 from repro_torch.kernels.flash_attention import (NEG_INF,
-                                                 _check_attention_inputs)
+                                                 _check_attention_inputs,
+                                                 _check_rows_aligned)
 
 GROUPS = (1, 2, 4, 8)
+# keys a block may take, largest first, and the blocks that make two waves
+# on the H100's 132 SMs
+SPLIT_CHUNKS = (512, 256, 128, 64)
+MIN_BLOCKS = 2 * 132
+# per device: one int32 ticket counter per (batch row, kv head), zeroed
+# once; the kernel's last block of each row resets its counter
+_TICKETS: dict = {}
+
+
+def split_chunk(skv: int, rows: int) -> int:
+    """Keys per block of the split-KV kernel for a cache of skv keys and
+    rows = B * Hkv (batch rows times kv heads): the largest chunk that
+    still gives MIN_BLOCKS blocks, else the smallest. It depends on the
+    shapes alone, never on the positions, which stay on the device."""
+    for chunk in SPLIT_CHUNKS:
+        if rows * -(-skv // chunk) >= MIN_BLOCKS:
+            return chunk
+    return SPLIT_CHUNKS[-1]
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(n, dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def positions(pos, batch: int, device) -> torch.Tensor:
@@ -81,18 +110,21 @@ def decode_attention(q, k, v, pos, *, block_k: int = 512):
         raise ValueError(f"expected q [B,Hq,1,D] and a cache [B,Skv,Hkv,D] "
                          f"with Hq / Hkv in {GROUPS}, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
-    esize = q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(st * esize % 16 for st in t.stride()[:3]):
-            raise ValueError(f"{name}: rows must be 16-byte aligned")
+    _check_rows_aligned(q=q, k=k, v=v)
     pos_t = positions(pos, b, q.device)
     o = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
+    chunk = split_chunk(skv, b * hkv)
+    slots = b * hkv * -(-skv // chunk)
+    part = torch.empty(slots * (hq // hkv) * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    tickets = _tickets(q.device, b * hkv)
     strides = [q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
                o.stride(0), o.stride(1)]
     with torch.cuda.device(q.device):
         _build.launch("decode_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), pos_t.data_ptr(), o.data_ptr(),
-                      _build.int64s((b, hq, hkv, skv, d)),
+                      part.data_ptr(), tickets.data_ptr(),
+                      _build.int64s((b, hq, hkv, skv, d, chunk)),
                       _build.int64s(strides), int(q.dtype == torch.bfloat16),
                       1.0 / math.sqrt(d), _build.stream_of(q))
     LAUNCHES["decode_attention"] += 1

@@ -9,7 +9,9 @@ skipped. Kernel layout q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D]; any strides with
 a contiguous last dim are read in place (``ops.flash_attention`` passes the
 model layout [B,S,H,D] as transposed views). D in {64, 128, 256}, fp32 or
 bf16. Source: ``csrc/flash_attention.cu``, which states its bound and
-design.
+design. The storage type picks the kernel: bf16 runs both products on the
+tensor cores (``wgmma``, P rounded to bf16 before P V; rows must be
+16-byte aligned), fp32 the exact CUDA-core kernel.
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches the kernel or raises, and adds one to LAUNCHES.
@@ -67,6 +69,16 @@ def _check_attention_inputs(q, k, v) -> None:
         raise ValueError("q, k and v need a contiguous last dim")
 
 
+def _check_rows_aligned(**tensors) -> None:
+    """Every row a tensor's kernel reads starts on 16 bytes: the base and
+    the strides of the leading dims (the kernels load 16 bytes a thread)."""
+    for name, t in tensors.items():
+        esize = t.element_size()
+        if t.data_ptr() % 16 or any(st * esize % 16
+                                    for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: rows must be 16-byte aligned")
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
     """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's type."""
     if not q.is_cuda:
@@ -79,6 +91,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
     if k.shape[0] != b or hq % hkv:
         raise ValueError(f"GQA needs one batch and Hq % Hkv == 0, got q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v)
     # q's own strides: a transposed view of a [B,S,H,D] tensor gives an
     # output whose transpose back is contiguous
     o = torch.empty_like(q)

@@ -16,9 +16,13 @@ backend equal to the reference backend, under the mean and under a robust
 reducer with an attack. The LM stack's kernels (flash attention, decode
 attention, the SSD chunk) are held to their plain versions within the
 JAX package's kernel tolerances (fp32 2e-5, bf16 2e-2) at the served
-models' head dims (64, 128, 256 with gemma2's softcap), with windows and
-ragged decode positions, and the serving engine runs a reduced model
-through the flash kernel.
+models' head dims (64, 128, 256 with gemma2's softcap), with windows,
+lengths that are no multiple of the flash kernel's 64-row tiles, grids
+that take two warpgroups a block, and decode positions at the split-KV
+kernel's chunk edges, all at 0 or past the cache, over caches split in 8
+or more chunks; two decode calls in a row agree bit for bit (the ticket
+counters reset); and the serving engine runs a reduced model through the
+flash kernel.
 """
 import numpy as np
 import pytest
@@ -62,6 +66,8 @@ def dev():
 
 def _bits(t):
     t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -216,6 +222,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         pm.client_rank_sort(t["grads"], t["cw"].cpu())
     with pytest.raises(ValueError, match="shape"):
         pm.masked_update_2d(t["w"], t["v"][:256], t["pr"], 0.1)
+    # the bf16 flash kernel loads 16 bytes a thread: rows of 68 bf16
+    # (136 bytes) are refused, 72 (144 bytes) taken
+    from repro_torch.kernels import flash_attention as fa
+    for width, ok in ((68, False), (72, True)):
+        q = torch.zeros((1, 2, 128, width), dtype=torch.bfloat16,
+                        device=dev)[..., :64]
+        if ok:
+            fa.flash_attention(q, q, q)
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fa.flash_attention(q, q, q)
     # the plain version is for CPU tensors only
     with pytest.raises(ValueError, match="'torch'"):
         ops.packed_importance_masks(t["w"], t["v"], t["pr"], t["thr"],
@@ -321,6 +338,18 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (1, 512, 4, 2, 64, True, 100, 0.0),       # sliding window, skipped tiles
     (1, 256, 16, 8, 256, True, 0, 50.0),      # gemma2 global layer
     (1, 384, 16, 8, 256, True, 128, 50.0),    # gemma2 local layer
+    # lengths that are no multiple of the 64-row query / key tiles: 96
+    # keeps the TPU kernel's block contract, 200 (kernel layout only) not
+    (1, 96, 8, 2, 64, True, 0, 0.0),
+    (1, 200, 8, 2, 64, True, 0, 0.0),
+    (2, 200, 4, 2, 64, False, 0, 0.0),        # ragged last key tile alone
+    (1, 320, 4, 1, 64, True, 40, 0.0),        # window edge inside a tile
+    (1, 256, 16, 4, 128, True, 0, 0.0),       # D 128, GQA 4, causal
+    (1, 1024, 16, 8, 256, True, 256, 50.0),   # gemma2 local at 1024 tokens
+    # grids large enough for two warpgroups a block sharing K / V tiles
+    (1, 1024, 32, 8, 64, True, 0, 0.0),       # granite's 1024 bucket
+    (2, 1000, 16, 4, 64, True, 0, 0.0),       # ragged, kernel layout only
+    (2, 1024, 16, 4, 128, True, 0, 0.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -330,35 +359,55 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
     k = _normal(rng, (b, s, hkv, d), dev, dtype)
     v = _normal(rng, (b, s, hkv, d), dev, dtype)
     kw = dict(causal=causal, window=window, cap=cap)
-    pm.reset_launches()
-    out = ops.flash_attention(q, k, v, **kw)       # model layout, by strides
-    assert pm.LAUNCHES["flash_attention"] == 1
     plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), **kw).transpose(1, 2)
-    torch.cuda.synchronize()
-    _assert_close(out, plain, dtype)
-    assert out.transpose(1, 2).is_contiguous() or out.is_contiguous()
+    if s % min(ops.FLASH_BLOCK, s) == 0:
+        pm.reset_launches()
+        out = ops.flash_attention(q, k, v, **kw)   # model layout, by strides
+        assert pm.LAUNCHES["flash_attention"] == 1
+        torch.cuda.synchronize()
+        _assert_close(out, plain, dtype)
+        assert out.transpose(1, 2).is_contiguous() or out.is_contiguous()
     kl = fa.flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), **kw)
     _assert_close(kl.transpose(1, 2), plain, dtype)
 
 
+def _decode_positions(case, b, skv, hkv):
+    """Positions of a decode case: ragged (0, 1, mid, full, past the end),
+    a chunk boundary of the split-KV kernel with one before and one after
+    it, every row at 0, or a long cache (NS >= 8) at ragged positions."""
+    from repro_torch.kernels import decode_attention as da
+    chunk = da.split_chunk(skv, b * hkv)
+    return {"ragged": [0, 1, 517, skv, skv + 9],
+            "chunk edges": [chunk - 1, chunk, chunk + 1, 2 * chunk, skv],
+            "all zero": [0] * b,
+            "long cache": [0, 3 * chunk + 5, skv // 2, skv - 1, skv]}[case]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d", [(32, 8, 64), (16, 2, 128),
                                       (16, 8, 256), (4, 4, 64)])
-def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
-    """Ragged positions (0, 1, mid, full, past the end) on a layer slice
+@pytest.mark.parametrize("case,skv", [("ragged", 1024), ("chunk edges", 1024),
+                                      ("all zero", 1024),
+                                      ("long cache", 4096)])
+def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d, case,
+                                               skv):
+    """Ragged positions, positions at the split-KV kernel's chunk edges,
+    all rows at 0, and a cache split in 8 or more chunks, on a layer slice
     of a stacked [L, B, S, Hkv, D] cache, read in place."""
     from repro_torch.kernels import decode_attention as da
     rng = np.random.default_rng(hq + d)
-    b, skv = 5, 1024
+    b = 5
+    assert skv // da.split_chunk(skv, b * hkv) >= (8 if case == "long cache"
+                                                   else 2)
     cache_k = _normal(rng, (2, b, skv, hkv, d), dev, dtype)
     cache_v = _normal(rng, (2, b, skv, hkv, d), dev, dtype)
     q = _normal(rng, (b, 1, hq, d), dev, dtype)
-    pos = torch.tensor([0, 1, 517, skv, skv + 9], dtype=torch.int32,
-                       device=dev)
+    pos_list = _decode_positions(case, b, skv, hkv)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     pm.reset_launches()
     out = ops.decode_attention(q, cache_k[1], cache_v[1], pos)
     assert pm.LAUNCHES["decode_attention"] == 1
@@ -366,12 +415,37 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hq, hkv, d):
                                       cache_v[1], pos).transpose(1, 2)
     torch.cuda.synchronize()
     _assert_close(out, plain, dtype)
-    assert bool((out[0] == 0).all())              # pos = 0: zero, as the TPU
-    one = ops.decode_attention(q[2:3], cache_k[1, 2:3], cache_v[1, 2:3], 517)
-    _assert_close(one, out[2:3], dtype)
+    for r, p in enumerate(pos_list):
+        if p == 0:                                # zero, as the TPU kernel
+            assert bool((out[r] == 0).all())
+    r = max(range(b), key=lambda i: 0 < pos_list[i] <= skv)
+    one = ops.decode_attention(q[r:r + 1], cache_k[1, r:r + 1],
+                               cache_v[1, r:r + 1], pos_list[r])
+    _assert_close(one, out[r:r + 1], dtype)
+    if pos_list[r] == 0:
+        return
     from repro_torch.models.attention import decode_attention as model_dec
-    _assert_close(model_dec(q[2:3], cache_k[1, 2:3], cache_v[1, 2:3], 517),
-                  one, dtype)
+    _assert_close(model_dec(q[r:r + 1], cache_k[1, r:r + 1],
+                            cache_v[1, r:r + 1], pos_list[r]), one, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_repeats_bit_for_bit(dev, dtype):
+    """Two calls in a row give the same bits: the last block of each row
+    resets its ticket counter, and the merge reads the partials in split
+    order whichever block finished last."""
+    rng = np.random.default_rng(7)
+    b, skv, hq, hkv, d = 8, 2048, 32, 8, 64
+    k = _normal(rng, (b, skv, hkv, d), dev, dtype)
+    v = _normal(rng, (b, skv, hkv, d), dev, dtype)
+    q = _normal(rng, (b, 1, hq, d), dev, dtype)
+    pos = torch.tensor([0, 1, 255, 256, 257, 1000, 2047, 2048],
+                       dtype=torch.int32, device=dev)
+    outs = [ops.decode_attention(q, k, v, pos) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert_bitwise(outs[0], outs[1])
+    assert_bitwise(outs[0], outs[2])
 
 
 @pytest.mark.cuda

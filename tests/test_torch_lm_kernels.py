@@ -6,9 +6,14 @@ held to the JAX package's Pallas kernel in interpret mode and to its
 package's own kernel tolerances (tests/test_kernels.py: fp32 2e-5, bf16
 2e-2): flash attention (causal or not, window, softcap, GQA, head dims 64
 and 128), decode attention (pos 1, mid, full; pos 0 pinned), the SSD chunk
-and the chunked SSD scan built on it.
+and the chunked SSD scan built on it. Two helpers here repeat the
+arithmetic of the CUDA kernels' designs, which the plain versions do not:
+the split-KV decode kernel's per-chunk partials and their merge, and the
+bf16 flash kernel's P rounded to bf16 before P V; both are held to the
+Pallas kernels too.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -93,6 +98,65 @@ def test_flash_attention_plain_matches_pallas_and_ref(dtype, b, s, hq, hkv, d,
     assert torch.equal(kernel_layout.transpose(1, 2), out)
 
 
+def _flash_p_rounded(q, k, v, *, causal, window, cap, block_k=64):
+    """The bf16 flash kernel's arithmetic in fp32 torch, kernel layout: an
+    online softmax over 64-key tiles, l summing the fp32 p = exp(s - m)
+    and P rounded to bf16 before P V (the wgmma kernel's A operand)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kr = k.float().repeat_interleave(hq // hkv, dim=1)
+    vr = v.float().repeat_interleave(hq // hkv, dim=1)
+    m = torch.full((b, hq, sq, 1), fa.NEG_INF)
+    l = torch.zeros((b, hq, sq, 1))
+    acc = torch.zeros((b, hq, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        kt, vt = kr[:, :, k0:k0 + block_k], vr[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kt) / math.sqrt(d)
+        if cap:
+            s = cap * torch.tanh(s / cap)
+        kpos = k0 + torch.arange(kt.shape[2])[None, :]
+        ok = torch.ones_like(s, dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", [
+    (1, 128, 4, 4, 64, True, 0, 0.0),
+    (2, 256, 8, 2, 64, False, 0, 0.0),
+    (1, 256, 4, 1, 128, True, 0, 0.0),
+    (1, 256, 4, 2, 64, True, 100, 0.0),
+    (1, 128, 4, 4, 64, True, 0, 20.0),
+])
+def test_flash_p_rounded_to_bf16_stays_within_bf16_of_pallas(b, s, hq, hkv, d,
+                                                             causal, window,
+                                                             cap):
+    """P rounded to bf16 before P V (the wgmma kernel) against the Pallas
+    kernel in interpret mode, bf16 inputs, the bf16 kernel tolerance; the
+    same shapes as the plain version's test above."""
+    rng = np.random.default_rng(s + d)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(rng.normal(size=(b, s, h, d)), "bfloat16")
+        for h in (hq, hkv, hkv))
+    kw = dict(causal=causal, window=window, cap=cap)
+    out = _flash_p_rounded(tq.transpose(1, 2), tk.transpose(1, 2),
+                           tv.transpose(1, 2), **kw).transpose(1, 2)
+    pallas = jops.flash_attention(jq, jk, jv, block_q=64, block_k=64, **kw)
+    _close(out, pallas, "bfloat16")
+    _close(out, ops.flash_attention(tq, tk, tv, **kw).float(), "bfloat16")
+
+
 def test_flash_attention_keeps_the_block_contract():
     q = torch.zeros((1, 200, 2, 64))
     with pytest.raises(ValueError, match="must divide blocks"):
@@ -142,6 +206,73 @@ def test_decode_attention_at_pos_0_is_zero_like_the_tpu_kernel():
     mean_v = np.repeat(v.mean(axis=1), 2, axis=1)[:, :, None]   # [1,4,1,64]
     np.testing.assert_allclose(oracle, mean_v, rtol=1e-5, atol=1e-6)
     assert np.abs(oracle).max() > 0.1
+
+
+def _split_kv_decode(q, k, v, pos, chunk):
+    """The split-KV decode kernel's arithmetic in fp32 torch: keys
+    [c0, c0 + chunk) below pos[b] give one partial (m, l, acc) each, a
+    chunk starting at or past pos[b] none, and the partials merge as the
+    last block merges them: m = max m_s, l = sum l_s exp(m_s - m), acc =
+    sum acc_s exp(m_s - m), out = acc / max(l, 1e-20). q [B,Hq,1,D],
+    cache [B,Skv,Hkv,D], pos a list of B ints."""
+    b, hq, _, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    out = torch.zeros((b, hkv, g, d))
+    for r in range(b):
+        n = min(max(pos[r], 0), skv)
+        qr = q[r].float().reshape(hkv, g, d)
+        parts = []
+        for c0 in range(0, n, chunk):
+            kc = k[r, c0:min(c0 + chunk, n)].float()
+            vc = v[r, c0:min(c0 + chunk, n)].float()
+            s = torch.einsum("hgd,khd->hgk", qr, kc) / math.sqrt(d)
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("hgk,khd->hgd", p, vc)))
+        mx = torch.full((hkv, g), da.NEG_INF)
+        for m, _, _ in parts:
+            mx = torch.maximum(mx, m)
+        lsum = torch.zeros((hkv, g))
+        acc = torch.zeros((hkv, g, d))
+        for m, ls, a in parts:
+            f = torch.exp(m - mx)
+            lsum = lsum + ls * f
+            acc = acc + a * f[..., None]
+        out[r] = acc / torch.clamp(lsum, min=1e-20)[..., None]
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("chunk,pos", [
+    (64, 200),      # chunks below pos, the last one partial
+    (200, 200),     # one chunk ending at pos
+    (256, 200),     # one chunk past pos
+    (128, 512),     # the full cache
+    (64, 1),        # one key, every other chunk empty
+    (512, 0),       # no key: 0, as the TPU kernel
+])
+def test_split_kv_merge_matches_pallas_and_the_plain_version(chunk, pos):
+    """The split-KV kernel's partials and merge, fp32, against the Pallas
+    decode kernel in interpret mode (scalar pos) and the port's plain
+    version with a position per row, within fp32 1e-5."""
+    b, skv, hq, hkv, d = 2, 512, 4, 2, 64
+    rng = np.random.default_rng(chunk + pos)
+    q = rng.normal(size=(b, 1, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, skv, hkv, d)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    qt = tq.transpose(1, 2)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    merged = _split_kv_decode(qt, tk, tv, [pos, pos], chunk)
+    pallas = pallas_decode(jnp.swapaxes(jnp.asarray(q), 1, 2),
+                           jnp.asarray(k), jnp.asarray(v), pos, block_k=128)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(pallas), **tol)
+    if pos == 0:
+        assert float(merged.abs().max()) == 0.0
+    rows = [pos, 37]                      # a second row, ragged in a chunk
+    merged = _split_kv_decode(qt, tk, tv, rows, chunk)
+    plain = da.decode_attention_plain(qt, tk, tv, torch.tensor(rows))
+    np.testing.assert_allclose(merged.numpy(), plain.numpy(), **tol)
 
 
 def test_decode_attention_keeps_the_block_contract():
