@@ -8,8 +8,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
 
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
      kernel build (timed), and the HGMMA (tensor-core) instructions of
-     each flash-attention function in the built library's SASS: the run
-     fails if a bf16 (wgmma) instantiation has none;
+     each flash-attention and SSD-chunk function in the built library's
+     SASS: the run fails if a bf16 (wgmma) instantiation has none, or if
+     either wgmma kernel is missing;
   2. every kernel against its plain PyTorch version at the main paths'
      shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks
      and weighted aggregate, C in {1, 3, 8, 10, 16, 33} for the rank sort,
@@ -65,7 +66,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      layer, each row at its last request's position;
   9. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
      (slots reused; tokens == a fresh sequential generation), and the SSD
-     entry point on layer 0's real inputs for a 512-token prompt;
+     entry point on layer 0's real inputs for a 512-token prompt: its 4
+     chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
+     the model's scan; the wgmma kernel timed on one real chunk and the
+     whole entry call timed beside its bound;
  10. one JSON line listing the ten kernels, then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
@@ -227,9 +231,16 @@ def kernel_device_ms(fn, symbols, reps: int = 50):
     return total_ms / reps, names, n_events
 
 
-def ptxas_attention_report() -> dict:
-    """Registers and spill bytes of each attention kernel instantiation,
-    from the ptxas report the build keeps beside the library."""
+def _instance(kernel: str, targs) -> str:
+    """A kernel's name with its template arguments, if any: f<a,b>."""
+    targs = [t for t in targs if t]
+    return f"{kernel}<{','.join(targs)}>" if targs else kernel
+
+
+def ptxas_lm_report() -> dict:
+    """Registers and spill bytes of each attention and SSD kernel
+    instantiation, from the ptxas report the build keeps beside the
+    library."""
     path = _build.ptxas_report_path()
     if not path.exists():
         return {"ptxas": "not measured: no report beside the library"}
@@ -237,14 +248,16 @@ def ptxas_attention_report() -> dict:
     for line in path.read_text().splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
-            kern = re.search(r"(?<=\d)((?:flash|decode)_attention\w*?kernel)I"
-                             r"(.*)EvNS_", head.group(1))
+            kern = re.search(r"(?<=\d)((?:flash_attention|decode_attention"
+                             r"|ssd_chunk)\w*?kernel)(?:I(.*)EvNS_|E)",
+                             head.group(1))
             name = None
             if kern:
-                targs = re.findall(r"Li(\d+)E", kern.group(2))
-                dtype = "bf16" if "bfloat16" in kern.group(2) else "fp32" \
-                    if kern.group(2).startswith("f") else ""
-                name = f"{kern.group(1)}<{','.join(filter(None, [dtype, *targs]))}>"
+                args = kern.group(2) or ""
+                dtype = "bf16" if "bfloat16" in args else "fp32" \
+                    if args.startswith("f") else ""
+                name = _instance(kern.group(1),
+                                 [dtype, *re.findall(r"Li(\d+)E", args)])
             continue
         if name and "spill stores" in line:
             out.setdefault(name, {})["spill_store_bytes"] = int(
@@ -256,8 +269,8 @@ def ptxas_attention_report() -> dict:
 
 
 def sass_hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in each flash_attention function of the
-    built kernel library, from `cuobjdump --dump-sass`."""
+    """HGMMA (wgmma) instructions in each flash_attention and ssd_chunk
+    function of the built kernel library, from `cuobjdump --dump-sass`."""
     tool = shutil.which("cuobjdump") or str(
         pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
         / "bin" / "cuobjdump")
@@ -270,13 +283,14 @@ def sass_hgmma_counts() -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             mangled = head.group(1)
-            kern = re.search(r"(?<=\d)(flash_attention\w*?kernel)I", mangled)
+            kern = re.search(r"(?<=\d)((?:flash_attention|ssd_chunk)\w*?"
+                             r"kernel)[IE]", mangled)
             name = None
             if kern:
                 targs = re.findall(r"Li(\d+)E", mangled)
                 if "kernelIf" in mangled:
                     targs = ["float", *targs]
-                name = f"{kern.group(1)}<{','.join(targs)}>"
+                name = _instance(kern.group(1), targs)
                 counts[name] = 0
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
@@ -809,12 +823,12 @@ LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.c
                   "src/repro_torch/kernels/csrc/decode_attention.cu",
               "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
 # the kernels each LM wrapper launches (names as in the device trace): the
-# flash wrapper takes the wgmma kernel for bf16 and the CUDA-core kernel
-# for fp32
+# flash and SSD wrappers take the wgmma kernel for bf16 and the CUDA-core
+# kernel for fp32
 LM_SYMBOLS = {"flash_attention": ("flash_attention_kernel",
                                   "flash_attention_wgmma_kernel"),
               "decode_attention": ("decode_attention_kernel",),
-              "ssd_chunk": ("ssd_chunk_kernel",)}
+              "ssd_chunk": ("ssd_chunk_kernel", "ssd_chunk_wgmma_kernel")}
 LM_REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:80",
                "decode_attention": "src/repro/kernels/decode_attention.py:60",
                "ssd_chunk": "src/repro/kernels/ssd_chunk.py:49"}
@@ -1376,9 +1390,9 @@ def mamba_phase(dev, card):
     y, fin = ops.ssd_chunked_pallas(x, b, cc, dt, a_log, chunk=c["chunk"])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    if launches["ssd_chunk"] != c["entry_len"] // c["chunk"]:
+    if launches["ssd_chunk"] != 1:           # every chunk in one call
         problems.append(f"mamba2 entry: {launches['ssd_chunk']} ssd_chunk "
-                        "launches")
+                        "launches, expected 1")
     y_cpu, fin_cpu = ops.ssd_chunked_pallas(
         *(t.cpu() for t in (x, b, cc, dt, a_log)), chunk=c["chunk"])
     y_m, fin_m = ssm_lib.ssd_chunked(x, b, cc, dt, a_log,
@@ -1390,6 +1404,7 @@ def mamba_phase(dev, card):
                       "checks": checks,
                       "max_abs_err_plain": _abs_err(y.cpu(), y_cpu),
                       "max_abs_err_ssd_chunked": _abs_err(y, y_m),
+                      "max_abs_y": float(y.float().abs().max()),
                       "launches": launches}))
     if not all(checks.values()):
         problems.append(f"mamba2 entry: {checks}")
@@ -1410,7 +1425,41 @@ def mamba_phase(dev, card):
                   max(_abs_err(o, r) for o, r in zip(outs, refs)),
                   lambda: sc.ssd_chunk(xc, bc, ccc, dtc, a_log),
                   lambda: sc.ssd_chunk_plain(xc, bc, ccc, dtc, a_log),
-                  LM_SYMBOLS["ssd_chunk"], nbytes, nflops, card)
+                  LM_SYMBOLS["ssd_chunk"], nbytes, nflops, card,
+                  shape=f"mamba2 layer 0 chunk [1, {q}, {heads}, {p}], "
+                        f"N {n}")
+    syms = row["device_symbols"]
+    if not syms or not all("ssd_chunk_wgmma_kernel" in s for s in syms):
+        problems.append(f"ssd_chunk real chunk: bf16 device time from "
+                        f"{syms}, not the wgmma kernel")
+    # the whole entry call: the kernel over every chunk, then the host
+    # recurrence; bytes are the call's inputs and outputs once (y in bf16,
+    # the final [H, P, N] state in fp32), operations the chunks' and the
+    # inter-chunk terms' (y_inter and the state update)
+    s_len, nc = c["entry_len"], c["entry_len"] // q
+    e_bytes = (2 * 2 * s_len * heads * p + 2 * 2 * s_len * n
+               + 4 * s_len * heads + 4 * heads + 4 * heads * p * n)
+    e_flops = nc * nflops + 2 * s_len * heads * p * n \
+        + 2 * nc * heads * p * n
+    zeros = torch.zeros(heads, device=dev)
+    entry = measure(
+        "ssd_chunk", checks["plain"], _abs_err(y.cpu(), y_cpu),
+        lambda: ops.ssd_chunked_pallas(x, b, cc, dt, a_log, chunk=q),
+        lambda: ssm_lib.ssd_chunked(x, b, cc, dt, a_log, zeros, cfg),
+        LM_SYMBOLS["ssd_chunk"], e_bytes, e_flops, card,
+        shape=f"entry call ops.ssd_chunked_pallas, {s_len} tokens, "
+              f"{nc} chunks in one launch")
+    # the call's device time over every kernel it launches (the host
+    # recurrence's einsums, cumsums and casts beside ssd_chunk)
+    call_ms, _, call_events = kernel_device_ms(
+        lambda: ops.ssd_chunked_pallas(x, b, cc, dt, a_log, chunk=q), ("",),
+        reps=20)
+    row["entry_call"] = {k: entry[k] for k in (
+        "ms", "plain_ms", "device_ms", "device_events", "bound_ms",
+        "bound_by", "bytes", "flops", "max_abs_err")}
+    row["entry_call"].update(call_device_ms=call_ms,
+                             call_device_events=call_events)
+    print(json.dumps({"ssd_entry_call": row["entry_call"]}))
     return problems, launches, row
 
 
@@ -1441,14 +1490,19 @@ def main() -> int:
     walls["build"] = time.perf_counter() - t
     print(f"kernels built in {walls['build']:.2f} s "
           f"({_build.library_path().name})")
-    # the bf16 flash kernel must run on the tensor cores: HGMMA in its SASS
+    # the bf16 flash and SSD kernels must run on the tensor cores: HGMMA in
+    # the SASS of every wgmma instantiation
     hgmma = sass_hgmma_counts()
     print(json.dumps({"sass_hgmma": hgmma}))
-    print(json.dumps({"ptxas_attention": ptxas_attention_report()}))
+    print(json.dumps({"ptxas_lm": ptxas_lm_report()}))
     wgmma_fns = [k for k in hgmma if "wgmma" in k]
-    if not wgmma_fns or not all(hgmma[k] > 0 for k in wgmma_fns):
-        print("chip_smoke FAILED: the bf16 flash kernel has no HGMMA "
-              f"instruction ({hgmma})", file=sys.stderr)
+    missing = [kern for kern in ("flash_attention_wgmma_kernel",
+                                 "ssd_chunk_wgmma_kernel")
+               if not any(k.startswith(kern) for k in wgmma_fns)]
+    if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
+        print("chip_smoke FAILED: a bf16 wgmma kernel is missing "
+              f"({missing}) or has no HGMMA instruction ({hgmma})",
+              file=sys.stderr)
         return 1
 
     t = time.perf_counter()
@@ -1595,7 +1649,9 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"],
-                     "check": "bf16 2e-2" if res["ok"] else "FAILED"})
+                     "check": "bf16 2e-2" if res["ok"] else "FAILED",
+                     **({"entry_call": res["entry_call"]}
+                        if "entry_call" in res else {})})
     print(json.dumps({"kernels": rows}))
     if problems:
         print("chip_smoke FAILED: " + "; ".join(problems), file=sys.stderr)

@@ -22,7 +22,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(_CSRC / name for name in (
     "pruning_mask.cu", "flash_attention.cu", "decode_attention.cu",
     "ssd_chunk.cu"))
-HEADERS = (_CSRC / "common.cuh",)
+HEADERS = (_CSRC / "common.cuh", _CSRC / "wgmma.cuh")
 # No --use_fast_math and no -ftz: the kernels pin their own rounding with
 # __fmul_rn/__fadd_rn/__fsub_rn and flush denormals explicitly where the
 # reference does. -Xptxas -v reports each kernel's registers and spills,

@@ -328,31 +328,42 @@ def decode_attention(q, k, v, pos, *, block_k=512, impl="auto"):
 
 
 def ssd_chunked_pallas(x, b, c, dt, a_log, *, chunk=128, impl="auto"):
-    """The SSD scan with the ssd_chunk kernel per chunk and the inter-chunk
-    recurrence on the host: the counterpart of the JAX package's
-    ``ops.ssd_chunked_pallas`` (no D-skip, zero initial state).
+    """The SSD scan with one ssd_chunk call over every chunk and the
+    inter-chunk recurrence on the host: the counterpart of the JAX
+    package's ``ops.ssd_chunked_pallas`` (no D-skip, zero initial state).
 
     x [B,S,H,P], b/c [B,S,N], dt [B,S,H] -> (y [B,S,H,P] in x's type,
-    final state [B,H,P,N] fp32). As there, each chunk's y_intra is rounded
-    to x's type before the inter-chunk term is added, and the kernel's
-    [N, P] chunk state is swapped to [P, N]."""
+    final state [B,H,P,N] fp32). The chunks go to the kernel as the batch
+    rows of one call ([B,S,...] -> [B·nc,Q,...] by reshape, a view of the
+    model's split and conv outputs); the intra-chunk step does not depend
+    on the carried state, so this computes what JAX's scan of one kernel
+    call per chunk computes. The state is carried chunk by chunk in order
+    (the kernel's [N, P] chunk state swapped to [P, N]); the inter-chunk
+    term of every chunk then reads the state entering it in one batched
+    product, and is added to y_intra, which is in x's type as there."""
     _check_impl(impl, x)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, s)
     if s % q:
         raise ValueError(f"seq {s} must divide chunk {q}")
-    a = -torch.exp(a_log.float())
+    nc = s // q
+    y_intra, st_contrib, dec = _sc.ssd_chunk(
+        x.reshape(bsz * nc, q, h, p), b.reshape(bsz * nc, q, n),
+        c.reshape(bsz * nc, q, n), dt.reshape(bsz * nc, q, h), a_log)
+    st_contrib = st_contrib.view(bsz, nc, h, n, p).transpose(-1, -2)
+    dec = dec.view(bsz, nc, h, 1, 1)
     state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, s, q):
-        sl = slice(c0, c0 + q)
-        xc, bc, cc, dtc = x[:, sl], b[:, sl], c[:, sl], dt[:, sl]
-        y_intra, st_contrib, dec = _sc.ssd_chunk(xc, bc, cc, dtc, a_log)
-        # inter-chunk term: y_inter[s] = C_s . state * exp(acum_s)
-        acum = torch.cumsum(dtc.float() * a, dim=1)            # [B,q,H]
-        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cc.float(), state,
-                               torch.exp(acum))
-        state = state * dec[..., None, None] + st_contrib.transpose(-1, -2)
-        ys.append(y_intra.float() + y_inter)
-    return torch.cat(ys, dim=1).to(x.dtype), state
+    entering = []                      # the state entering each chunk
+    for ci in range(nc):
+        entering.append(state)
+        state = state * dec[:, ci] + st_contrib[:, ci]
+    # inter-chunk term: y_inter[s] = C_s . state * exp(acum_s)
+    a = -torch.exp(a_log.float())
+    acum = torch.cumsum(dt.reshape(bsz, nc, q, h).float() * a, dim=2)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp",
+                           c.reshape(bsz, nc, q, n).float(),
+                           torch.stack(entering, dim=1))
+    y_inter = y_inter * torch.exp(acum)[..., None]
+    y = y_intra.float().view(bsz, nc, q, h, p) + y_inter
+    return y.reshape(bsz, s, h, p).to(x.dtype), state

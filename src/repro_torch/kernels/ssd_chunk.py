@@ -11,8 +11,11 @@ chunk and A = -exp(a_log):
   decay = exp(a_Q)                             [B,H] fp32.
 x [B,Q,H,P], b/c [B,Q,N] share x's type (fp32 or bf16); dt [B,Q,H] and
 a_log [H] are read as fp32. The inter-chunk scan stays on the host
-(``ops.ssd_chunked_pallas``). Source: ``csrc/ssd_chunk.cu``, which states
-its bound and design.
+(``ops.ssd_chunked_pallas``, which passes every chunk as a batch row of
+one call). On CUDA the storage type picks the kernel: bf16 the tensor-core
+``ssd_chunk_wgmma_kernel`` (S' = C Bᵀ ∘ L ∘ dt and w ∘ X rounded to bf16,
+fp32 accumulation), fp32 the CUDA-core ``ssd_chunk_kernel``. Source:
+``csrc/ssd_chunk.cu``, which states the bound and both designs.
 """
 from __future__ import annotations
 
@@ -26,9 +29,40 @@ SMEM_LIMIT = 232448          # bytes of shared memory a Hopper block can use
 
 
 def smem_bytes(q: int, p: int) -> int:
-    """The kernel's shared memory: scores [Q][Q+1], dt*x [Q][P], two
+    """The fp32 kernel's shared memory: scores [Q][Q+1], dt*x [Q][P], two
     32-column B/C slices [Q][33], the cumsum and dt, all fp32."""
     return 4 * (q * (q + 1) + q * p + 2 * q * 33 + 2 * q)
+
+
+def _round64(v: int) -> int:
+    return -(-v // 64) * 64
+
+
+def wgmma_smem_bytes(q: int, n: int, p: int) -> int:
+    """The bf16 kernel's shared memory: 1 KB of alignment, C, B, X and
+    w ∘ X as bf16 tiles of Q and N rounded up to 64 and one 64-column
+    panel of P, the cumsum and dt in fp32, the tiles' 8-byte transaction
+    barrier."""
+    qp = _round64(q)
+    return 1024 + 4 * qp * (_round64(n) + 64) + 8 * qp + 8
+
+
+def _check_wgmma(x, b, c, q, n, p) -> None:
+    """What the bf16 kernel takes: P <= 64 (one 64-column panel) and
+    Q <= 256 (64 query rows a warpgroup, 4 warpgroups), N and P multiples
+    of 8, 16-byte aligned rows (TMA), the tiles within shared memory."""
+    if p > 64 or q > 256 or n % 8 or p % 8:
+        raise ValueError(f"the bf16 kernel takes P <= 64, Q <= 256 and N, P "
+                         f"multiples of 8; got Q {q}, N {n}, P {p}")
+    if wgmma_smem_bytes(q, n, p) > SMEM_LIMIT:
+        raise ValueError(f"Q {q}, N {n}, P {p} need "
+                         f"{wgmma_smem_bytes(q, n, p)} B of shared memory, "
+                         f"over {SMEM_LIMIT}")
+    strides = (*x.stride()[:3], *b.stride()[:2], *c.stride()[:2])
+    if any(t.data_ptr() % 16 for t in (x, b, c)) or any(s % 8
+                                                         for s in strides):
+        raise ValueError("the bf16 kernel needs 16-byte aligned rows of x, "
+                         "b and c (pointers and strides)")
 
 
 def ssd_chunk_plain(x, b, c, dt, a_log):
@@ -67,7 +101,11 @@ def ssd_chunk(x, b, c, dt, a_log):
         raise ValueError(f"x, b, c must share one of {DTYPES}")
     if any(t.device != x.device for t in (b, c, dt, a_log)):
         raise ValueError("all inputs must be on x's device")
-    if smem_bytes(q, p) > SMEM_LIMIT:
+    if x.stride(-1) != 1 or b.stride(-1) != 1 or c.stride(-1) != 1:
+        raise ValueError("x, b and c need a contiguous last dim")
+    if x.dtype == torch.bfloat16:
+        _check_wgmma(x, b, c, q, n, p)
+    elif smem_bytes(q, p) > SMEM_LIMIT:
         raise ValueError(f"chunk {q} x head dim {p} needs "
                          f"{smem_bytes(q, p)} B of shared memory, over "
                          f"{SMEM_LIMIT}")
@@ -75,8 +113,6 @@ def ssd_chunk(x, b, c, dt, a_log):
     if dt32.stride(-1) != 1:
         dt32 = dt32.contiguous()
     a32 = a_log.float().contiguous()
-    if x.stride(-1) != 1 or b.stride(-1) != 1 or c.stride(-1) != 1:
-        raise ValueError("x, b and c need a contiguous last dim")
     y = torch.empty((bsz, q, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
     decay = torch.empty((bsz, h), dtype=torch.float32, device=x.device)

@@ -16,7 +16,10 @@ backend equal to the reference backend, under the mean and under a robust
 reducer with an attack. The LM stack's kernels (flash attention, decode
 attention, the SSD chunk) are held to their plain versions within the
 JAX package's kernel tolerances (fp32 2e-5, bf16 2e-2) at the served
-models' head dims (64, 128, 256 with gemma2's softcap), with windows,
+models' head dims (64, 128, 256 with gemma2's softcap) and SSD widths
+(mamba2's, hymba's N 16, padded P and N, a ragged chunk, a sequence's
+chunks as batch rows of one launch; two SSD calls agree bit for bit),
+with windows,
 lengths that are no multiple of the flash kernel's 64-row tiles, grids
 that take two warpgroups a block, and decode positions at the split-KV
 kernel's chunk edges, all at 0 or past the cache, over caches split in 8
@@ -484,11 +487,79 @@ def test_ssd_chunked_pallas_on_the_card_matches_the_cpu(dev):
     a_log = torch.log(torch.linspace(1.0, 4.0, h, device=dev))
     pm.reset_launches()
     y, fin = ops.ssd_chunked_pallas(x, bb, cc, dt, a_log, chunk=64)
-    assert pm.LAUNCHES["ssd_chunk"] == s // 64
+    assert pm.LAUNCHES["ssd_chunk"] == 1        # every chunk in one call
     yc, fc = ops.ssd_chunked_pallas(*(t.cpu() for t in (x, bb, cc, dt,
                                                         a_log)), chunk=64)
     torch.testing.assert_close(y.cpu(), yc, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(fin.cpu(), fc, rtol=2e-4, atol=2e-4)
+
+
+def _ssd_bf16_inputs(dev, b, q, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    x = _normal(rng, (b, q, h, p), dev, torch.bfloat16, 0.3)
+    bb = _normal(rng, (b, q, n), dev, torch.bfloat16, 0.3)
+    cc = _normal(rng, (b, q, n), dev, torch.bfloat16, 0.3)
+    dt = torch.nn.functional.softplus(_normal(rng, (b, q, h), dev,
+                                              torch.float32))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    return x, bb, cc, dt, a_log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,q,h,p,n", [
+    (1, 128, 24, 64, 128),    # mamba2's chunk
+    (1, 128, 4, 64, 16),      # hymba's N 16
+    (2, 64, 4, 32, 16),       # P and N padded to one 64-column panel
+    (1, 100, 4, 64, 128),     # a ragged chunk: Q = s < chunk
+    (4, 128, 24, 64, 128),    # 512 tokens of mamba2 as B·nc batch rows
+    (1, 256, 4, 64, 128),     # four warpgroups
+])
+def test_ssd_chunk_wgmma_kernel_matches_plain(dev, b, q, h, p, n):
+    """The bf16 tensor-core kernel against the plain version on the same
+    bf16 inputs, the bf16 kernel tolerance on y, the fp32 state and the
+    decay."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _ssd_bf16_inputs(dev, b, q, h, p, n, seed=q + n + p)
+    pm.reset_launches()
+    outs = sc.ssd_chunk(*args)
+    assert pm.LAUNCHES["ssd_chunk"] == 1
+    plain = sc.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, plain):
+        _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_wgmma_kernel_repeats_bit_for_bit(dev):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels import ssd_chunk as sc
+    args = _ssd_bf16_inputs(dev, 4, 128, 24, 64, 128, seed=5)
+    first, second = sc.ssd_chunk(*args), sc.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert_bitwise(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_ssd_entry_is_one_launch_on_the_models_views(dev):
+    """ops.ssd_chunked_pallas on bf16 views cut the way mamba2's layer cuts
+    them (x, B, C split from one [B,S,d_inner+2N] tensor): one kernel
+    launch for 4 chunks, within bf16 of the CPU's run of the same call."""
+    rng = np.random.default_rng(9)
+    bsz, s, h, p, n = 1, 512, 24, 64, 128
+    xbc = _normal(rng, (bsz, s, h * p + 2 * n), dev, torch.bfloat16, 0.3)
+    xi, bb, cc = torch.split(xbc, [h * p, n, n], dim=-1)
+    x = xi.reshape(bsz, s, h, p)
+    dt = torch.nn.functional.softplus(_normal(rng, (bsz, s, h), dev,
+                                              torch.float32))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    pm.reset_launches()
+    y, fin = ops.ssd_chunked_pallas(x, bb, cc, dt, a_log, chunk=128)
+    assert pm.LAUNCHES["ssd_chunk"] == 1
+    yc, fc = ops.ssd_chunked_pallas(*(t.cpu() for t in (x, bb, cc, dt,
+                                                        a_log)), chunk=128)
+    _assert_close(y.cpu(), yc, torch.bfloat16)
+    _assert_close(fin.cpu(), fc, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -6,11 +6,12 @@ held to the JAX package's Pallas kernel in interpret mode and to its
 package's own kernel tolerances (tests/test_kernels.py: fp32 2e-5, bf16
 2e-2): flash attention (causal or not, window, softcap, GQA, head dims 64
 and 128), decode attention (pos 1, mid, full; pos 0 pinned), the SSD chunk
-and the chunked SSD scan built on it. Two helpers here repeat the
-arithmetic of the CUDA kernels' designs, which the plain versions do not:
-the split-KV decode kernel's per-chunk partials and their merge, and the
-bf16 flash kernel's P rounded to bf16 before P V; both are held to the
-Pallas kernels too.
+and the chunked SSD scan built on it, also with every chunk in one call
+on the model's strided views. Three helpers here repeat the arithmetic of
+the CUDA kernels' designs, which the plain versions do not: the split-KV
+decode kernel's per-chunk partials and their merge, the bf16 flash
+kernel's P rounded to bf16 before P V, and the bf16 SSD kernel's S' and
+w ∘ X rounded to bf16; all are held to the Pallas kernels too.
 """
 import dataclasses
 import math
@@ -350,6 +351,102 @@ def test_ssd_chunked_pallas_rounds_y_intra_to_the_input_type():
     assert y.dtype == torch.bfloat16
     _close(y, jy, "bfloat16")
     _close(fin, jfin, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_ssd_chunked_pallas_matches_jax_on_the_models_views(dtype):
+    """Every chunk goes to ssd_chunk as a batch row of one call; the inputs
+    are the model's views (x, B and C split from one [B,S,d_inner+2N]
+    tensor, x reshaped to heads), at mamba2's P 64, N 128, two chunks of
+    128, 4 heads, against JAX's scan of one kernel call per chunk."""
+    bsz, s, h, p, n, q = 1, 256, 4, 64, 128, 128
+    d_inner = h * p
+    rng = np.random.default_rng(11)
+    xbc = 0.3 * rng.normal(size=(bsz, s, d_inner + 2 * n))
+    dt = np.log1p(np.exp(rng.normal(size=(bsz, s, h)))).astype(np.float32)
+    a_log = np.log(np.linspace(1.0, 16.0, h)).astype(np.float32)
+    jxbc, txbc = _pair(xbc, dtype)
+    xi, tb, tc = torch.split(txbc, [d_inner, n, n], dim=-1)
+    tx = xi.reshape(bsz, s, h, p)
+    assert not (tx.is_contiguous() or tb.is_contiguous())
+    # the batched call's reshape is a view of the model's tensor
+    assert tx.reshape(bsz * s // q, q, h, p).data_ptr() == txbc.data_ptr()
+    y, fin = ops.ssd_chunked_pallas(tx, tb, tc, torch.from_numpy(dt),
+                                    torch.from_numpy(a_log), chunk=q)
+    jx = jxbc[..., :d_inner].reshape(bsz, s, h, p)
+    jy, jfin = jops.ssd_chunked_pallas(
+        jx, jxbc[..., d_inner:d_inner + n], jxbc[..., d_inner + n:],
+        jnp.asarray(dt), jnp.asarray(a_log), chunk=q)
+    assert y.dtype == tx.dtype and fin.shape == (bsz, h, p, n)
+    _close(y, jy, dtype)
+    _close(fin, jfin, dtype)
+
+
+def _ssd_wgmma_emulated(x, b, c, dt, a_log):
+    """The bf16 ssd_chunk_wgmma_kernel's rounding points in fp32 torch:
+    S' = C Bᵀ ∘ L ∘ dt_r rounded to bf16 (L's mask a select), y = S' X
+    accumulated in fp32 and rounded to x's type; w ∘ X rounded to bf16
+    (w_r = exp(a_Q - a_r) dt_r) and state = Bᵀ (w ∘ X) in fp32. X, B and C
+    reach the products as stored."""
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+    q = x.shape[1]
+    a = -torch.exp(a_log.float())
+    acum = torch.cumsum(dt.float() * a, dim=1)                  # [B,Q,H]
+    diff = acum[:, :, None, :] - acum[:, None, :, :]            # [B,s,r,H]
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool))[None, :, :, None]
+    lmat = torch.where(tril, torch.exp(torch.where(tril, diff, 0.0)), 0.0)
+    cb = torch.einsum("bsn,brn->bsr", c.float(), b.float())
+    s_rounded = bf16(cb[..., None] * lmat * dt.float()[:, None])
+    y = torch.einsum("bsrh,brhp->bshp", s_rounded, x.float())
+    w = torch.exp(acum[:, -1:] - acum) * dt.float()             # [B,Q,H]
+    wx = bf16(x.float() * w[..., None])                         # [B,Q,H,P]
+    state = torch.einsum("brn,brhp->bhnp", b.float(), wx)
+    return y.to(x.dtype), state, torch.exp(acum[:, -1])
+
+
+@pytest.mark.parametrize("dims", [(1, 128, 4, 64, 128), (1, 128, 4, 64, 16),
+                                  (2, 64, 4, 32, 16), (1, 100, 4, 64, 128)])
+def test_ssd_wgmma_rounding_stays_within_bf16_of_pallas(dims):
+    """The bf16 kernel's numerical design, pinned before the card: its
+    rounding points (bf16 S', bf16 w ∘ X, fp32 accumulation) against the
+    Pallas kernel in interpret mode on bf16 inputs, the bf16 kernel
+    tolerance, at mamba2's widths, hymba's N 16, the padded P 32 / N 16
+    and a ragged chunk of 100 rows."""
+    jin, tin = _ssd_inputs(*dims, seed=sum(dims), dtype="bfloat16")
+    y, state, decay = _ssd_wgmma_emulated(*tin)
+    py, pst, pdec = pallas_ssd_chunk(*jin)
+    _close(y, py, "bfloat16")
+    _close(state, pst, "bfloat16")
+    _close(decay, pdec, "float32")
+    # the plain version (what the wrapper runs on the CPU) within the same
+    for got, want in zip((y, state), sc.ssd_chunk_plain(*tin)[:2]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_wgmma_wrapper_checks_what_the_kernel_takes():
+    """The bf16 kernel's limits, checked before a launch: shared memory
+    as the kernel lays it out, Q and P per block, N and P in 16-byte
+    chunks, 16-byte aligned rows."""
+    assert sc.wgmma_smem_bytes(128, 128, 64) == 1024 + 4 * 128 * 192 + 1032
+    assert sc.wgmma_smem_bytes(100, 16, 32) == sc.wgmma_smem_bytes(128, 64,
+                                                                   64)
+
+    def check(q, n, p, b=1, offset=0):
+        x = torch.zeros(b * q * 4 * p + offset, dtype=torch.bfloat16)
+        x = x[offset:].view(b, q, 4, p)
+        bc = torch.zeros((b, q, n), dtype=torch.bfloat16)
+        sc._check_wgmma(x, bc, bc, q, n, p)
+    check(128, 128, 64)
+    check(256, 128, 64)
+    check(100, 16, 32)
+    for bad in (dict(q=257, n=128, p=64), dict(q=128, n=128, p=128),
+                dict(q=128, n=12, p=64), dict(q=128, n=128, p=72),
+                dict(q=128, n=128, p=64, offset=4),
+                dict(q=256, n=256, p=64)):
+        with pytest.raises(ValueError):
+            check(**bad)
 
 
 def test_lm_kernel_wrappers_do_not_count_on_the_cpu():
