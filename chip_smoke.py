@@ -10,7 +10,8 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      kernel build (timed), and the HGMMA (tensor-core) instructions of
      each flash-attention and SSD-chunk function in the built library's
      SASS: the run fails if a bf16 (wgmma) instantiation has none, or if
-     either wgmma kernel is missing;
+     either wgmma kernel is missing; ptxas's registers and spills of the
+     LM kernels and of the round's mask, histogram and aggregate kernels;
   2. every kernel against its plain PyTorch version at the main paths'
      shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks
      and weighted aggregate, C in {1, 3, 8, 10, 16, 33} for the rank sort,
@@ -18,7 +19,11 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      per-call time, its device time, the plain version's time, its bound
      and, where one PyTorch call computes the same function, that call's
      time; and the contract that the unweighted aggregate equals the
-     weighted one with unit weights;
+     weighted one with unit weights. The histogram also repeats ten calls
+     bit for bit and is timed on round 0's all-zero q; the histogram and
+     the shared-threshold mask also at R = 65,536, where bytes decide; the
+     aggregate kernels (weighted, unweighted, masked update) also on
+     subnormal gradients;
   3. the pruned-FedSGD path: the paper's pipeline on synthetic-mnist (10
      clients, sigma = 5) with the `proposed` AO schedule at E0 = 25 J,
      T0 = 15 s over 40 rounds, LeNet from a seeded init, trained once by
@@ -201,20 +206,27 @@ def kernel_device_ms(fn, symbols, reps: int = 50):
     shows none of them, and the top device events are printed then. A
     trace with fewer events than calls has lost some (every wrapper here
     launches at least one kernel a call): that is printed, and ms is the
-    mean per event, which is per call for the one-launch wrappers."""
+    mean per event, which is per call for the one-launch wrappers. A
+    trace with no device event at all (the profiler lost the whole trace,
+    as it now and then does on the H100) is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
     if isinstance(symbols, str):
         symbols = (symbols,)
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except (AssertionError, RuntimeError):     # no device tracing here
-        return None, [], 0
-    events = _device_events(prof)
+    for _attempt in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except (AssertionError, RuntimeError):  # no device tracing here
+            return None, [], 0
+        events = _device_events(prof)
+        if events:
+            break
+        print(json.dumps({"device_trace_empty": list(symbols)}))
     hits = [(key, n, us) for key, n, us in events
             if any(sym in key for sym in symbols)]
     n_events = sum(n for _, n, _ in hits)
@@ -237,20 +249,26 @@ def _instance(kernel: str, targs) -> str:
     return f"{kernel}<{','.join(targs)}>" if targs else kernel
 
 
-def ptxas_lm_report() -> dict:
-    """Registers and spill bytes of each attention and SSD kernel
-    instantiation, from the ptxas report the build keeps beside the
-    library."""
+LM_PTXAS = ("flash_attention", "decode_attention", "ssd_chunk")
+# the round's kernels of the aggregate tail and the shared-threshold path
+ROUND_PTXAS = ("importance_mask", "exponent_histogram", "fedsgd_aggregate",
+               "masked_update")
+
+
+def ptxas_report(prefixes) -> dict:
+    """Registers and spill bytes of each kernel instantiation whose name
+    starts with one of `prefixes`, from the ptxas report the build keeps
+    beside the library."""
     path = _build.ptxas_report_path()
     if not path.exists():
         return {"ptxas": "not measured: no report beside the library"}
+    pattern = (r"(?<=\d)((?:" + "|".join(prefixes)
+               + r")\w*?kernel)(?:I(.*)EvNS_|E)")
     out, name = {}, None
     for line in path.read_text().splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
-            kern = re.search(r"(?<=\d)((?:flash_attention|decode_attention"
-                             r"|ssd_chunk)\w*?kernel)(?:I(.*)EvNS_|E)",
-                             head.group(1))
+            kern = re.search(pattern, head.group(1))
             name = None
             if kern:
                 args = kern.group(2) or ""
@@ -322,6 +340,61 @@ def slice_env(dev):
 
 # -- phase 2: kernels against their plain versions ----------------------------
 
+# the redesigned kernels 4 and 2 as the device trace names them, and the
+# rows of their bytes-bound shape
+HIST_SYMBOL = "exponent_histogram_ticket_kernel"
+MASK_SYMBOL = "importance_mask_2d_kernel"
+BIG_ROWS = 65536
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def subnormal_checks(dev, shape) -> dict:
+    """Kernels 3, 5 and 7 against their plain versions, bit for bit, on
+    gradients of scale 1e-39 (subnormal) with normal rows, rows straddling
+    FLT_MIN and a zero-weight client holding NaN: the flush of every sum,
+    difference and product of the aggregate tail."""
+    rng = np.random.default_rng(16)
+
+    def arr(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)
+
+    def stack(c):
+        g = (1e-39 * rng.normal(size=(c,) + shape)).astype(np.float32)
+        g[:, :8] = rng.normal(size=(c, 8, shape[1]))
+        g[:, 8:24] = FLT_MIN * rng.uniform(-3, 3, size=(c, 16, shape[1]))
+        return g
+
+    w_np = rng.normal(size=shape).astype(np.float32)
+    w_np[24:32] = 1e-39 * rng.normal(size=(8, shape[1]))
+    w_np[32:40] = FLT_MIN * rng.uniform(-2, 2, size=(8, shape[1]))
+    w = arr(w_np)
+    out = {"fedsgd_aggregate_weighted": True, "fedsgd_aggregate": True,
+           "masked_update_2d": True}
+    for c in (1, 3, 8):
+        g_np = stack(c)
+        cw_np = np.ones(c, np.float32)
+        if c > 1:
+            cw_np[-1] = 0.0
+            g_np[-1] = np.nan
+        g, cw = arr(g_np), arr(cw_np)
+        inv = torch.tensor(np.float32(1.0 / cw_np.sum()), device=dev)
+        eta = torch.tensor(np.float32(0.15), device=dev)
+        out["fedsgd_aggregate_weighted"] &= all(
+            bits_equal(a, b) for a, b in zip(
+                pm.fedsgd_aggregate_weighted(w, g, cw, inv, eta),
+                pm.fedsgd_aggregate_weighted_plain(w, g, cw, inv, eta)))
+        g = arr(stack(c))
+        out["fedsgd_aggregate"] &= all(
+            bits_equal(a, b) for a, b in zip(
+                pm.fedsgd_aggregate(w, g, 0.15),
+                pm.fedsgd_aggregate_plain(w, g, 0.15)))
+        m = arr(rng.random(shape) < 0.7)
+        out["masked_update_2d"] &= bits_equal(
+            pm.masked_update_2d(w, g[0], m, 0.02),
+            pm.masked_update_plain(w, g[0], m, 0.02))
+    return out
+
+
 def check_kernels(dev, pack: ParamPack, card: str) -> dict:
     rng = np.random.default_rng(0)
     shape = (pack.rows, LANES)
@@ -342,8 +415,7 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
     results = {}
     fails = []
 
-    def record(name, ok, err, call, plain_call, symbol, nbytes, nflops,
-               library_call=None):
+    def timing(call, plain_call, symbol, nbytes, nflops, library_call=None):
         """Times the wrapper, the plain version and the library call at
         these inputs, and the kernel alone on the device trace; bound from
         bytes and operations."""
@@ -351,17 +423,37 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
         lib = time_ms(library_call) if library_call is not None else None
         dev_ms, _, _ = kernel_device_ms(call, symbol)
         bound = max(nbytes / bw, nflops / flops) * 1e3
-        results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain,
-                             device_ms=dev_ms, bound_ms=bound,
-                             library_ms=lib,
-                             bound_by="bytes" if nbytes / bw >= nflops / flops
-                             else "operations", bytes=nbytes)
-        print(json.dumps({"kernel": name, "equal": ok, "kernel_ms": ms,
-                          "device_ms": dev_ms, "plain_ms": plain,
-                          "bound_us": bound * 1e3, "bytes": nbytes,
-                          "library_ms": lib, "max_abs_err": err}))
+        return dict(ms=ms, plain_ms=plain, device_ms=dev_ms, bound_ms=bound,
+                    library_ms=lib, symbol=symbol,
+                    bound_by="bytes" if nbytes / bw >= nflops / flops
+                    else "operations", bytes=nbytes,
+                    share=bound / dev_ms if dev_ms else None)
+
+    def record(name, ok, err, call, plain_call, symbol, nbytes, nflops,
+               library_call=None):
+        res = timing(call, plain_call, symbol, nbytes, nflops, library_call)
+        results[name] = dict(ok=ok, max_abs_err=err, **res)
+        print(json.dumps({"kernel": name, "equal": ok, "kernel_ms": res["ms"],
+                          "device_ms": res["device_ms"],
+                          "plain_ms": res["plain_ms"],
+                          "bound_us": res["bound_ms"] * 1e3, "bytes": nbytes,
+                          "library_ms": res["library_ms"],
+                          "max_abs_err": err}))
         if not ok:
             fails.append(name)
+
+    def extra_row(name, label, ok, call, plain_call, symbol, nbytes,
+                  nflops):
+        """Another shape of a recorded kernel: checked and timed beside the
+        main path's row, listed under the kernel's "shapes"."""
+        res = timing(call, plain_call, symbol, nbytes, nflops)
+        results[name].setdefault("shapes", {})[label] = dict(ok=ok, **res)
+        print(json.dumps({"kernel": name, "shape": label, "equal": ok,
+                          **{k: res[k] for k in ("ms", "device_ms",
+                                                  "plain_ms", "bound_ms",
+                                                  "share")}}))
+        if not ok:
+            fails.append(f"{name} ({label})")
 
     # exponent_histogram, and the threshold search it feeds
     hk = pm.exponent_histogram(q, pr)
@@ -378,12 +470,19 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
         torch.nan_to_num(kth_smallest_threshold(q, pr, kv, coarse="histogram")),
         torch.nan_to_num(kth_smallest_threshold(q, pr, kv, coarse="bisect"))))
     zero_q = torch.zeros_like(q)                    # round 0: v = 0
-    ok &= bits_equal(pm.exponent_histogram(zero_q, pr),
-                     pm.exponent_histogram_plain(zero_q, pr))
+    hz = pm.exponent_histogram(zero_q, pr)
+    ok_zero = bits_equal(hz, pm.exponent_histogram_plain(zero_q, pr))
+    # the ticket resets: ten calls in a row give the same bits
+    ok &= all(bits_equal(pm.exponent_histogram(q, pr), hp)
+              for _ in range(10))
     record("exponent_histogram", bool(ok), max_abs_err([hk], [hp]),
            lambda: pm.exponent_histogram(q, pr),
            lambda: pm.exponent_histogram_plain(q, pr),
-           "exponent_histogram_kernel", 2 * 4 * n + 4 * 256, 2 * n)
+           HIST_SYMBOL, 2 * 4 * n + 4 * 256, 2 * n)
+    extra_row("exponent_histogram", f"R={shape[0]}, q = 0 (round 0)",
+              bool(ok_zero), lambda: pm.exponent_histogram(zero_q, pr),
+              lambda: pm.exponent_histogram_plain(zero_q, pr), HIST_SYMBOL,
+              2 * 4 * n + 4 * 256, 2 * n)
 
     # importance_mask_2d: one shared threshold, at every k of the list,
     # including nextafter(0) (a subnormal) from the all-zero round 0
@@ -402,7 +501,33 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
     record("importance_mask_2d", bool(ok), err,
            lambda: pm.importance_mask_2d(w, v, pr, thr),
            lambda: pm.importance_masks_plain(w, v, pr, thr),
-           "importance_masks_kernel", 5 * 4 * n + 4, 3 * n)
+           MASK_SYMBOL, 5 * 4 * n + 4, 3 * n)
+
+    # kernels 4 and 2 where bytes decide: R = 65,536 (32 MiB a buffer)
+    big = (BIG_ROWS, LANES)
+    nb = big[0] * big[1]
+    wb = torch.randn(big, generator=torch.Generator().manual_seed(3)).to(dev)
+    vb = 1e-3 * torch.randn(big, generator=torch.Generator().manual_seed(4)
+                            ).to(dev)
+    prb = (torch.rand(big, generator=torch.Generator().manual_seed(5))
+           < 0.9).float().to(dev)
+    qb = pm.importance(wb, vb)
+    thrb = kth_smallest_threshold(qb, prb, int(prb.sum()) // 2)
+    hb = pm.exponent_histogram_plain(qb, prb)
+    extra_row("exponent_histogram", f"R={BIG_ROWS}",
+              all(bits_equal(pm.exponent_histogram(qb, prb), hb)
+                  for _ in range(3)),
+              lambda: pm.exponent_histogram(qb, prb),
+              lambda: pm.exponent_histogram_plain(qb, prb), HIST_SYMBOL,
+              2 * 4 * nb + 4 * 256, 2 * nb)
+    kq, km = pm.importance_mask_2d(wb, vb, prb, thrb)
+    pq, pms = pm.importance_masks_plain(wb, vb, prb, thrb)
+    extra_row("importance_mask_2d", f"R={BIG_ROWS}",
+              bits_equal(kq, pq) and bits_equal(km, pms[0]),
+              lambda: pm.importance_mask_2d(wb, vb, prb, thrb),
+              lambda: pm.importance_masks_plain(wb, vb, prb, thrb),
+              MASK_SYMBOL, 5 * 4 * nb + 4, 3 * nb)
+    del wb, vb, prb, qb, kq, km, pq, pms
 
     # importance_mask_batched at C in {1, 3, 8}
     ok, err = True, 0.0
@@ -510,6 +635,11 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
            lambda: pm.masked_update_2d(w, g, m, 0.05),
            lambda: pm.masked_update_plain(w, g, m, 0.05),
            "masked_update_kernel", 4 * 4 * n, 3 * n)
+    for name, sub_ok in subnormal_checks(dev, shape).items():
+        results[name]["subnormal_bitwise"] = sub_ok
+        print(json.dumps({"kernel": name, "subnormal_input_equal": sub_ok}))
+        if not sub_ok:
+            fails.append(f"{name} (subnormal input)")
     if fails:
         raise AssertionError(f"kernels differ from their plain versions: "
                              f"{fails}")
@@ -548,8 +678,9 @@ def run_backend(backend, dev, ds, clients, sp, ch, sched, params, *,
 
 
 # the port's kernels as torch.profiler names them
-PORT_SYMBOLS = ("importance_masks_kernel", "fedsgd_aggregate_weighted_kernel",
-                "exponent_histogram_kernel", "fedsgd_aggregate_kernel",
+PORT_SYMBOLS = ("importance_masks_kernel", MASK_SYMBOL,
+                "fedsgd_aggregate_weighted_kernel", HIST_SYMBOL,
+                "fedsgd_aggregate_kernel",
                 "client_rank_sort_kernel", "client_rank_sort_generic_kernel",
                 "masked_update_kernel")
 
@@ -1494,7 +1625,8 @@ def main() -> int:
     # the SASS of every wgmma instantiation
     hgmma = sass_hgmma_counts()
     print(json.dumps({"sass_hgmma": hgmma}))
-    print(json.dumps({"ptxas_lm": ptxas_lm_report()}))
+    print(json.dumps({"ptxas_lm": ptxas_report(LM_PTXAS)}))
+    print(json.dumps({"ptxas_round": ptxas_report(ROUND_PTXAS)}))
     wgmma_fns = [k for k in hgmma if "wgmma" in k]
     missing = [kern for kern in ("flash_attention_wgmma_kernel",
                                  "ssd_chunk_wgmma_kernel")
@@ -1628,7 +1760,10 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"],
-                     "check": "bitwise" if res["ok"] else "FAILED"})
+                     "symbol": res["symbol"],
+                     "check": "bitwise" if res["ok"] else "FAILED",
+                     **{k: res[k] for k in ("shapes", "subnormal_bitwise")
+                        if k in res}})
     flash_ok = all(r["ok"] for r in flash_rows.values())
     for kname, res, path, counts in (
             ("flash_attention", {**flash_rows["granite S1024"],
@@ -1649,6 +1784,7 @@ def main() -> int:
                      "bound_ms": res["bound_ms"],
                      "bound_by": res["bound_by"],
                      "library_ms": res["library_ms"],
+                     "symbol": "/".join(LM_SYMBOLS[kname]),
                      "check": "bf16 2e-2" if res["ok"] else "FAILED",
                      **({"entry_call": res["entry_call"]}
                         if "entry_call" in res else {})})

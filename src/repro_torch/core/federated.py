@@ -52,6 +52,7 @@ from repro_torch.core.optimizer_ao import Schedule
 from repro_torch.core.packing import LANES, ParamPack
 from repro_torch.core.round_engine import RoundEngine, bucket_capacity
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.wireless.comm import (SystemParams, per_client_delay,
                                        round_energy)
 
@@ -293,29 +294,46 @@ class FederatedTrainer:
     def server_step(self, grads: list[Params],
                     noise: Params | None = None) -> None:
         """Eqs. (6)-(7): average the uploads, FedSGD update. `noise` (a
-        dict, `_noise_tree`) is the noisy aggregation channel: the server
+        dict like the params) is the noisy aggregation channel: the server
         observes mean(g) + noise and broadcasts and steps with it. Every op
         is its own eager dispatch, so eta*g is rounded before the
-        subtraction, exactly as the packed engine's aggregate computes it."""
-        if not grads:
+        subtraction, exactly as the packed engine's aggregate computes it,
+        and flushed as XLA flushes it (`ops.flush_add` / `flush_mul`)."""
+        pack = self._noise_layout()
+        self._server_step_packed(
+            [pack.pack(g) for g in grads],
+            None if noise is None else pack.pack(noise))
+
+    def _server_step_packed(self, gps: list[torch.Tensor],
+                            noise: torch.Tensor | None = None) -> None:
+        """`server_step` on uploads (and noise) in the packed [R, 128]
+        layout. Every op is elementwise, so each coordinate gets the bits
+        the same ops would give leaf by leaf, in one launch an op."""
+        if not gps:
             return
-        inv = 1.0 / len(grads)
-        g = grads[0]
-        for extra in grads[1:]:
-            g = {k: g[k] + extra[k] for k in g}
-        g = {k: t * inv for k, t in g.items()}
+        g = gps[0]
+        for extra in gps[1:]:
+            g = ops.flush_add(g, extra)
+        g = ops.flush_mul(g, 1.0 / len(gps))
         if noise is not None:
-            g = {k: t + noise[k] for k, t in g.items()}
-        self.global_grad = g
-        self.params = {k: w - self.eta * g[k].to(w.dtype)
-                       for k, w in self.params.items()}
+            g = ops.flush_add(g, noise)
+        self._step(g)
+
+    def _step(self, gp: torch.Tensor) -> None:
+        """Broadcast the packed g and take the FedSGD step w - eta*g,
+        flushed, on the packed layout."""
+        pack = self._noise_layout()
+        w = pack.pack(self.params)
+        self.global_grad = pack.unpack(gp)
+        self.params = pack.unpack(
+            ops.flush_sub(w, ops.flush_mul(self.eta, gp)))
 
     # -- scenario operands (noise, poison) ----------------------------------
 
     def _noise_layout(self) -> ParamPack:
-        """The packed layout noise and poison are drawn in: the engine's
-        pack on the packed backend, a layout-only pack on the reference
-        backend."""
+        """The packed layout noise and poison are drawn in, and the
+        reference backend's round tail runs in: the engine's pack on the
+        packed backend, a layout-only pack on the reference backend."""
         if self.pack is not None:
             return self.pack
         if self._noise_ref_pack is None:
@@ -335,11 +353,10 @@ class FederatedTrainer:
         return self.channel_noise.sample_packed(s, (pack.rows, LANES),
                                                 self._valid_lanes())
 
-    def _noise_tree(self, s: int) -> Params:
-        """The same round-s draw as a dict (reference backend): unpack is a
-        pure gather, so every coordinate gets the packed engine's value."""
-        return self._noise_layout().unpack(
-            torch.as_tensor(self._noise_packed(s), device=self.device))
+    def _noise_tensor(self, s: int) -> torch.Tensor:
+        """The same round-s draw on the device, packed (reference backend):
+        every coordinate gets the packed engine's value."""
+        return torch.as_tensor(self._noise_packed(s), device=self.device)
 
     def _poison_stack(self, fault) -> np.ndarray | None:
         """A fault draw's lazy additive poison in the packed [C_sel, R, 128]
@@ -358,13 +375,16 @@ class FederatedTrainer:
         computes its update, corruption factors scale the upload, poison is
         added, uploads that never arrived are dropped, a non-finite upload
         is quarantined, and `server_step` averages the survivors (and skips
-        the update when none survive). A robust aggregator routes through
+        the update when none survive). The uploads are packed as they
+        arrive: the fault ops are elementwise, so the layout does not change
+        their bits. A robust aggregator routes through
         `_reference_robust_round`. Returns (per-client losses, surviving
         upload count, reducer count or None)."""
         if self.aggregator is not None:
             return self._reference_robust_round(selected, lam_s, batches,
                                                 s=s, fault=fault)
-        grads, losses = [], []
+        pack = self._noise_layout()
+        gps, losses = [], []
         ok = (np.asarray(fault.upload_ok, bool) if fault is not None
               else np.ones(len(selected), bool))
         cf = fault.corrupt if fault is not None else None
@@ -374,21 +394,20 @@ class FederatedTrainer:
             losses.append(loss)
             if not ok[j]:
                 continue                     # the upload never arrived
+            gp = pack.pack(g)
             if cf is not None:
-                c = torch.tensor(np.float32(cf[j]), device=self.device)
-                g = {k: t * c for k, t in g.items()}
+                gp = ops.flush_mul(gp, cf[j])
             if po is not None:
                 # added to EVERY arriving upload (zeros for clean clients),
                 # as the engine adds the whole stack: g + 0.0 turns -0.0
                 # into +0.0 on both backends alike
-                pz = self._noise_layout().unpack(
-                    torch.as_tensor(po[j], device=self.device))
-                g = {k: t + pz[k] for k, t in g.items()}
-            if all(bool(torch.isfinite(t).all()) for t in g.values()):
-                grads.append(g)
-        self.server_step(
-            grads, noise=self._noise_tree(s) if self.channel_noise else None)
-        return losses, len(grads), None
+                gp = ops.flush_add(gp, torch.as_tensor(po[j],
+                                                       device=self.device))
+            if bool(torch.isfinite(gp).all()):
+                gps.append(gp)
+        self._server_step_packed(
+            gps, noise=self._noise_tensor(s) if self.channel_noise else None)
+        return losses, len(gps), None
 
     @torch.no_grad()
     def _reference_robust_round(self, selected: list[int],
@@ -413,9 +432,10 @@ class FederatedTrainer:
             losses.append(loss)
             gp = pack.pack(g)
             if cf is not None:
-                gp = gp * torch.tensor(np.float32(cf[j]), device=self.device)
+                gp = ops.flush_mul(gp, cf[j])
             if po is not None:
-                gp = gp + torch.as_tensor(po[j], device=self.device)
+                gp = ops.flush_add(gp, torch.as_tensor(po[j],
+                                                       device=self.device))
             fin = bool(torch.isfinite(gp).all())
             gps.append(gp)
             cws.append(1.0 if (ok[j] and fin) else 0.0)
@@ -428,13 +448,9 @@ class FederatedTrainer:
         ghat, ast = self.aggregator.reduce(torch.stack(gps), cw)
         n_ok = int(np.asarray(cws).sum())
         if n_ok > 0:
-            g = pack.unpack(ghat)
             if self.channel_noise:
-                nz = self._noise_tree(s)
-                g = {k: t + nz[k] for k, t in g.items()}
-            self.global_grad = g
-            self.params = {k: w - self.eta * g[k].to(w.dtype)
-                           for k, w in self.params.items()}
+                ghat = ops.flush_add(ghat, self._noise_tensor(s))
+            self._step(ghat)
         return losses, n_ok, ast
 
     def _round(self, selected: list[int], lam_s: np.ndarray, s: int = 0,

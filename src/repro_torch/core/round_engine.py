@@ -133,7 +133,6 @@ class RoundEngine:
         self.prunable = torch.as_tensor(pack.prunable_mask(),
                                         device=self.device)
         self._eta = torch.tensor(np.float32(eta), device=self.device)
-        self._one = torch.tensor(np.float32(1.0), device=self.device)
         self._zero_stat = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
         self.buckets_used: set[int] = set()
@@ -192,22 +191,25 @@ class RoundEngine:
         always-on non-finite guard zeroes the weight of any client that went
         non-finite and renormalizes over the survivors. A robust aggregator
         then reduces the stack with those weights and its survivor-normalized
-        aggregate takes the update tail with inv = 1.0 (exact); the mean
+        (and flushed) aggregate takes the update tail unscaled (inv=None:
+        the reference's * 1.0 is exact, and XLA drops it); the mean
         path takes the weighted aggregate kernel, or, with channel `noise`
         ([R, L], zero on padding lanes), the plain weighted sum and the tail
         that rounds inv*gsum before adding the noise. When no client
-        survives, (w, v) are carried unchanged.
+        survives, (w, v) are carried unchanged. The factor and the poison
+        are flushed as XLA flushes them (subnormal inputs and results are
+        zeros of their sign), like the rest of the tail.
         Returns (w', v', step, n_ok, agg_stat)."""
         if cf is not None:
-            grads = grads * cf[:, None, None]
+            grads = ops.flush_mul(grads, cf[:, None, None])
         if poison is not None:
-            grads = grads + poison
+            grads = ops.flush_add(grads, poison)
         cw_eff, inv_eff, n_ok, alive = ops.packed_client_quarantine(
             grads, cw, inv)
         if self.aggregator is not None:
             ghat, ast = self.aggregator.reduce(grads, cw_eff)
             w2, g, step = ops.packed_apply_mean_update(
-                w, ghat, self._one, self._eta, noise=noise)
+                w, ghat, None, self._eta, noise=noise)
         elif noise is None:
             ast = self._zero_stat
             w2, g, step = ops.packed_fedsgd_update_weighted(

@@ -39,8 +39,10 @@ _SIGNATURES = {
     # w, grads, cw, n_clients, inv, eta, n, w_out, g_out, step_out, stream
     "fedsgd_aggregate_weighted": (_P, _P, _P, ctypes.c_int, _P, _P,
                                   ctypes.c_longlong, _P, _P, _P, _P),
-    # q, prunable, n, hist, stream
-    "exponent_histogram": (_P, _P, ctypes.c_longlong, _P, _P),
+    # q, prunable, n, state (bins + ticket), hist, stream
+    "exponent_histogram": (_P, _P, ctypes.c_longlong, _P, _P, _P),
+    # w, v, prunable, thr, n, q, mask, stream
+    "importance_mask_2d": (_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P),
     # w, grads, n_clients, inv, eta, n, w_out, g_out, step_out, stream
     "fedsgd_aggregate": (_P, _P, ctypes.c_int, ctypes.c_float,
                          ctypes.c_float, ctypes.c_longlong, _P, _P, _P, _P),

@@ -6,7 +6,7 @@
 // its Python wrapper (repro_torch/kernels/pruning_mask.py) that it must
 // match bit for bit.
 //
-// All seven are elementwise, histogram or per-coordinate sort passes over
+// All are elementwise, histogram or per-coordinate sort passes over
 // a few MiB: they are bound by device-memory bytes, and at the packed sizes
 // of the paper's models (R = 1024, 512 KiB a buffer) by the launch itself.
 // The design reads every input once (16-byte float4 / int4 loads where a
@@ -19,11 +19,17 @@
 //     into an FMA (the reference rounds each op on its own);
 //   * denormals are zero where the JAX reference (XLA:CPU, TPU) flushes
 //     them: the importance q = (w*v)^2 and the threshold it is compared
-//     with. daz(x) = |x| < FLT_MIN ? +0 : x.
+//     with, daz(x) = |x| < FLT_MIN ? +0 : x; and every op of the aggregate
+//     tail (kernels 3, 5 and 7), which reads a subnormal input as a zero of
+//     its sign and flushes a tiny result to a zero of its sign
+//     (add_ftz / sub_ftz / mul_ftz; a product is tiny when its exact value
+//     rounded to 24 bits with an unbounded exponent is below FLT_MIN, as
+//     x86 decides it after rounding).
 // The library is built without --use_fast_math and without -ftz.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cfloat>
 #include <climits>
 #include <cstdint>
@@ -32,9 +38,40 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
+// The histogram's cap: every block adds its bins to one accumulator, so
+// fewer blocks mean fewer atomics on each bin (at R = 65,536 on the H100:
+// 25.4 µs at 528 blocks, 28.7 at 2,112).
+constexpr int kHistMaxBlocks = 132 * 4;
 
 __device__ __forceinline__ float daz(float x) {
   return fabsf(x) < FLT_MIN ? 0.0f : x;
+}
+
+// XLA's flush: a subnormal becomes a zero of its sign.
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
+}
+
+// a + b, a - b and a * b as XLA:CPU computes them, on inputs already
+// flushed (xla_mul flushes them first). A sum or difference of normals
+// below FLT_MIN is exact, so its flush is the result's. A product is tiny
+// when its exact value rounded to 24 bits with an unbounded exponent lies
+// below FLT_MIN (x86 decides after rounding): that rounding is the fp32
+// product of the operands scaled by 2^32 each (exact: a tiny product has
+// no operand above 1), compared with FLT_MIN * 2^64.
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  return flush(__fadd_rn(a, b));
+}
+__device__ __forceinline__ float sub_ftz(float a, float b) {
+  return flush(__fsub_rn(a, b));
+}
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  const float y = __fmul_rn(a, b);
+  const float scaled = __fmul_rn(__fmul_rn(a, 0x1p32f), __fmul_rn(b, 0x1p32f));
+  return fabsf(scaled) < 0x1p-62f ? copysignf(0.0f, y) : y;
+}
+__device__ __forceinline__ float xla_mul(float a, float b) {
+  return mul_ftz(flush(a), flush(b));
 }
 
 // q = (w*v)^2, each product rounded, flushed to +0 below FLT_MIN.
@@ -53,11 +90,10 @@ int grid_for(long long n4) {
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
-// Replaces pruning_mask.importance_mask_batched (and, with n_clients = 1,
-// importance_mask_2d plus ops.packed_importance_mask's prunable override).
-// One thread reads 4 coordinates of (w, v, prunable) once, writes q once
-// and then the n_clients masks; the thresholds are read from device memory
-// (they come out of the on-device threshold search, never the host).
+// Replaces pruning_mask.importance_mask_batched. One thread reads 4
+// coordinates of (w, v, prunable) once, writes q once and then the
+// n_clients masks; the thresholds are read from device memory (they come
+// out of the on-device threshold search, never the host).
 __global__ void importance_masks_kernel(
     const float4* __restrict__ w, const float4* __restrict__ v,
     const float4* __restrict__ prunable, const float* __restrict__ thr,
@@ -88,87 +124,188 @@ __global__ void importance_masks_kernel(
   }
 }
 
+// g = acc * inv, step = eta * g, w' = w - step, each op rounded and flushed
+// on its own (acc, inv and eta already flushed); the three results stored
+// once.
+__device__ __forceinline__ void mean_update_tail(
+    const float4 acc, float inv, float eta, const float4 ww,
+    float4* __restrict__ w_out, float4* __restrict__ g_out,
+    float4* __restrict__ step_out) {
+  float4 g, st, wo;
+  g.x = mul_ftz(acc.x, inv);
+  g.y = mul_ftz(acc.y, inv);
+  g.z = mul_ftz(acc.z, inv);
+  g.w = mul_ftz(acc.w, inv);
+  st.x = mul_ftz(eta, g.x);
+  st.y = mul_ftz(eta, g.y);
+  st.z = mul_ftz(eta, g.z);
+  st.w = mul_ftz(eta, g.w);
+  wo.x = sub_ftz(flush(ww.x), st.x);
+  wo.y = sub_ftz(flush(ww.y), st.y);
+  wo.z = sub_ftz(flush(ww.z), st.z);
+  wo.w = sub_ftz(flush(ww.w), st.w);
+  *g_out = g;
+  *step_out = st;
+  *w_out = wo;
+}
+
+// cw * g for a flushed weight: a unit weight's product is exact, so it is
+// the flushed gradient (the branch is uniform: one weight a client).
+__device__ __forceinline__ float4 weighted(float cw, const float4 g) {
+  if (cw == 1.0f)
+    return make_float4(flush(g.x), flush(g.y), flush(g.z), flush(g.w));
+  return make_float4(mul_ftz(cw, flush(g.x)), mul_ftz(cw, flush(g.y)),
+                     mul_ftz(cw, flush(g.z)), mul_ftz(cw, flush(g.w)));
+}
+
 // Replaces pruning_mask.fedsgd_aggregate_weighted. The client loop runs in
 // stack order, like the reference's sum; a client whose weight is not > 0
 // is skipped without reading its gradient, so a NaN on a padding or
-// quarantined client never reaches the sum. inv and eta are device scalars
-// (inv comes out of the on-device quarantine: no host sync per round).
+// quarantined client never reaches the sum. The sum starts from client 0's
+// term (XLA folds the mirror's +0.0 start away, so a -0.0 keeps its sign).
+// inv and eta are device scalars (inv comes out of the on-device
+// quarantine: no host sync per round).
 __global__ void fedsgd_aggregate_weighted_kernel(
     const float4* __restrict__ w, const float4* __restrict__ grads,
     const float* __restrict__ cw, int n_clients,
     const float* __restrict__ inv_ptr, const float* __restrict__ eta_ptr,
     long long n4, float4* __restrict__ w_out, float4* __restrict__ g_out,
     float4* __restrict__ step_out) {
-  const float inv = *inv_ptr;
-  const float eta = *eta_ptr;
+  const float inv = flush(*inv_ptr);
+  const float eta = flush(*eta_ptr);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n4; i += stride) {
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int c = 0; c < n_clients; ++c) {
+    const float w0 = cw[0];
+    if (w0 > 0.0f) acc = weighted(flush(w0), grads[i]);
+    for (int c = 1; c < n_clients; ++c) {
       const float wc = cw[c];
       if (wc > 0.0f) {
-        const float4 g = grads[static_cast<long long>(c) * n4 + i];
-        acc.x = __fadd_rn(acc.x, __fmul_rn(wc, g.x));
-        acc.y = __fadd_rn(acc.y, __fmul_rn(wc, g.y));
-        acc.z = __fadd_rn(acc.z, __fmul_rn(wc, g.z));
-        acc.w = __fadd_rn(acc.w, __fmul_rn(wc, g.w));
+        const float4 t =
+            weighted(flush(wc), grads[static_cast<long long>(c) * n4 + i]);
+        acc.x = add_ftz(acc.x, t.x);
+        acc.y = add_ftz(acc.y, t.y);
+        acc.z = add_ftz(acc.z, t.z);
+        acc.w = add_ftz(acc.w, t.w);
       }
     }
-    float4 g;
-    g.x = __fmul_rn(acc.x, inv);
-    g.y = __fmul_rn(acc.y, inv);
-    g.z = __fmul_rn(acc.z, inv);
-    g.w = __fmul_rn(acc.w, inv);
-    float4 st;
-    st.x = __fmul_rn(eta, g.x);
-    st.y = __fmul_rn(eta, g.y);
-    st.z = __fmul_rn(eta, g.z);
-    st.w = __fmul_rn(eta, g.w);
-    const float4 ww = w[i];
-    float4 wo;
-    wo.x = __fsub_rn(ww.x, st.x);
-    wo.y = __fsub_rn(ww.y, st.y);
-    wo.z = __fsub_rn(ww.z, st.z);
-    wo.w = __fsub_rn(ww.w, st.w);
-    g_out[i] = g;
-    step_out[i] = st;
-    w_out[i] = wo;
+    mean_update_tail(acc, inv, eta, w[i], w_out + i, g_out + i, step_out + i);
   }
 }
 
+// Adds the exponent byte of each lane's coordinate to the block's bins. A
+// lane whose coordinate is not prunable, or whose byte is negative (a set
+// sign bit), adds nothing. Where every counting lane of the warp holds the
+// same byte (round 0's all-zero q puts every coordinate in bin 0) the
+// lowest of them adds the warp's count in one shared atomic, not 32 on one
+// address; otherwise each lane adds its own. Every lane of the warp must
+// call it.
 __device__ __forceinline__ void count_byte(int* bins, int bits, float p) {
-  const int b = bits >> 23;
-  if (p > 0.0f && b >= 0 && b < 256) atomicAdd(&bins[b], 1);
+  const int b = bits >> 23;                   // arithmetic: < 0 if signed
+  const bool ok = p > 0.0f && b >= 0;
+  const unsigned valid = __ballot_sync(0xffffffffu, ok);
+  if (!valid) return;
+  const int lead = __ffs(valid) - 1;
+  const int b0 = __shfl_sync(0xffffffffu, b, lead);
+  if (__ballot_sync(0xffffffffu, ok && b == b0) == valid) {
+    if ((threadIdx.x & 31) == lead) atomicAdd(&bins[b0], __popc(valid));
+  } else if (ok) {
+    atomicAdd(&bins[b], 1);
+  }
 }
 
-// Replaces pruning_mask.exponent_histogram. Blocks run in no order on the
-// card, so instead of the TPU's running total over sequential grid steps
-// each block counts into 256 shared-memory bins and then adds each nonzero
-// bin into the global [256] int32 histogram once. Integer atomics make the
-// counts exact in any order. Bytes outside [0, 255] (a set sign bit) are
-// dropped, as the Pallas compare-reduce drops them.
-__global__ void exponent_histogram_kernel(const int4* __restrict__ qbits,
-                                          const float4* __restrict__ prunable,
-                                          long long n4, int* __restrict__ hist) {
+// An acquire-release atomic add on a device-scope counter: it publishes
+// the writes that reach it (this block's, ordered before it by a barrier)
+// and, in the block that reads the last ticket, sees every earlier block's.
+__device__ __forceinline__ int take_ticket(int* ticket) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old)
+               : "l"(ticket)
+               : "memory");
+  return old;
+}
+
+// Replaces pruning_mask.exponent_histogram, in one launch that writes the
+// [256] output once. Blocks run in no order on the card, so instead of the
+// TPU's running total over sequential grid steps each block counts its
+// share into 256 shared-memory bins (`count_byte`), adds each non-zero bin
+// to a per-stream [256] accumulator (fire-and-forget atomics, no fill: the
+// accumulator is 0 between calls), and takes a ticket from a per-stream
+// counter; the block that takes the last ticket swaps the accumulator's
+// bins for 0 as it reads them, writes the histogram, and resets the counter
+// (the wrapper keeps one accumulator and counter for each stream). Integer
+// counts are exact in any order. One int4 and one float4 a thread and
+// iteration: 2 or 4 a thread, all loaded before counting, read slower at
+// R = 1024 and no faster at 65,536 on the H100. Bytes outside [0, 255] (a
+// set sign bit) are dropped, as the Pallas compare-reduce drops them.
+// Bound by bytes: 2 reads of one buffer.
+__global__ void __launch_bounds__(kThreads) exponent_histogram_ticket_kernel(
+    const int4* __restrict__ qbits, const float4* __restrict__ prunable,
+    long long n4, int* __restrict__ acc, int* __restrict__ ticket,
+    int* __restrict__ hist) {
   __shared__ int bins[256];
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) bins[b] = 0;
+  __shared__ int s_ticket;
+  static_assert(kThreads == 256, "one bin a thread");
+  const int t = threadIdx.x;
+  bins[t] = 0;
   __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
+  // n4 is a multiple of 32 (rows of 128 lanes) and a warp's 32 vectors
+  // start at a multiple of 32, so the loop bound is uniform across a warp
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + t;
        i < n4; i += stride) {
-    const int4 qb = qbits[i];
-    const float4 p = prunable[i];
+    const int4 qb = __ldg(qbits + i);
+    const float4 p = __ldg(prunable + i);
     count_byte(bins, qb.x, p.x);
     count_byte(bins, qb.y, p.y);
     count_byte(bins, qb.z, p.z);
     count_byte(bins, qb.w, p.w);
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < 256; b += blockDim.x) {
-    if (bins[b]) atomicAdd(&hist[b], bins[b]);
+  if (bins[t]) atomicAdd(acc + t, bins[t]);
+  __syncthreads();
+  if (t == 0) s_ticket = take_ticket(ticket);
+  __syncthreads();
+  if (s_ticket != static_cast<int>(gridDim.x) - 1) return;
+  hist[t] = atomicExch(acc + t, 0);
+  if (t == 0) *ticket = 0;
+}
+
+// Replaces pruning_mask.importance_mask_2d together with
+// ops.packed_importance_mask's prunable override, for one threshold shared
+// by every client: q = daz((w*v)^2) and mask = prunable > 0 ? q >= thr : 1.
+// The threshold is read once and flushed into a register; a thread takes
+// one float4 of w, v and prunable an iteration (2 or 4, all loaded before
+// the first store, read slower at R = 1024 and no faster at 65,536 on the
+// H100) and streams q and the mask out (st.global.cs: neither is read
+// again by this kernel). Bound by bytes: 3 reads and 2 writes of one
+// buffer.
+__global__ void __launch_bounds__(kThreads) importance_mask_2d_kernel(
+    const float4* __restrict__ w, const float4* __restrict__ v,
+    const float4* __restrict__ prunable, const float* __restrict__ thr_ptr,
+    long long n4, float4* __restrict__ q, float4* __restrict__ mask) {
+  const float thr = daz(__ldg(thr_ptr));
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n4; i += stride) {
+    const float4 a = __ldg(w + i);
+    const float4 b = __ldg(v + i);
+    const float4 p = __ldg(prunable + i);
+    float4 qq, m;
+    qq.x = importance(a.x, b.x);
+    qq.y = importance(a.y, b.y);
+    qq.z = importance(a.z, b.z);
+    qq.w = importance(a.w, b.w);
+    m.x = keep(p.x, qq.x, thr);
+    m.y = keep(p.y, qq.y, thr);
+    m.z = keep(p.z, qq.z, thr);
+    m.w = keep(p.w, qq.w, thr);
+    __stcs(q + i, qq);
+    __stcs(mask + i, m);
   }
 }
 
@@ -176,57 +313,46 @@ __global__ void exponent_histogram_kernel(const int4* __restrict__ qbits,
 // reached through ops.packed_fedsgd_update. The sum runs in client-stack
 // order from the first client's gradient (acc = g[0]; acc = acc + g[c]),
 // then g = acc * inv with inv = float32(1/C) from the host, step = eta*g
-// and w' = w - step, each op rounded on its own: the sequence the xla
-// mirror writes and the weighted kernel computes. (XLA:CPU reassociates the
-// mirror's step into (eta * inv) * acc, the same bits only when 1/C is a
-// power of two; the port keeps the written order.) Bound by bytes: reads w
-// and C gradients, writes 3 buffers.
+// and w' = w - step, each op rounded and flushed on its own: the sequence
+// the xla mirror writes and the weighted kernel computes. (XLA:CPU
+// reassociates the mirror's step into (eta * inv) * acc, the same bits only
+// when 1/C is a power of two, and at C = 1 drops its * 1.0, so a subnormal
+// g[0] leaves its g unflushed; the port keeps the written order and the
+// flush.) Bound by bytes: reads w and C gradients, writes 3 buffers.
 __global__ void fedsgd_aggregate_kernel(
     const float4* __restrict__ w, const float4* __restrict__ grads,
     int n_clients, float inv, float eta, long long n4,
     float4* __restrict__ w_out, float4* __restrict__ g_out,
     float4* __restrict__ step_out) {
+  inv = flush(inv);
+  eta = flush(eta);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n4; i += stride) {
-    float4 acc = grads[i];
+    // every use of acc flushes it, so g[0] may be flushed up front
+    const float4 g0 = grads[i];
+    float4 acc = make_float4(flush(g0.x), flush(g0.y), flush(g0.z),
+                             flush(g0.w));
     for (int c = 1; c < n_clients; ++c) {
       const float4 g = grads[static_cast<long long>(c) * n4 + i];
-      acc.x = __fadd_rn(acc.x, g.x);
-      acc.y = __fadd_rn(acc.y, g.y);
-      acc.z = __fadd_rn(acc.z, g.z);
-      acc.w = __fadd_rn(acc.w, g.w);
+      acc.x = add_ftz(acc.x, flush(g.x));
+      acc.y = add_ftz(acc.y, flush(g.y));
+      acc.z = add_ftz(acc.z, flush(g.z));
+      acc.w = add_ftz(acc.w, flush(g.w));
     }
-    float4 g;
-    g.x = __fmul_rn(acc.x, inv);
-    g.y = __fmul_rn(acc.y, inv);
-    g.z = __fmul_rn(acc.z, inv);
-    g.w = __fmul_rn(acc.w, inv);
-    float4 st;
-    st.x = __fmul_rn(eta, g.x);
-    st.y = __fmul_rn(eta, g.y);
-    st.z = __fmul_rn(eta, g.z);
-    st.w = __fmul_rn(eta, g.w);
-    const float4 ww = w[i];
-    float4 wo;
-    wo.x = __fsub_rn(ww.x, st.x);
-    wo.y = __fsub_rn(ww.y, st.y);
-    wo.z = __fsub_rn(ww.z, st.z);
-    wo.w = __fsub_rn(ww.w, st.w);
-    g_out[i] = g;
-    step_out[i] = st;
-    w_out[i] = wo;
+    mean_update_tail(acc, inv, eta, w[i], w_out + i, g_out + i, step_out + i);
   }
 }
 
 // Replaces pruning_mask.masked_update_2d: (w - eta*g) * mask, each op
-// rounded on its own (__fmul_rn / __fsub_rn), as the eager
-// ref.masked_update_ref computes it. Bound by bytes: 3 reads, 1 write.
+// rounded and flushed on its own, as the eager ref.masked_update_ref
+// computes it. Bound by bytes: 3 reads, 1 write.
 __global__ void masked_update_kernel(const float4* __restrict__ w,
                                      const float4* __restrict__ g,
                                      const float4* __restrict__ m, float eta,
                                      long long n4, float4* __restrict__ out) {
+  eta = flush(eta);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -235,10 +361,10 @@ __global__ void masked_update_kernel(const float4* __restrict__ w,
     const float4 b = g[i];
     const float4 k = m[i];
     float4 o;
-    o.x = __fmul_rn(__fsub_rn(a.x, __fmul_rn(eta, b.x)), k.x);
-    o.y = __fmul_rn(__fsub_rn(a.y, __fmul_rn(eta, b.y)), k.y);
-    o.z = __fmul_rn(__fsub_rn(a.z, __fmul_rn(eta, b.z)), k.z);
-    o.w = __fmul_rn(__fsub_rn(a.w, __fmul_rn(eta, b.w)), k.w);
+    o.x = xla_mul(sub_ftz(flush(a.x), mul_ftz(eta, flush(b.x))), k.x);
+    o.y = xla_mul(sub_ftz(flush(a.y), mul_ftz(eta, flush(b.y))), k.y);
+    o.z = xla_mul(sub_ftz(flush(a.z), mul_ftz(eta, flush(b.z))), k.z);
+    o.w = xla_mul(sub_ftz(flush(a.w), mul_ftz(eta, flush(b.w))), k.w);
     out[i] = o;
   }
 }
@@ -389,13 +515,27 @@ int fedsgd_aggregate_weighted(const void* w, const void* grads, const void* cw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// state: int32 [257], the accumulator's 256 bins and the ticket, 0
+// between calls (the kernel leaves them so), one per stream.
 int exponent_histogram(const void* q, const void* prunable, long long n,
-                       void* hist, void* stream) {
-  const long long n4 = n / 4;
-  exponent_histogram_kernel<<<grid_for(n4), kThreads, 0,
+                       void* state, void* hist, void* stream) {
+  const int blocks = std::min(grid_for(n / 4), kHistMaxBlocks);
+  int* acc = static_cast<int*>(state);
+  exponent_histogram_ticket_kernel<<<blocks, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(q), static_cast<const float4*>(prunable),
+      n / 4, acc, acc + 256, static_cast<int*>(hist));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int importance_mask_2d(const void* w, const void* v, const void* prunable,
+                       const void* thr, long long n, void* q, void* mask,
+                       void* stream) {
+  importance_mask_2d_kernel<<<grid_for(n / 4), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int4*>(q), static_cast<const float4*>(prunable), n4,
-      static_cast<int*>(hist));
+      static_cast<const float4*>(w), static_cast<const float4*>(v),
+      static_cast<const float4*>(prunable), static_cast<const float*>(thr),
+      n / 4, static_cast<float4*>(q), static_cast<float4*>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 

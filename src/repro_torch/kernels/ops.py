@@ -19,12 +19,13 @@ the FedSGD step's ``eta * g`` is never FMA-contracted with the subtraction
 (the fence ``repro/kernels/ops._rounded_product`` builds inside a jitted
 graph is implicit here).
 
-Denormals in the reducers: XLA:CPU (and the TPU) treat subnormal inputs as
-zero and flush a result whose exact value is below FLT_MIN to a zero of its
-sign. The median's ``(lo + hi) * 0.5`` and the trimmed mean's sum and
-scale are the reducers' own arithmetic on gradient values, so their plain
-versions here state the same flush (``_flush``, ``_flush_mul``);
-tests/test_torch_aggregators.py pins it against the JAX package.
+Denormals: XLA:CPU (and the TPU) treat subnormal inputs as zero and flush
+a tiny result (below FLT_MIN after rounding) to a zero of its sign. The
+aggregate tail and the reducers' own arithmetic on gradient values (the
+median's ``(lo + hi) * 0.5``, the trimmed mean's sum and scale, the
+clipping factors, the means' scale) state the same flush
+(``flush_add`` / ``flush_mul``); tests/test_torch_flush.py and
+tests/test_torch_aggregators.py pin it against the JAX package.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ INT32_MAX = _pm.INT32_MAX
 
 # q = (w*v)^2 with denormals zero: the round engine's threshold input
 importance = _pm.importance
+# sums, differences and products on gradient values, flushed as XLA does
+flush_add, flush_sub, flush_mul = _pm.flush_add, _pm.flush_sub, _pm.flush_mul
 
 
 def _check_impl(impl: str, t: torch.Tensor) -> None:
@@ -85,7 +88,7 @@ def packed_fedsgd_update(w, grads, eta, *, impl="auto"):
     [C,R,128] and take the FedSGD step, returning (w', mean_grad, step).
     Not used by the round engine (which always aggregates with weights);
     with all-ones weights and inv = float32(1/C) the weighted entry point
-    gives the same bits wherever the first client's gradient is not -0.0."""
+    gives the same bits."""
     _check_impl(impl, w)
     return _pm.fedsgd_aggregate(w, grads, eta)
 
@@ -165,21 +168,6 @@ def packed_client_rank_sort(grads, cweights, *, impl="auto"):
     return _pm.client_rank_sort(grads, cweights)
 
 
-def _flush(x: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's denormals-are-zero: a subnormal becomes a zero of its
-    sign."""
-    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
-
-
-def _flush_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b flushed as XLA:CPU flushes it: to a zero of the product's sign
-    when the exact product is below FLT_MIN, even where it rounds up to
-    FLT_MIN (a product of two fp32 values is exact in fp64)."""
-    y = a * b
-    tiny = (a.double() * b.double()).abs() < FLT_MIN
-    return torch.where(tiny, y * 0.0, y)
-
-
 def _at_rank(sorted_vals: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     """sorted_vals[rank] for a device int scalar rank (no host sync)."""
     return sorted_vals.index_select(0, rank.reshape(1).long())[0]
@@ -189,9 +177,9 @@ def _sorted_median(sorted_vals, nn):
     """Midpoint of ranks (nn-1)//2 and nn//2 of a rank-sorted stack: the
     median over the nn valid lanes, with the flush of every input and of the
     sum and the halving."""
-    lo = _flush(_at_rank(sorted_vals, (nn - 1) // 2))
-    hi = _flush(_at_rank(sorted_vals, nn // 2))
-    return _flush_mul(_flush(lo + hi), torch.full_like(lo, 0.5))
+    lo = _at_rank(sorted_vals, (nn - 1) // 2)
+    hi = _at_rank(sorted_vals, nn // 2)
+    return flush_mul(flush_add(lo, hi), 0.5)
 
 
 def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
@@ -236,8 +224,8 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
         acc = torch.zeros(g.shape[1:], dtype=torch.float32, device=dev)
         for c in range(c_b):                 # rank order
             acc = torch.where((c >= t) & (c < nn - t),
-                              _flush(acc + _flush(sv[c])), acc)
-        ghat = _flush_mul(acc, 1.0 / keep.float())
+                              flush_add(acc, sv[c]), acc)
+        ghat = flush_mul(acc, 1.0 / keep.float())
         stat = torch.minimum(2 * t, n)
     elif kind == "norm_clip":
         gm = g.reshape(c_b, -1)
@@ -254,8 +242,9 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
         clipped = valid & (norms > tau_t)
         factor = torch.where(norms > tau_t, tau_t / norms,
                              torch.ones_like(norms))
-        gsum = packed_weighted_grad_sum(g * factor[:, None, None], cw)
-        ghat = gsum * (1.0 / nn.float())
+        gsum = packed_weighted_grad_sum(
+            flush_mul(g, factor[:, None, None]), cw)
+        ghat = flush_mul(gsum, 1.0 / nn.float())
         stat = clipped.int().sum()
     elif kind == "multi_krum":
         if int(f) < 0:
@@ -289,7 +278,7 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
         sel = torch.zeros(c_b, dtype=torch.float32, device=dev).scatter(
             0, order, rank_ok)
         gsum = packed_weighted_grad_sum(g, sel * cw)
-        ghat = gsum * (1.0 / m_sel.float())
+        ghat = flush_mul(gsum, 1.0 / m_sel.float())
         stat = torch.clamp(n - m_sel, min=0)
     else:
         raise ValueError(f"unknown robust aggregate kind {kind!r}")

@@ -10,7 +10,11 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 Each kernel is held bit for bit to its plain PyTorch version on the same
 device, at the LeNet slice's packed shape (R = 1024) with 1, 3 and 8
 clients (the rank sort, the unweighted aggregate and the masked update at
-C in {1, 3, 8, 10, 16, 33}, past the sort's 32-client register network),
+C in {1, 3, 8, 10, 16, 33}, past the sort's 32-client register network;
+the one-launch histogram and the shared-threshold mask also at R = 256 and
+65,536, over the histogram's worst cases and the threshold's edges, with
+the histogram's trace showing one kernel a call and calls on two streams
+at once agreeing; the aggregate tail on subnormal input),
 and a few rounds of the trainer run through the kernels with the packed
 backend equal to the reference backend, under the mean and under a robust
 reducer with an attack. The LM stack's kernels (flash attention, decode
@@ -315,6 +319,174 @@ def test_trainer_rounds_through_the_kernels(dev):
     for k in tp.params:
         assert_bitwise(tp.params[k], tr_.params[k])
         assert torch.equal(tp.global_grad[k], tr_.global_grad[k])
+
+
+# -- kernels 4 and 2 (one-launch histogram, shared-threshold mask) ----------
+
+SHAPE_ROWS = [256, 1024, 65536]
+HIST_CASES = ["random", "zero", "one_bin", "nothing_prunable"]
+
+
+def _hist_inputs(dev, rows, case, seed=0):
+    """q and prunable [rows, 128]: the importance of random w and v (round
+    > 0), all zero (round 0: every q in bin 0), all in one non-zero bin
+    (1.5: byte 127), or nothing prunable (an empty histogram)."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (rows, LANES)
+    pr = (torch.rand(shape, generator=gen) < 0.9).float()
+    if case == "random":
+        q = pm.importance(torch.randn(shape, generator=gen),
+                          1e-2 * torch.randn(shape, generator=gen))
+        q.reshape(-1)[::13] = -1.0               # a set sign bit: dropped
+    elif case == "one_bin":
+        q = torch.full(shape, 1.5)
+    else:
+        q = torch.zeros(shape)
+    if case == "nothing_prunable":
+        pr.zero_()
+    return q.to(dev), pr.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HIST_CASES)
+@pytest.mark.parametrize("rows", SHAPE_ROWS)
+def test_exponent_histogram_kernel_matches_plain(dev, rows, case):
+    """Bin for bin, ten calls in a row (the ticket resets after each). At
+    R = 65,536 each thread of the wrapper's grid takes several vectors."""
+    q, pr = _hist_inputs(dev, rows, case, seed=rows)
+    want = pm.exponent_histogram_plain(q, pr)
+    assert int(want.sum()) == (0 if case == "nothing_prunable"
+                               else int(((pr > 0) & (q >= 0)).sum()))
+    for _ in range(10):
+        assert_bitwise(pm.exponent_histogram(q, pr), want)
+
+
+@pytest.mark.cuda
+def test_exponent_histogram_alternating_sizes(dev):
+    """Calls alternating between R = 256 and 65,536: the grid changes, and
+    the one accumulator and ticket, left at 0 by each call, serve both."""
+    small = _hist_inputs(dev, 256, "random", seed=1)
+    large = _hist_inputs(dev, 65536, "random", seed=2)
+    want = [pm.exponent_histogram_plain(*x) for x in (small, large)]
+    for i in range(10):
+        assert_bitwise(pm.exponent_histogram(*(small, large)[i % 2]),
+                       want[i % 2])
+
+
+@pytest.mark.cuda
+def test_exponent_histogram_on_two_streams(dev):
+    """Calls queued on two streams at once, with no order between them:
+    each stream has its own accumulator and ticket, so both give the plain
+    histogram on every call."""
+    a = _hist_inputs(dev, 65536, "random", seed=3)
+    b = _hist_inputs(dev, 65536, "zero", seed=4)
+    want = [pm.exponent_histogram_plain(*x) for x in (a, b)]
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    got = []
+    for _ in range(5):
+        got.append((0, pm.exponent_histogram(*a)))
+        with torch.cuda.stream(side):
+            got.append((1, pm.exponent_histogram(*b)))
+    torch.cuda.synchronize(dev)
+    for which, h in got:
+        assert_bitwise(h, want[which])
+
+
+@pytest.mark.cuda
+def test_exponent_histogram_is_one_kernel_a_call(dev):
+    """A torch.profiler trace of histogram calls holds the ticket kernel
+    and nothing else: no fill of the output, no second pass. (The profiler
+    may drop events, so the count is at most one a call.)"""
+    from torch.profiler import ProfilerActivity, profile
+    q, pr = _hist_inputs(dev, 1024, "random")
+    pm.exponent_histogram(q, pr)                 # the ticket, zeroed once
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            pm.exponent_histogram(q, pr)
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    assert kernels, "the trace shows no device kernel"
+    assert all("exponent_histogram_ticket_kernel" in k for k, _ in kernels), \
+        kernels
+    assert 1 <= sum(n for _, n in kernels) <= calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr_case", ["-inf", "nextafter0", "nan", "middle"])
+@pytest.mark.parametrize("rows", SHAPE_ROWS)
+def test_importance_mask_2d_kernel_matches_plain(dev, rows, thr_case):
+    """Bit for bit at a threshold of -inf (keep all), nextafter(0) (a
+    subnormal that daz makes 0), NaN (k beyond the valid count: prune every
+    prunable coordinate) and the middle k."""
+    gen = torch.Generator().manual_seed(rows)
+    shape = (rows, LANES)
+    w = torch.randn(shape, generator=gen)
+    v = 1e-2 * torch.randn(shape, generator=gen)
+    v.reshape(-1)[::11] = 0.0
+    v.reshape(-1)[3::17] = 3e-20                 # q subnormal: flushed
+    pr = (torch.rand(shape, generator=gen) < 0.9).float()
+    w, v, pr = w.to(dev), v.to(dev), pr.to(dev)
+    q = pm.importance(w, v)
+    thr = {"-inf": torch.tensor(-np.inf),
+           "nextafter0": torch.tensor(np.nextafter(np.float32(0),
+                                                   np.float32(1))),
+           "nan": torch.tensor(np.nan),
+           "middle": tre.kth_smallest_threshold(
+               q, pr, int(pr.sum()) // 2).cpu()}[thr_case]
+    thr = thr.float().to(dev)
+    pq, pms = pm.importance_masks_plain(w, v, pr, thr)
+    kq, km = pm.importance_mask_2d(w, v, pr, thr)
+    assert_bitwise(kq, pq)
+    assert_bitwise(km, pms[0])
+    if thr_case in ("-inf", "nextafter0"):
+        assert bool((km == 1).all())
+    if thr_case == "nan":
+        assert bool((km == (pr == 0).float()).all())
+
+
+def _tiny_stack(rng, c, rows=1024):
+    """[c, rows, 128] gradients of scale 1e-39 (subnormal) with normal rows
+    and rows straddling FLT_MIN."""
+    flt_min = np.finfo(np.float32).tiny
+    g = (1e-39 * rng.normal(size=(c, rows, LANES))).astype(np.float32)
+    g[:, :8] = rng.normal(size=(c, 8, LANES))
+    g[:, 8:24] = flt_min * rng.uniform(-3, 3, size=(c, 16, LANES))
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clients", [1, 3, 8])
+def test_aggregate_tail_kernels_flush_subnormals(dev, n_clients):
+    """Kernels 3, 5 and 7 against their plain versions on subnormal
+    gradients and weights: every sum, difference and product flushed as
+    XLA flushes it (a zero-weight client holds NaN)."""
+    rng = np.random.default_rng(40 + n_clients)
+    flt_min = np.finfo(np.float32).tiny
+    w = rng.normal(size=(1024, LANES)).astype(np.float32)
+    w[24:32] = 1e-39 * rng.normal(size=(8, LANES))
+    w[32:40] = flt_min * rng.uniform(-2, 2, size=(8, LANES))
+    g = _tiny_stack(rng, n_clients)
+    cw = np.ones(n_clients, np.float32)
+    if n_clients > 1:
+        cw[-1] = 0.0
+        g[-1] = np.nan
+    w, g, cw = (torch.from_numpy(x).to(dev) for x in (w, g, cw))
+    inv = torch.tensor(np.float32(1.0 / float(cw.sum())), device=dev)
+    eta = torch.tensor(np.float32(0.15), device=dev)
+    for a, b in zip(pm.fedsgd_aggregate_weighted(w, g, cw, inv, eta),
+                    pm.fedsgd_aggregate_weighted_plain(w, g, cw, inv, eta)):
+        assert_bitwise(a, b)
+    g = torch.from_numpy(_tiny_stack(rng, n_clients)).to(dev)
+    for a, b in zip(pm.fedsgd_aggregate(w, g, 0.15),
+                    pm.fedsgd_aggregate_plain(w, g, 0.15)):
+        assert_bitwise(a, b)
+    m = torch.from_numpy(rng.random((1024, LANES)) < 0.7).float().to(dev)
+    assert_bitwise(pm.masked_update_2d(w, g[0], m, 0.02),
+                   pm.masked_update_plain(w, g[0], m, 0.02))
 
 
 # -- the LM stack's kernels ---------------------------------------------------

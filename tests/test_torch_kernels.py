@@ -279,11 +279,13 @@ def test_fedsgd_update_matches_jax(rows, impl, n_clients):
 
 def test_fedsgd_update_equals_weighted_with_unit_weights():
     """The contract between the two aggregates: all-ones weights and
-    inv = float32(1/C) give the unweighted kernel's bits (inputs without
-    -0.0, whose sign the weighted sum's +0.0 start would normalise)."""
+    inv = float32(1/C) give the unweighted kernel's bits, a -0.0 on the
+    first client included (both sums start from client 0's term)."""
     rng = np.random.default_rng(8)
     w = _t(rng.normal(size=(256, LANES)).astype(np.float32))
-    grads = _t(rng.normal(size=(10, 256, LANES)).astype(np.float32))
+    g_np = rng.normal(size=(10, 256, LANES)).astype(np.float32)
+    g_np[:, 3, :9] = -0.0                   # -0.0 on every client
+    grads = _t(g_np)
     eta = torch.tensor(np.float32(0.1))
     a = tops.packed_fedsgd_update(w, grads, 0.1)
     b = tops.packed_fedsgd_update_weighted(
