@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, then the result line
+    python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
 
 Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
@@ -10,20 +11,27 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      kernel build (timed), and the HGMMA (tensor-core) instructions of
      each flash-attention and SSD-chunk function in the built library's
      SASS: the run fails if a bf16 (wgmma) instantiation has none, or if
-     either wgmma kernel is missing; ptxas's registers and spills of the
-     LM kernels and of the round's mask, histogram and aggregate kernels;
+     either wgmma kernel is missing; ptxas's registers, spills and stack
+     frames of the LM kernels and of the round's mask, histogram,
+     aggregate and masked-update kernels (every instantiation);
   2. every kernel against its plain PyTorch version at the main paths'
-     shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks
-     and weighted aggregate, C in {1, 3, 8, 10, 16, 33} for the rank sort,
-     the unweighted aggregate and the masked update), bit for bit, with its
-     per-call time, its device time, the plain version's time, its bound
-     and, where one PyTorch call computes the same function, that call's
-     time; and the contract that the unweighted aggregate equals the
-     weighted one with unit weights. The histogram also repeats ten calls
-     bit for bit and is timed on round 0's all-zero q; the histogram and
-     the shared-threshold mask also at R = 65,536, where bytes decide; the
-     aggregate kernels (weighted, unweighted, masked update) also on
-     subnormal gradients;
+     shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks,
+     every C from 1 to 33 for the weighted aggregate, with zero-weight
+     clients holding NaN at the front, in the middle, at the end or
+     everywhere and with non-unit and subnormal weights, C in {1, 3, 8, 10,
+     16, 33} for the rank sort and the unweighted aggregate; the masked
+     update with keep-masks, masks of other values and NaN and inf in w),
+     bit for bit, with its per-call time, its device time, the plain
+     version's time, its bound and, where one PyTorch call computes the
+     same function, that call's time; and the contract that the unweighted
+     aggregate equals the weighted one with unit weights. The histogram
+     also repeats ten calls bit for bit and is timed on round 0's all-zero
+     q; the weighted aggregate is also timed at the slices' own mixes (8
+     clients with 2 padding, 10 clients); the histogram, the
+     shared-threshold mask, the weighted aggregate and the masked update
+     also at R = 65,536, where bytes decide; the aggregate kernels
+     (weighted, unweighted, masked update) also on subnormal gradients,
+     with products that round up to FLT_MIN;
   3. the pruned-FedSGD path: the paper's pipeline on synthetic-mnist (10
      clients, sigma = 5) with the `proposed` AO schedule at E0 = 25 J,
      T0 = 15 s over 40 rounds, LeNet from a seeded init, trained once by
@@ -82,6 +90,7 @@ without the rest of the repository beside it, the script fails.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -256,14 +265,14 @@ ROUND_PTXAS = ("importance_mask", "exponent_histogram", "fedsgd_aggregate",
 
 
 def ptxas_report(prefixes) -> dict:
-    """Registers and spill bytes of each kernel instantiation whose name
-    starts with one of `prefixes`, from the ptxas report the build keeps
-    beside the library."""
+    """Registers, spill bytes and stack frame of each kernel instantiation
+    whose name starts with one of `prefixes`, from the ptxas report the
+    build keeps beside the library."""
     path = _build.ptxas_report_path()
     if not path.exists():
         return {"ptxas": "not measured: no report beside the library"}
     pattern = (r"(?<=\d)((?:" + "|".join(prefixes)
-               + r")\w*?kernel)(?:I(.*)EvNS_|E)")
+               + r")\w*?kernel)(?:I(.*?)EEv|E)")
     out, name = {}, None
     for line in path.read_text().splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
@@ -280,6 +289,8 @@ def ptxas_report(prefixes) -> dict:
         if name and "spill stores" in line:
             out.setdefault(name, {})["spill_store_bytes"] = int(
                 re.search(r"(\d+) bytes spill stores", line).group(1))
+            out[name]["stack_frame_bytes"] = int(
+                re.search(r"(\d+) bytes stack frame", line).group(1))
         if name and "Used" in line and "registers" in line:
             out.setdefault(name, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -344,15 +355,64 @@ def slice_env(dev):
 # rows of their bytes-bound shape
 HIST_SYMBOL = "exponent_histogram_ticket_kernel"
 MASK_SYMBOL = "importance_mask_2d_kernel"
+# kernels 3 (the name holds for every instantiation) and 7 as the device
+# trace names them
+AGG_SYMBOL = "fedsgd_aggregate_weighted_kernel"
+MASKED_SYMBOL = "masked_update_kernel"
 BIG_ROWS = 65536
 FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def round_up_to_flt_min(factor, n: int = LANES) -> np.ndarray:
+    """Normal fp32 values whose exact product with `factor` lies just below
+    FLT_MIN and rounds to FLT_MIN in fp32 (numpy, no flush), tiled to n:
+    XLA flushes the products more than 2^-151 below it, keeps the rest."""
+    f = np.float32(factor)
+    x0 = np.float32(FLT_MIN / np.float64(f))
+    xs = np.asarray([np.float32(x0 + k * np.spacing(x0))
+                     for k in range(-256, 257)], np.float32)
+    found = xs[(xs >= FLT_MIN) & (xs.astype(np.float64) * np.float64(f)
+                                  < FLT_MIN) & (xs * f == FLT_MIN)]
+    if not found.size:
+        raise ValueError(f"no value rounds up to FLT_MIN at factor {f}")
+    return np.resize(found, n)
+
+
+# zero-weight patterns of the weighted aggregate's tests: dead clients hold
+# NaN; "nonunit" has a weight of 1.0 and a subnormal one (XLA compares it
+# as 0: its client is dead) among scales in [0.2, 1.9]
+WEIGHT_PATTERNS = ("live", "front", "middle", "end", "everywhere", "nonunit")
+
+
+def client_weights(c: int, pattern: str, rng) -> np.ndarray:
+    cw = np.ones(c, np.float32)
+    if pattern == "nonunit":
+        cw = rng.uniform(0.2, 1.9, size=c).astype(np.float32)
+        cw[c // 2] = 1.0
+        cw[-1] = np.float32(3e-39) if c > 1 else cw[-1]
+    elif pattern != "live":
+        cw[{"front": [0], "middle": [c // 2], "end": [c - 1],
+            "everywhere": list(range(c))}[pattern]] = 0.0
+    return cw
+
+
+def mask_of(kind: str, shape, rng) -> np.ndarray:
+    """A 0/1 keep-mask, or a mask of other values (scales, one whose
+    products overflow, +-0.0, subnormals)."""
+    m = (rng.random(shape) < 0.6).astype(np.float32)
+    if kind == "scaled":
+        pool = np.asarray([0.5, -1.0, 3.0, 1e30, 0.0, -0.0, 1.0, 3e-39],
+                          np.float32)
+        m = rng.choice(pool, size=shape).astype(np.float32)
+    return m
 
 
 def subnormal_checks(dev, shape) -> dict:
     """Kernels 3, 5 and 7 against their plain versions, bit for bit, on
     gradients of scale 1e-39 (subnormal) with normal rows, rows straddling
-    FLT_MIN and a zero-weight client holding NaN: the flush of every sum,
-    difference and product of the aggregate tail."""
+    FLT_MIN, rows whose product with the tail's factor (1/7, 1/3, eta)
+    rounds up to FLT_MIN, and zero-weight clients holding NaN: the flush of
+    every sum, difference and product of the aggregate tail."""
     rng = np.random.default_rng(16)
 
     def arr(x):
@@ -370,28 +430,39 @@ def subnormal_checks(dev, shape) -> dict:
     w = arr(w_np)
     out = {"fedsgd_aggregate_weighted": True, "fedsgd_aggregate": True,
            "masked_update_2d": True}
-    for c in (1, 3, 8):
+    for c in (1, 3, 8, 10, 33):
         g_np = stack(c)
         cw_np = np.ones(c, np.float32)
         if c > 1:
             cw_np[-1] = 0.0
             g_np[-1] = np.nan
+        inv_np = np.float32(1.0 / cw_np.sum())
+        if c == 8:                               # 7 live: inv = 1/7
+            g_np[:, 40] = 0.0
+            g_np[0, 40] = round_up_to_flt_min(inv_np, shape[1])
         g, cw = arr(g_np), arr(cw_np)
-        inv = torch.tensor(np.float32(1.0 / cw_np.sum()), device=dev)
+        inv = torch.tensor(inv_np, device=dev)
         eta = torch.tensor(np.float32(0.15), device=dev)
         out["fedsgd_aggregate_weighted"] &= all(
             bits_equal(a, b) for a, b in zip(
                 pm.fedsgd_aggregate_weighted(w, g, cw, inv, eta),
                 pm.fedsgd_aggregate_weighted_plain(w, g, cw, inv, eta)))
-        g = arr(stack(c))
+        g_np = stack(c)
+        if c == 3:                               # inv = float32(1/3)
+            g_np[:, 40] = 0.0
+            g_np[0, 40] = round_up_to_flt_min(np.float32(1 / 3), shape[1])
+        g = arr(g_np)
         out["fedsgd_aggregate"] &= all(
             bits_equal(a, b) for a, b in zip(
                 pm.fedsgd_aggregate(w, g, 0.15),
                 pm.fedsgd_aggregate_plain(w, g, 0.15)))
-        m = arr(rng.random(shape) < 0.7)
-        out["masked_update_2d"] &= bits_equal(
-            pm.masked_update_2d(w, g[0], m, 0.02),
-            pm.masked_update_plain(w, g[0], m, 0.02))
+        g0 = g_np[0].copy()
+        g0[41] = round_up_to_flt_min(0.02, shape[1])   # eta*g rounds up
+        for kind in ("keep", "scaled"):
+            m = arr(mask_of(kind, shape, rng))
+            out["masked_update_2d"] &= bits_equal(
+                pm.masked_update_2d(w, arr(g0), m, 0.02),
+                pm.masked_update_plain(w, arr(g0), m, 0.02))
     return out
 
 
@@ -544,32 +615,77 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
            lambda: pm.importance_masks_plain(w, v, pr, thr8),
            "importance_masks_kernel", (4 + 8) * 4 * n + 4 * 8, (3 + 8) * n)
 
-    # fedsgd_aggregate_weighted at C in {1, 3, 8}: zero-weight clients hold
-    # NaN, inv comes out of the on-device quarantine
+    # fedsgd_aggregate_weighted at every C from 1 to 33 (each instantiation
+    # and the any-count path) under every weight pattern, dead clients
+    # holding NaN
     ok, err = True, 0.0
     eta = torch.tensor(np.float32(0.1), device=dev)
-    for c in (1, 3, 8):
-        g_np = rng.normal(size=(c,) + shape).astype(np.float32)
-        cw_np = np.ones(c, np.float32)
-        if c > 1:
-            cw_np[-1] = 0.0
-            g_np[-1] = np.nan
-        grads, cw = arr(g_np), arr(cw_np)
-        cw_eff, inv_eff, _, _ = ops.packed_client_quarantine(
-            grads, cw, np.float32(1.0 / cw_np.sum()))
-        ko = pm.fedsgd_aggregate_weighted(w, grads, cw_eff, inv_eff, eta)
-        po = pm.fedsgd_aggregate_weighted_plain(w, grads, cw_eff, inv_eff, eta)
-        ok &= all(bits_equal(a, b) for a, b in zip(ko, po))
-        ok &= all(bool(torch.isfinite(t).all()) for t in ko)
-        err = max(err, max_abs_err(ko, po))
+    for c in range(1, 34):
+        g_live = arr(rng.normal(size=(c,) + shape))
+        for pattern in WEIGHT_PATTERNS:
+            cw_np = client_weights(c, pattern, rng)
+            dead = torch.as_tensor(cw_np < FLT_MIN, device=dev)
+            grads = torch.where(dead[:, None, None],
+                                torch.full_like(g_live, float("nan")), g_live)
+            cw = arr(cw_np)
+            n_live = float(cw_np[cw_np >= FLT_MIN].sum())
+            inv = torch.tensor(np.float32(1.0 / n_live if n_live else 0.0),
+                               device=dev)
+            ko = pm.fedsgd_aggregate_weighted(w, grads, cw, inv, eta)
+            po = pm.fedsgd_aggregate_weighted_plain(w, grads, cw, inv, eta)
+            ok &= all(bits_equal(a, b) for a, b in zip(ko, po))
+            ok &= all(bool(torch.isfinite(t).all()) for t in ko)
+            err = max(err, max_abs_err(ko, po))
     g8 = arr(rng.normal(size=(8,) + shape))
     cw8 = torch.ones(8, device=dev)
     inv8 = torch.tensor(np.float32(1 / 8), device=dev)
     record("fedsgd_aggregate_weighted", bool(ok), err,
            lambda: pm.fedsgd_aggregate_weighted(w, g8, cw8, inv8, eta),
            lambda: pm.fedsgd_aggregate_weighted_plain(w, g8, cw8, inv8, eta),
-           "fedsgd_aggregate_weighted_kernel", (1 + 8 + 3) * 4 * n + 4 * 10,
-           (2 * 8 + 3) * n)
+           AGG_SYMBOL, (1 + 8 + 3) * 4 * n + 4 * 10, (2 * 8 + 3) * n)
+    # the slices' own mixes: the pruned slice's bucket of 8 with 2 padding
+    # clients (bound on the 6 live ones), the attack slice's mean over 10
+    cw6 = torch.tensor([1, 1, 1, 1, 1, 1, 0, 0], dtype=torch.float32,
+                       device=dev)
+    g6 = g8.clone()
+    g6[6:] = float("nan")
+    inv6 = torch.tensor(np.float32(1 / 6), device=dev)
+    extra_row("fedsgd_aggregate_weighted",
+              f"R={shape[0]}, C=8, 2 zero-weight (pruned slice)",
+              all(bits_equal(a, b) for a, b in zip(
+                  pm.fedsgd_aggregate_weighted(w, g6, cw6, inv6, eta),
+                  pm.fedsgd_aggregate_weighted_plain(w, g6, cw6, inv6, eta))),
+              lambda: pm.fedsgd_aggregate_weighted(w, g6, cw6, inv6, eta),
+              lambda: pm.fedsgd_aggregate_weighted_plain(w, g6, cw6, inv6,
+                                                         eta),
+              AGG_SYMBOL, (1 + 6 + 3) * 4 * n + 4 * 10, (2 * 6 + 3) * n)
+    g10 = arr(rng.normal(size=(10,) + shape))
+    cw10 = torch.ones(10, device=dev)
+    inv10 = torch.tensor(np.float32(1 / 10), device=dev)
+    extra_row("fedsgd_aggregate_weighted",
+              f"R={shape[0]}, C=10 (attack slice, mean)",
+              all(bits_equal(a, b) for a, b in zip(
+                  pm.fedsgd_aggregate_weighted(w, g10, cw10, inv10, eta),
+                  pm.fedsgd_aggregate_weighted_plain(w, g10, cw10, inv10,
+                                                     eta))),
+              lambda: pm.fedsgd_aggregate_weighted(w, g10, cw10, inv10, eta),
+              lambda: pm.fedsgd_aggregate_weighted_plain(w, g10, cw10, inv10,
+                                                         eta),
+              AGG_SYMBOL, (1 + 10 + 3) * 4 * n + 4 * 12, (2 * 10 + 3) * n)
+    # where bytes decide: R = 65,536, C = 8 all live
+    gb = torch.randn((8,) + big, generator=torch.Generator().manual_seed(6)
+                     ).to(dev)
+    wb = torch.randn(big, generator=torch.Generator().manual_seed(7)).to(dev)
+    extra_row("fedsgd_aggregate_weighted", f"R={BIG_ROWS}, C=8",
+              all(bits_equal(a, b) for a, b in zip(
+                  pm.fedsgd_aggregate_weighted(wb, gb, cw8, inv8, eta),
+                  pm.fedsgd_aggregate_weighted_plain(wb, gb, cw8, inv8,
+                                                     eta))),
+              lambda: pm.fedsgd_aggregate_weighted(wb, gb, cw8, inv8, eta),
+              lambda: pm.fedsgd_aggregate_weighted_plain(wb, gb, cw8, inv8,
+                                                         eta),
+              AGG_SYMBOL, (1 + 8 + 3) * 4 * nb + 4 * 10, (2 * 8 + 3) * nb)
+    del gb
 
     # client_rank_sort at every C of SIZES: ties, +-0.0 and +-inf on valid
     # lanes, NaN on zero-weight clients; every rank compared (stable sort)
@@ -622,19 +738,34 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
            lambda: pm.fedsgd_aggregate_plain(w, g10, 0.1),
            "fedsgd_aggregate_kernel", (1 + 10 + 3) * 4 * n, (9 + 3) * n)
 
-    # masked_update_2d on one input per C of SIZES' seeds
+    # masked_update_2d with keep-masks, masks of other values, NaN and inf
+    # in w
     ok, err = True, 0.0
-    for _ in SIZES:
+    w_odd = w.clone()
+    w_odd[20, :6] = torch.tensor([np.nan, np.inf, -np.inf] * 2)
+    for kind in ("keep", "scaled"):
         g = arr(rng.normal(size=shape))
-        m = arr(rng.random(shape) < 0.6)
-        ko = pm.masked_update_2d(w, g, m, 0.05)
-        po = pm.masked_update_plain(w, g, m, 0.05)
-        ok &= bits_equal(ko, po)
-        err = max(err, max_abs_err([ko], [po]))
+        m = arr(mask_of(kind, shape, rng))
+        for ww in (w, w_odd):
+            ko = pm.masked_update_2d(ww, g, m, 0.05)
+            po = pm.masked_update_plain(ww, g, m, 0.05)
+            ok &= bits_equal(ko, po)
+            err = max(err, max_abs_err([ko], [po]))
+    m = arr(mask_of("keep", shape, rng))
     record("masked_update_2d", bool(ok), err,
            lambda: pm.masked_update_2d(w, g, m, 0.05),
            lambda: pm.masked_update_plain(w, g, m, 0.05),
-           "masked_update_kernel", 4 * 4 * n, 3 * n)
+           MASKED_SYMBOL, 4 * 4 * n, 3 * n)
+    gb = torch.randn(big, generator=torch.Generator().manual_seed(8)).to(dev)
+    mb = (torch.rand(big, generator=torch.Generator().manual_seed(9))
+          < 0.5).float().to(dev)
+    extra_row("masked_update_2d", f"R={BIG_ROWS}",
+              bits_equal(pm.masked_update_2d(wb, gb, mb, 0.05),
+                         pm.masked_update_plain(wb, gb, mb, 0.05)),
+              lambda: pm.masked_update_2d(wb, gb, mb, 0.05),
+              lambda: pm.masked_update_plain(wb, gb, mb, 0.05),
+              MASKED_SYMBOL, 4 * 4 * nb, 3 * nb)
+    del wb, gb, mb
     for name, sub_ok in subnormal_checks(dev, shape).items():
         results[name]["subnormal_bitwise"] = sub_ok
         print(json.dumps({"kernel": name, "subnormal_input_equal": sub_ok}))
@@ -679,10 +810,10 @@ def run_backend(backend, dev, ds, clients, sp, ch, sched, params, *,
 
 # the port's kernels as torch.profiler names them
 PORT_SYMBOLS = ("importance_masks_kernel", MASK_SYMBOL,
-                "fedsgd_aggregate_weighted_kernel", HIST_SYMBOL,
+                AGG_SYMBOL, HIST_SYMBOL,
                 "fedsgd_aggregate_kernel",
                 "client_rank_sort_kernel", "client_rank_sort_generic_kernel",
-                "masked_update_kernel")
+                MASKED_SYMBOL)
 
 
 def profile_rounds(dev, clients, sp, ch, sched, params, n=5, cfg=SLICE,
@@ -1595,6 +1726,11 @@ def mamba_phase(dev, card):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels", action="store_true",
+                        help="set-up and the kernels against their plain "
+                             "versions (phases 1 and 2) only; no result line")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1642,6 +1778,9 @@ def main() -> int:
     pack = ParamPack.build(params)
     kernels = check_kernels(dev, pack, name)
     walls["kernels"] = time.perf_counter() - t
+    if args.kernels:
+        print(json.dumps({"phase_wall_s": walls}))
+        return 0
 
     # the pruned-FedSGD path, packed backend: counts from this run only
     t = time.perf_counter()

@@ -8,15 +8,16 @@
 //
 // All are elementwise, histogram or per-coordinate sort passes over
 // a few MiB: they are bound by device-memory bytes, and at the packed sizes
-// of the paper's models (R = 1024, 512 KiB a buffer) by the launch itself.
-// The design reads every input once (16-byte float4 / int4 loads where a
-// thread owns 4 coordinates), writes every output once, and uses a
-// grid-stride loop so one launch covers any R.
+// of the paper's models (R = 1024, 512 KiB a buffer) by the launch itself
+// and the latency of one chain of dependent loads. The design reads every
+// input once (16-byte float4 / int4 loads where a thread owns 4
+// coordinates), writes every output once, and uses a grid-stride loop so
+// one launch covers any R.
 //
 // Numerics, stated explicitly rather than left to compiler flags:
-//   * every product, sum and difference uses __fmul_rn / __fadd_rn /
-//     __fsub_rn, so nvcc can never contract `acc + cw*g` or `w - eta*g`
-//     into an FMA (the reference rounds each op on its own);
+//   * every product, sum and difference is rounded on its own (__fmul_rn,
+//     add.rn / sub.rn), so nvcc can never contract `acc + cw*g` or
+//     `w - eta*g` into an FMA (the reference rounds each op on its own);
 //   * denormals are zero where the JAX reference (XLA:CPU, TPU) flushes
 //     them: the importance q = (w*v)^2 and the threshold it is compared
 //     with, daz(x) = |x| < FLT_MIN ? +0 : x; and every op of the aggregate
@@ -25,14 +26,15 @@
 //     (add_ftz / sub_ftz / mul_ftz; a product is tiny when its exact value
 //     rounded to 24 bits with an unbounded exponent is below FLT_MIN, as
 //     x86 decides it after rounding).
-// The library is built without --use_fast_math and without -ftz.
-
+// The library is built without --use_fast_math and without -ftz: sums and
+// differences take the .ftz form of the instruction one by one.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cfloat>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -42,36 +44,83 @@ constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
 // fewer blocks mean fewer atomics on each bin (at R = 65,536 on the H100:
 // 25.4 µs at 528 blocks, 28.7 at 2,112).
 constexpr int kHistMaxBlocks = 132 * 4;
+// Up to this many clients a kernel is instantiated on the count (the rank
+// sort's network lives in registers, the weighted aggregate's live set in
+// one ballot).
+constexpr int kMaxRegisterClients = 32;
 
 __device__ __forceinline__ float daz(float x) {
   return fabsf(x) < FLT_MIN ? 0.0f : x;
 }
 
-// XLA's flush: a subnormal becomes a zero of its sign.
-__device__ __forceinline__ float flush(float x) {
-  return fabsf(x) < FLT_MIN ? copysignf(0.0f, x) : x;
-}
-
-// a + b, a - b and a * b as XLA:CPU computes them, on inputs already
-// flushed (xla_mul flushes them first). A sum or difference of normals
-// below FLT_MIN is exact, so its flush is the result's. A product is tiny
-// when its exact value rounded to 24 bits with an unbounded exponent lies
-// below FLT_MIN (x86 decides after rounding): that rounding is the fp32
-// product of the operands scaled by 2^32 each (exact: a tiny product has
-// no operand above 1), compared with FLT_MIN * 2^64.
+// a + b and a - b as XLA:CPU computes them, in one instruction each: the
+// .ftz form reads a subnormal input as a zero of its sign and flushes a
+// subnormal result to a zero of its sign; a sum of normals below FLT_MIN is
+// exact, so no rounding decides that flush.
 __device__ __forceinline__ float add_ftz(float a, float b) {
-  return flush(__fadd_rn(a, b));
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 __device__ __forceinline__ float sub_ftz(float a, float b) {
-  return flush(__fsub_rn(a, b));
+  float r;
+  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
-__device__ __forceinline__ float mul_ftz(float a, float b) {
-  const float y = __fmul_rn(a, b);
+
+// XLA's flush: a subnormal becomes a zero of its sign (x + -0.0 is x for
+// every x, zeros of either sign included).
+__device__ __forceinline__ float flush(float x) { return add_ftz(x, -0.0f); }
+
+// The tininess test of a product of flushed operands whose fp32 rounding
+// y is +-FLT_MIN: tiny when the exact value rounded to 24 bits with an
+// unbounded exponent lies below FLT_MIN (x86 decides after rounding), so a
+// product within 2^-151 below FLT_MIN stays FLT_MIN. That rounding is the
+// fp32 product of the operands scaled by 2^32 each (exact: a tiny product
+// has no operand above 1), compared with FLT_MIN * 2^64.
+__device__ __forceinline__ float edge_product(float a, float b, float y) {
   const float scaled = __fmul_rn(__fmul_rn(a, 0x1p32f), __fmul_rn(b, 0x1p32f));
   return fabsf(scaled) < 0x1p-62f ? copysignf(0.0f, y) : y;
 }
+
+// a * b as XLA:CPU computes it, on flushed operands. The fp32 product y
+// (gradual underflow) decides every case but one: |y| > FLT_MIN means an
+// exact product at or above FLT_MIN (not tiny), |y| < FLT_MIN one whose
+// 24-bit rounding is below FLT_MIN too (tiny: flush(y)). Only |y| ==
+// FLT_MIN takes the scaled test.
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  const float y = __fmul_rn(a, b);
+  return fabsf(y) == FLT_MIN ? edge_product(a, b, y) : flush(y);
+}
 __device__ __forceinline__ float xla_mul(float a, float b) {
   return mul_ftz(flush(a), flush(b));
+}
+
+__device__ __forceinline__ float4 flush4(const float4 a) {
+  return make_float4(flush(a.x), flush(a.y), flush(a.z), flush(a.w));
+}
+__device__ __forceinline__ float4 add4_ftz(const float4 a, const float4 b) {
+  return make_float4(add_ftz(a.x, b.x), add_ftz(a.y, b.y), add_ftz(a.z, b.z),
+                     add_ftz(a.w, b.w));
+}
+__device__ __forceinline__ float4 sub4_ftz(const float4 a, const float4 b) {
+  return make_float4(sub_ftz(a.x, b.x), sub_ftz(a.y, b.y), sub_ftz(a.z, b.z),
+                     sub_ftz(a.w, b.w));
+}
+
+// mul_ftz of four flushed values by one flushed scalar: the scaled test is
+// a branch that a lane takes only when one of its products rounds to
+// +-FLT_MIN, so the common path is a product and a flush.
+__device__ __forceinline__ float4 mul4_ftz(const float4 a, float s) {
+  const float4 y = make_float4(__fmul_rn(a.x, s), __fmul_rn(a.y, s),
+                               __fmul_rn(a.z, s), __fmul_rn(a.w, s));
+  float4 r = flush4(y);
+  if (fabsf(y.x) == FLT_MIN || fabsf(y.y) == FLT_MIN ||
+      fabsf(y.z) == FLT_MIN || fabsf(y.w) == FLT_MIN) {
+    r = make_float4(mul_ftz(a.x, s), mul_ftz(a.y, s), mul_ftz(a.z, s),
+                    mul_ftz(a.w, s));
+  }
+  return r;
 }
 
 // q = (w*v)^2, each product rounded, flushed to +0 below FLT_MIN.
@@ -125,73 +174,122 @@ __global__ void importance_masks_kernel(
 }
 
 // g = acc * inv, step = eta * g, w' = w - step, each op rounded and flushed
-// on its own (acc, inv and eta already flushed); the three results stored
-// once.
+// on its own (acc, inv and eta already flushed; w is flushed by the
+// difference); the three results stored once, with plain stores: the next
+// round reads w' and g back.
 __device__ __forceinline__ void mean_update_tail(
     const float4 acc, float inv, float eta, const float4 ww,
     float4* __restrict__ w_out, float4* __restrict__ g_out,
     float4* __restrict__ step_out) {
-  float4 g, st, wo;
-  g.x = mul_ftz(acc.x, inv);
-  g.y = mul_ftz(acc.y, inv);
-  g.z = mul_ftz(acc.z, inv);
-  g.w = mul_ftz(acc.w, inv);
-  st.x = mul_ftz(eta, g.x);
-  st.y = mul_ftz(eta, g.y);
-  st.z = mul_ftz(eta, g.z);
-  st.w = mul_ftz(eta, g.w);
-  wo.x = sub_ftz(flush(ww.x), st.x);
-  wo.y = sub_ftz(flush(ww.y), st.y);
-  wo.z = sub_ftz(flush(ww.z), st.z);
-  wo.w = sub_ftz(flush(ww.w), st.w);
+  const float4 g = mul4_ftz(acc, inv);
+  const float4 st = mul4_ftz(g, eta);
   *g_out = g;
   *step_out = st;
-  *w_out = wo;
+  *w_out = sub4_ftz(ww, st);
 }
 
 // cw * g for a flushed weight: a unit weight's product is exact, so it is
 // the flushed gradient (the branch is uniform: one weight a client).
 __device__ __forceinline__ float4 weighted(float cw, const float4 g) {
-  if (cw == 1.0f)
-    return make_float4(flush(g.x), flush(g.y), flush(g.z), flush(g.w));
-  return make_float4(mul_ftz(cw, flush(g.x)), mul_ftz(cw, flush(g.y)),
-                     mul_ftz(cw, flush(g.z)), mul_ftz(cw, flush(g.w)));
+  return cw == 1.0f ? flush4(g) : mul4_ftz(flush4(g), cw);
 }
 
-// Replaces pruning_mask.fedsgd_aggregate_weighted. The client loop runs in
-// stack order, like the reference's sum; a client whose weight is not > 0
-// is skipped without reading its gradient, so a NaN on a padding or
-// quarantined client never reaches the sum. The sum starts from client 0's
-// term (XLA folds the mirror's +0.0 start away, so a -0.0 keeps its sign).
-// inv and eta are device scalars (inv comes out of the on-device
-// quarantine: no host sync per round).
-__global__ void fedsgd_aggregate_weighted_kernel(
+// Clients in flight a thread: the loads of a batch are all issued before
+// its first add, which bounds the registers at C = 32.
+constexpr int kBatch = 8;
+
+// Vectors [i, n4) of the weighted aggregate for a known client count C <= 32
+// whose live weights (bit c of `live`) are all 1: a term is the gradient
+// itself (add_ftz flushes it). Every live client's float4 of a batch is
+// loaded (predicated on the live set, not behind a read of cw) before the
+// batch's first add; the sum then runs in stack order from client 0's term.
+template <int C>
+__device__ __forceinline__ void unit_weight_rows(
+    const float4* __restrict__ w, const float4* __restrict__ grads,
+    unsigned live, float inv, float eta, long long n4,
+    float4* __restrict__ w_out, float4* __restrict__ g_out,
+    float4* __restrict__ step_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n4; i += stride) {
+    const float4 ww = __ldg(w + i);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int c0 = 0; c0 < C; c0 += kBatch) {
+      float4 t[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int c = c0 + j;
+        t[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (c < C && (live >> c & 1u)) t[j] = __ldg(grads + c * n4 + i);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int c = c0 + j;
+        if (c < C && (live >> c & 1u)) {
+          acc = c == 0 ? flush4(t[j]) : add4_ftz(acc, t[j]);
+        }
+      }
+    }
+    mean_update_tail(acc, inv, eta, ww, w_out + i, g_out + i, step_out + i);
+  }
+}
+
+// Replaces pruning_mask.fedsgd_aggregate_weighted. A client whose weight is
+// not > 0 is skipped without reading its gradient, so a NaN on a padding or
+// quarantined client never reaches the sum and its bytes are never read;
+// the weight is flushed first, as XLA compares it (a subnormal one is 0).
+// The sum runs in client-stack order and starts from client 0's term (XLA
+// folds the mirror's +0.0 start away, so a -0.0 keeps its sign); a dead
+// client 0 leaves it at +0.0, as the mirror's `where` does. inv and eta are
+// device scalars (inv comes out of the on-device quarantine: no host sync
+// per round).
+//
+// Bound by bytes (w, the live gradients, three outputs), at R = 1024 by the
+// latency of one chain of loads. The round's weights are 0 and 1, and for
+// them C = 1..32 are instantiations: lane c of each warp reads cw[c] once,
+// a ballot gives the live set and a vote that every live weight is 1, and
+// then every live client's load of a batch of 8 is in flight at once
+// (unit_weight_rows), instead of one dependent read of cw and of the
+// gradient a client. Other weights, and C = 0 (any count), take the client
+// loop: it reads cw[c] and the gradient behind it, one client at a time.
+template <int C>
+__global__ void __launch_bounds__(kThreads) fedsgd_aggregate_weighted_kernel(
     const float4* __restrict__ w, const float4* __restrict__ grads,
     const float* __restrict__ cw, int n_clients,
     const float* __restrict__ inv_ptr, const float* __restrict__ eta_ptr,
     long long n4, float4* __restrict__ w_out, float4* __restrict__ g_out,
     float4* __restrict__ step_out) {
-  const float inv = flush(*inv_ptr);
-  const float eta = flush(*eta_ptr);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+  static_assert(C >= 0 && C <= kMaxRegisterClients && kMaxRegisterClients <= 32,
+                "a live set in one 32-bit ballot");
+  const float inv = flush(__ldg(inv_ptr));
+  const float eta = flush(__ldg(eta_ptr));
+  if constexpr (C > 0) {
+    // every lane reaches this point: the ballot and vote see a whole warp
+    const int lane = threadIdx.x & 31;
+    const float x = lane < C ? flush(__ldg(cw + lane)) : 0.0f;
+    const unsigned live = __ballot_sync(0xffffffffu, x > 0.0f);
+    if (__all_sync(0xffffffffu, !(x > 0.0f) || x == 1.0f)) {
+      unit_weight_rows<C>(w, grads, live, inv, eta, n4, w_out, g_out,
+                          step_out);
+      return;
+    }
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n4; i += stride) {
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float w0 = cw[0];
-    if (w0 > 0.0f) acc = weighted(flush(w0), grads[i]);
-    for (int c = 1; c < n_clients; ++c) {
-      const float wc = cw[c];
+    for (int c = 0; c < n_clients; ++c) {
+      const float wc = flush(__ldg(cw + c));
       if (wc > 0.0f) {
-        const float4 t =
-            weighted(flush(wc), grads[static_cast<long long>(c) * n4 + i]);
-        acc.x = add_ftz(acc.x, t.x);
-        acc.y = add_ftz(acc.y, t.y);
-        acc.z = add_ftz(acc.z, t.z);
-        acc.w = add_ftz(acc.w, t.w);
+        const float4 t = weighted(wc, __ldg(grads + c * n4 + i));
+        acc = c == 0 ? t : add4_ftz(acc, t);
       }
     }
-    mean_update_tail(acc, inv, eta, w[i], w_out + i, g_out + i, step_out + i);
+    mean_update_tail(acc, inv, eta, __ldg(w + i), w_out + i, g_out + i,
+                     step_out + i);
   }
 }
 
@@ -330,16 +428,11 @@ __global__ void fedsgd_aggregate_kernel(
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n4; i += stride) {
-    // every use of acc flushes it, so g[0] may be flushed up front
-    const float4 g0 = grads[i];
-    float4 acc = make_float4(flush(g0.x), flush(g0.y), flush(g0.z),
-                             flush(g0.w));
+    // every use of acc flushes it, so g[0] may be flushed up front; add_ftz
+    // flushes each later gradient as it reads it
+    float4 acc = flush4(grads[i]);
     for (int c = 1; c < n_clients; ++c) {
-      const float4 g = grads[static_cast<long long>(c) * n4 + i];
-      acc.x = add_ftz(acc.x, flush(g.x));
-      acc.y = add_ftz(acc.y, flush(g.y));
-      acc.z = add_ftz(acc.z, flush(g.z));
-      acc.w = add_ftz(acc.w, flush(g.w));
+      acc = add4_ftz(acc, grads[static_cast<long long>(c) * n4 + i]);
     }
     mean_update_tail(acc, inv, eta, w[i], w_out + i, g_out + i, step_out + i);
   }
@@ -347,25 +440,25 @@ __global__ void fedsgd_aggregate_kernel(
 
 // Replaces pruning_mask.masked_update_2d: (w - eta*g) * mask, each op
 // rounded and flushed on its own, as the eager ref.masked_update_ref
-// computes it. Bound by bytes: 3 reads, 1 write.
-__global__ void masked_update_kernel(const float4* __restrict__ w,
-                                     const float4* __restrict__ g,
-                                     const float4* __restrict__ m, float eta,
-                                     long long n4, float4* __restrict__ out) {
+// computes it. Bound by bytes: 3 reads, 1 write. One float4 of each input a
+// thread an iteration (__ldg), the output streamed (st.global.cs: nothing
+// here reads it again). A warp-wide path for 0/1 masks that skips the last
+// product's flush read no faster on the H100, at R = 1024 or 65,536, so
+// every mask takes xla_mul.
+__global__ void __launch_bounds__(kThreads) masked_update_kernel(
+    const float4* __restrict__ w, const float4* __restrict__ g,
+    const float4* __restrict__ m, float eta, long long n4,
+    float4* __restrict__ out) {
   eta = flush(eta);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n4; i += stride) {
-    const float4 a = w[i];
-    const float4 b = g[i];
-    const float4 k = m[i];
-    float4 o;
-    o.x = xla_mul(sub_ftz(flush(a.x), mul_ftz(eta, flush(b.x))), k.x);
-    o.y = xla_mul(sub_ftz(flush(a.y), mul_ftz(eta, flush(b.y))), k.y);
-    o.z = xla_mul(sub_ftz(flush(a.z), mul_ftz(eta, flush(b.z))), k.z);
-    o.w = xla_mul(sub_ftz(flush(a.w), mul_ftz(eta, flush(b.w))), k.w);
-    out[i] = o;
+    const float4 step = mul4_ftz(flush4(__ldg(g + i)), eta);
+    const float4 x = sub4_ftz(__ldg(w + i), step);
+    const float4 k = __ldg(m + i);
+    __stcs(out + i, make_float4(xla_mul(x.x, k.x), xla_mul(x.y, k.y),
+                                xla_mul(x.z, k.z), xla_mul(x.w, k.w)));
   }
 }
 
@@ -375,9 +468,6 @@ __device__ __forceinline__ int order_key(float x) {
   const int b = __float_as_int(x);
   return b ^ ((b >> 31) & 0x7fffffff);
 }
-
-// Up to this many clients the sort network lives in registers.
-constexpr int kMaxRegisterClients = 32;
 
 // Replaces pruning_mask.client_rank_sort, the first stage of the
 // coordinate-wise median and the trimmed mean. One thread owns one
@@ -461,22 +551,16 @@ __global__ void client_rank_sort_generic_kernel(
   }
 }
 
-template <int C>
-int launch_rank_sort(int n_clients, const float* grads, const float* cw,
-                     long long n, float* out, int* keys,
-                     cudaStream_t stream) {
-  if (n_clients == C) {
-    client_rank_sort_kernel<C><<<grid_for(n), kThreads, 0, stream>>>(
-        grads, cw, n, out);
-    return static_cast<int>(cudaGetLastError());
-  }
+// f(std::integral_constant<int, C>{}) with C = n_clients for 1 <= C <=
+// kMaxRegisterClients, and with C = 0 for any other count: picks a kernel
+// instantiated on C.
+template <int C = 1, class F>
+int with_client_count(int n_clients, F&& f) {
+  if (n_clients == C) return f(std::integral_constant<int, C>{});
   if constexpr (C < kMaxRegisterClients) {
-    return launch_rank_sort<C + 1>(n_clients, grads, cw, n, out, keys,
-                                   stream);
+    return with_client_count<C + 1>(n_clients, f);
   } else {
-    client_rank_sort_generic_kernel<<<grid_for(n), kThreads, 0, stream>>>(
-        grads, cw, n_clients, n, out, keys);
-    return static_cast<int>(cudaGetLastError());
+    return f(std::integral_constant<int, 0>{});
   }
 }
 
@@ -505,14 +589,16 @@ int fedsgd_aggregate_weighted(const void* w, const void* grads, const void* cw,
                               long long n, void* w_out, void* g_out,
                               void* step_out, void* stream) {
   const long long n4 = n / 4;
-  fedsgd_aggregate_weighted_kernel<<<grid_for(n4), kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(w), static_cast<const float4*>(grads),
-      static_cast<const float*>(cw), n_clients,
-      static_cast<const float*>(inv), static_cast<const float*>(eta), n4,
-      static_cast<float4*>(w_out), static_cast<float4*>(g_out),
-      static_cast<float4*>(step_out));
-  return static_cast<int>(cudaGetLastError());
+  return with_client_count(n_clients, [&](auto c) {
+    fedsgd_aggregate_weighted_kernel<decltype(c)::value>
+        <<<grid_for(n4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(w), static_cast<const float4*>(grads),
+            static_cast<const float*>(cw), n_clients,
+            static_cast<const float*>(inv), static_cast<const float*>(eta),
+            n4, static_cast<float4*>(w_out), static_cast<float4*>(g_out),
+            static_cast<float4*>(step_out));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // state: int32 [257], the accumulator's 256 bins and the ticket, 0
@@ -565,11 +651,21 @@ int masked_update(const void* w, const void* g, const void* mask, float eta,
 // n_clients > kMaxRegisterClients.
 int client_rank_sort(const void* grads, const void* cw, int n_clients,
                      long long n, void* out, void* keys, void* stream) {
-  return launch_rank_sort<1>(n_clients, static_cast<const float*>(grads),
-                             static_cast<const float*>(cw), n,
-                             static_cast<float*>(out),
-                             static_cast<int*>(keys),
-                             static_cast<cudaStream_t>(stream));
+  const auto* g = static_cast<const float*>(grads);
+  const auto* w = static_cast<const float*>(cw);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return with_client_count(n_clients, [&](auto c) {
+    constexpr int C = decltype(c)::value;
+    if constexpr (C > 0) {
+      client_rank_sort_kernel<C><<<grid_for(n), kThreads, 0, st>>>(g, w, n,
+                                                                   o);
+    } else {
+      client_rank_sort_generic_kernel<<<grid_for(n), kThreads, 0, st>>>(
+          g, w, n_clients, n, o, static_cast<int*>(keys));
+    }
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // extern "C"

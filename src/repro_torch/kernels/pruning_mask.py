@@ -124,11 +124,12 @@ def importance_masks_plain(w, v, prunable, thresholds):
 def weighted_grad_sum(grads, cweights):
     """sum_c cweights[c] * grads[c] in client-stack order, [C,R,L]->[R,L].
     A client whose weight is not > 0 is skipped by `where`, so a NaN on a
-    padding client never reaches the sum. Each product and sum is flushed
-    as XLA flushes it, and the sum starts from client 0's term, not from
-    +0.0 + term: XLA folds the jitted mirror's zero start away, so a -0.0
-    there keeps its sign."""
-    cw = cweights.float()
+    padding client never reaches the sum; XLA compares the flushed weight,
+    so a subnormal one is skipped too. Each product and sum is flushed as
+    XLA flushes it, and the sum starts from client 0's term, not from +0.0
+    + term: XLA folds the jitted mirror's zero start away, so a -0.0 there
+    keeps its sign."""
+    cw = flush(cweights.float())
     acc = torch.where(cw[0] > 0.0, flush_mul(cw[0], grads[0]),
                       torch.zeros(grads.shape[1:], dtype=torch.float32,
                                   device=grads.device))

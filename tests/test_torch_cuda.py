@@ -14,7 +14,12 @@ C in {1, 3, 8, 10, 16, 33}, past the sort's 32-client register network;
 the one-launch histogram and the shared-threshold mask also at R = 256 and
 65,536, over the histogram's worst cases and the threshold's edges, with
 the histogram's trace showing one kernel a call and calls on two streams
-at once agreeing; the aggregate tail on subnormal input),
+at once agreeing; the aggregate tail on subnormal input; the weighted
+aggregate at every C from 1 to 33 under zero-weight clients holding NaN at
+the front, in the middle, at the end and everywhere and under non-unit and
+subnormal weights, also at R = 256 and 65,536, and on products that round
+up to FLT_MIN; the masked update with keep-masks, masks of other values
+and NaN and inf in w at R = 256, 1024 and 65,536; both one kernel a call),
 and a few rounds of the trainer run through the kernels with the packed
 backend equal to the reference backend, under the mean and under a robust
 reducer with an attack. The LM stack's kernels (flash attention, decode
@@ -487,6 +492,180 @@ def test_aggregate_tail_kernels_flush_subnormals(dev, n_clients):
     m = torch.from_numpy(rng.random((1024, LANES)) < 0.7).float().to(dev)
     assert_bitwise(pm.masked_update_2d(w, g[0], m, 0.02),
                    pm.masked_update_plain(w, g[0], m, 0.02))
+
+
+# -- kernels 3 and 7 (weighted aggregate, masked update) ----------------------
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+AGG_PATTERNS = ["live", "front", "middle", "end", "everywhere", "nonunit"]
+
+
+def _client_weights(c, pattern, rng):
+    """0/1 weights with zero-weight clients at the front, in the middle, at
+    the end or everywhere; or scales in [0.2, 1.9] with a weight of 1.0
+    and a subnormal one (compared as 0: its client is dead)."""
+    cw = np.ones(c, np.float32)
+    if pattern == "nonunit":
+        cw = rng.uniform(0.2, 1.9, size=c).astype(np.float32)
+        cw[c // 2] = 1.0
+        cw[-1] = np.float32(3e-39) if c > 1 else cw[-1]
+    elif pattern != "live":
+        cw[{"front": [0], "middle": [c // 2], "end": [c - 1],
+            "everywhere": list(range(c))}[pattern]] = 0.0
+    return cw
+
+
+def _check_weighted(dev, w, grads, cw_np, eta=0.1):
+    """Kernel 3 against its plain version, bit for bit, dead clients
+    holding NaN, inv = 1/(sum of live weights) (0 with none live)."""
+    dead = torch.as_tensor(cw_np < FLT_MIN, device=dev)
+    grads = torch.where(dead[:, None, None],
+                        torch.full_like(grads, float("nan")), grads)
+    n_live = float(cw_np[cw_np >= FLT_MIN].sum())
+    inv = torch.tensor(np.float32(1.0 / n_live if n_live else 0.0),
+                       device=dev)
+    eta = torch.tensor(np.float32(eta), device=dev)
+    cw = torch.from_numpy(cw_np).to(dev)
+    outs = pm.fedsgd_aggregate_weighted(w, grads, cw, inv, eta)
+    for a, b in zip(outs, pm.fedsgd_aggregate_weighted_plain(w, grads, cw,
+                                                             inv, eta)):
+        assert_bitwise(a, b)
+        assert bool(torch.isfinite(a).all())
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clients", range(1, 34))
+def test_weighted_aggregate_kernel_every_client_count(dev, n_clients):
+    """Every instantiation (C = 1..32) and the any-count path (33), under
+    every weight pattern, at R = 1024."""
+    rng = np.random.default_rng(n_clients)
+    gen = torch.Generator(device=dev).manual_seed(n_clients)
+    w = torch.randn((1024, LANES), generator=gen, device=dev)
+    grads = torch.randn((n_clients, 1024, LANES), generator=gen, device=dev)
+    for pattern in AGG_PATTERNS:
+        outs = _check_weighted(dev, w, grads,
+                               _client_weights(n_clients, pattern, rng))
+        if pattern == "everywhere":
+            assert bool((outs[1] == 0).all()) and bool((outs[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [256, 65536])
+@pytest.mark.parametrize("n_clients", [1, 8, 10, 32, 33])
+def test_weighted_aggregate_kernel_at_other_sizes(dev, n_clients, rows):
+    """R = 256 (one vector a thread, fewer blocks than SMs) and 65,536
+    (several vectors a thread)."""
+    rng = np.random.default_rng(rows + n_clients)
+    gen = torch.Generator(device=dev).manual_seed(rows + n_clients)
+    w = torch.randn((rows, LANES), generator=gen, device=dev)
+    grads = torch.randn((n_clients, rows, LANES), generator=gen, device=dev)
+    for pattern in ("live", "front", "nonunit"):
+        _check_weighted(dev, w, grads, _client_weights(n_clients, pattern,
+                                                       rng))
+
+
+def _round_up_to_flt_min(factor):
+    """128 normal values whose exact product with `factor` lies just below
+    FLT_MIN and rounds to FLT_MIN in fp32: XLA flushes those more than
+    2^-151 below it."""
+    f = np.float32(factor)
+    x0 = np.float32(FLT_MIN / np.float64(f))
+    xs = np.asarray([np.float32(x0 + k * np.spacing(x0))
+                     for k in range(-256, 257)], np.float32)
+    found = xs[(xs >= FLT_MIN) & (xs.astype(np.float64) * np.float64(f)
+                                  < FLT_MIN) & (xs * f == FLT_MIN)]
+    assert found.size, f"no value rounds up to FLT_MIN at factor {f}"
+    return np.resize(found, LANES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clients,pattern", [
+    (3, "live"), (8, "end"), (12, "front"), (13, "end"), (32, "middle"),
+    (33, "nonunit")])
+def test_weighted_aggregate_kernel_flushes_like_the_plain_version(
+        dev, n_clients, pattern):
+    """Subnormal gradients and weights, sums straddling FLT_MIN, and row 40
+    of the first live client holding values whose product with inv rounds
+    up to FLT_MIN (the edge test of mul_ftz)."""
+    rng = np.random.default_rng(70 + n_clients)
+    cw = _client_weights(n_clients, pattern, rng)
+    w = rng.normal(size=(1024, LANES)).astype(np.float32)
+    w[24:32] = 1e-39 * rng.normal(size=(8, LANES))
+    w[32:40] = FLT_MIN * rng.uniform(-2, 2, size=(8, LANES))
+    g = _tiny_stack(rng, n_clients)
+    live = np.flatnonzero(cw >= FLT_MIN)
+    inv = np.float32(1.0 / float(cw[live].sum()))    # as _check_weighted's
+    g[:, 40] = 0.0
+    g[live[0], 40] = _round_up_to_flt_min(inv)
+    _check_weighted(dev, torch.from_numpy(w).to(dev),
+                    torch.from_numpy(g).to(dev), cw, eta=0.15)
+
+
+MASK_KINDS = ["keep", "scaled", "subnormal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("rows", [256, 1024, 65536])
+def test_masked_update_kernel_matches_plain(dev, rows, kind):
+    """Kernel 7 bit for bit: keep-masks, masks of other values (scales, an
+    overflow), and a mask of subnormals and signed zeros; w with NaN and
+    inf, subnormal rows and rows at FLT_MIN's scale, eta*g rounding up to
+    FLT_MIN."""
+    rng = np.random.default_rng(rows + MASK_KINDS.index(kind))
+    shape = (rows, LANES)
+    w = rng.normal(size=shape).astype(np.float32)
+    w[5] = 1e-39 * rng.normal(size=LANES)
+    w[6] = FLT_MIN * rng.uniform(-2, 2, size=LANES)
+    w[7, :6] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
+    g = rng.normal(size=shape).astype(np.float32)
+    g[8] = 1e-39 * rng.normal(size=LANES)
+    g[9] = 2.0 * FLT_MIN * rng.uniform(1.0, 2.0, size=LANES)
+    g[10] = _round_up_to_flt_min(0.02)
+    m = (rng.random(shape) < 0.6).astype(np.float32)
+    if kind == "scaled":
+        m = rng.choice(np.asarray([0.5, -1.0, 3.0, 1e30, 0.0, 1.0],
+                                  np.float32), size=shape)
+    elif kind == "subnormal":
+        m = rng.choice(np.asarray([-0.0, 0.0, 1.0, 3e-39, -1e-39],
+                                  np.float32), size=shape)
+    m[7, :6] = [0.0, 0.0, -0.0, 1.0, 1.0, 1.0]
+    w, g, m = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+               for x in (w, g, m))
+    out = pm.masked_update_2d(w, g, m, 0.02)
+    assert_bitwise(out, pm.masked_update_plain(w, g, m, 0.02))
+    assert bool(torch.isnan(out[7, :3]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["weighted_aggregate", "masked_update"])
+def test_tail_kernel_is_one_kernel_a_call(dev, which):
+    """A torch.profiler trace of kernel 3's (or 7's) calls holds that kernel
+    and nothing else: no fill, no copy, no second pass. (The profiler may
+    drop events, so the count is at most one a call.)"""
+    from torch.profiler import ProfilerActivity, profile
+    t = _inputs(dev, 8)
+    symbol, call = {
+        "weighted_aggregate": ("fedsgd_aggregate_weighted_kernel",
+                               lambda: pm.fedsgd_aggregate_weighted(
+                                   t["w"], t["grads"], t["cw"], t["inv"],
+                                   t["eta"])),
+        "masked_update": ("masked_update_kernel",
+                          lambda: pm.masked_update_2d(
+                              t["w"], t["grads"][0], t["pr"], 0.1))}[which]
+    call()
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    assert kernels, "the trace shows no device kernel"
+    assert all(symbol in k for k, _ in kernels), kernels
+    assert 1 <= sum(n for _, n in kernels) <= calls
 
 
 # -- the LM stack's kernels ---------------------------------------------------

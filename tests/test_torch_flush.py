@@ -11,11 +11,15 @@ differences of normals that land below it) and values whose exact product
 with the tail's factor rounds up to FLT_MIN.
 
 * the weighted aggregate (kernel 3's plain version) at C in {1, 3, 8}, a
-  zero-weight client holding NaN;
+  zero-weight client holding NaN; at C in {2, 5, 10, 16, 32, 33} with
+  zero-weight clients holding NaN at the front, in the middle, at the end
+  and everywhere (jitted mirror, 0/1 weights), and with non-unit and
+  subnormal weights (eager JAX, each op flushed on its own);
 * the unweighted aggregate (kernel 5) at C in {2, 4} (1/C a power of two:
   XLA reassociates its step, ROADMAP section 3);
 * the masked update (kernel 7) against the eager JAX reference, and against
-  the jitted mirror at a power-of-two eta, where its FMA is exact;
+  the jitted mirror at a power-of-two eta, where its FMA is exact; also
+  with masks of values other than 0 and 1 and with NaN and inf in w;
 * the weighted sum and the mean-update tail with channel noise, eager JAX
   with non-unit weights (each op flushed on its own) and jitted;
 * `RoundEngine._aggregate_update` with corruption factors and poison on a
@@ -194,6 +198,133 @@ def test_masked_update_flushes_like_jax():
         got = tops.packed_masked_update(_t(w), _t(g), _t(m), eta)
         assert_bitwise(got, want)
         assert not _subnormal(got).any()
+
+
+ZERO_WEIGHT_PATTERNS = ["front", "middle", "end", "everywhere"]
+STACK_SIZES = [2, 5, 10, 16, 32, 33]
+
+
+def zero_weights(n_clients, pattern) -> np.ndarray:
+    """0/1 client weights with zero-weight clients at the front (client 0),
+    in the middle, at the end, or everywhere."""
+    cw = np.ones(n_clients, np.float32)
+    at = {"front": [0], "middle": [n_clients // 2], "end": [n_clients - 1],
+          "everywhere": list(range(n_clients))}[pattern]
+    cw[at] = 0.0
+    return cw
+
+
+def planted_stack(cw, inv, seed):
+    """tiny_stack's gradients for weights cw, zero-weight clients holding
+    NaN, and row 12 of the first live client holding values whose product
+    with inv rounds up to FLT_MIN where there are such values (every other
+    client 0 there)."""
+    g = tiny_stack(len(cw), seed=seed)
+    live = np.flatnonzero(cw > 0)
+    try:
+        planted = round_up_to_flt_min(inv) if inv else None
+    except AssertionError:                    # inv = 2^-k (exact) or 1/9
+        planted = None
+    if live.size and planted is not None:
+        g[:, 12] = 0.0
+        g[live[0], 12] = planted
+    g[cw <= 0] = np.nan
+    return g
+
+
+@pytest.mark.parametrize("pattern", ZERO_WEIGHT_PATTERNS)
+@pytest.mark.parametrize("n_clients", STACK_SIZES)
+def test_weighted_aggregate_zero_weight_patterns_like_jax(n_clients, pattern):
+    """The plain weighted aggregate against the jitted xla mirror on
+    subnormal gradients: the oracle of kernel 3's instantiations (C <= 32)
+    and of its any-count path (33). inv is the quarantine's: 1/#live, or 0
+    with no live client, where g and the step are zeros and w' is w
+    flushed."""
+    cw = zero_weights(n_clients, pattern)
+    n_live = int(cw.sum())
+    inv = np.float32(1.0 / n_live) if n_live else np.float32(0.0)
+    g = planted_stack(cw, inv, seed=100 + n_clients)
+    w, eta = _w(), np.float32(0.1)
+    jout = jops.packed_fedsgd_update_weighted(w, g, cw, inv, eta, impl="xla")
+    tout = tops.packed_fedsgd_update_weighted(
+        _t(w), _t(g), _t(cw), torch.tensor(inv), torch.tensor(eta))
+    for a, b in zip(tout, jout):
+        assert_bitwise(a, b)
+        assert not _subnormal(a).any()
+    assert np.isfinite(_bits(tout[1]).view(np.float32)).all()
+    if pattern == "everywhere":
+        assert (_bits(tout[1]) == 0).all() and (_bits(tout[2]) == 0).all()
+        assert_bitwise(tout[0], w * (np.abs(w) >= FLT_MIN))
+
+
+@pytest.mark.parametrize("n_clients", STACK_SIZES)
+def test_weighted_aggregate_nonunit_weights_like_jax(n_clients):
+    """Non-unit weights (one of 1.0 among them, and a subnormal one, which
+    XLA compares as 0: its client is skipped) against eager JAX, where each
+    product and sum is flushed on its own; XLA would contract acc + cw*g in
+    a jitted graph. Client 0 has weight 0, so both sums start from +0.0
+    (eager JAX adds the first term to +0.0, the port starts from client 0's
+    term)."""
+    rng = np.random.default_rng(200 + n_clients)
+    cw = rng.uniform(0.2, 1.9, size=n_clients).astype(np.float32)
+    cw[0] = 0.0
+    cw[-1] = np.float32(3e-39) if n_clients > 2 else cw[-1]
+    cw[n_clients // 2] = 1.0 if n_clients > 4 else cw[n_clients // 2]
+    inv = np.float32(1.0 / 7.0)
+    g = planted_stack(cw, inv, seed=200 + n_clients)
+    w, eta = _w(seed=3), np.float32(0.15)
+    gsum = jops.packed_weighted_grad_sum(jnp.asarray(g), jnp.asarray(cw))
+    jout = jops.packed_apply_mean_update(jnp.asarray(w), gsum, inv, eta)
+    tout = tops.packed_fedsgd_update_weighted(
+        _t(w), _t(g), _t(cw), torch.tensor(inv), torch.tensor(eta))
+    for a, b in zip(tout, jout):
+        assert_bitwise(a, b)
+        assert not _subnormal(a).any()
+
+
+MASK_KINDS = ["keep", "scaled", "signed_zero_subnormal"]
+
+
+def general_mask(kind, shape, rng) -> np.ndarray:
+    """A 0/1 keep-mask, or masks holding other values: scales (0.5, -1, 3,
+    1e30, whose products overflow), -0.0 and subnormals (read as zeros of
+    their sign)."""
+    m = (rng.random(shape) < 0.6).astype(np.float32)
+    if kind == "scaled":
+        pool = np.asarray([0.5, -1.0, 3.0, 1e30, 0.0, 1.0], np.float32)
+        m = rng.choice(pool, size=shape).astype(np.float32)
+    elif kind == "signed_zero_subnormal":
+        pool = np.asarray([-0.0, 0.0, 1.0, 3e-39, -1e-39, 1.0000001],
+                          np.float32)
+        m = rng.choice(pool, size=shape).astype(np.float32)
+    return m
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+def test_masked_update_general_masks_like_jax(kind):
+    """The plain masked update against the eager JAX reference (eta 0.02)
+    and the jitted mirror (eta 0.5, where its FMA is exact) with masks of
+    0/1 and of other values, on subnormal input and with NaN and inf in w:
+    the oracle of kernel 7."""
+    rng = np.random.default_rng(50 + MASK_KINDS.index(kind))
+    w = _w(seed=9)
+    w[12] = (1e-39 * rng.normal(size=LANES)).astype(np.float32)
+    w[20, :6] = [np.nan, np.inf, -np.inf, np.nan, np.inf, -np.inf]
+    g = tiny_stack(1, seed=9)[0]
+    g[5] = rng.normal(size=LANES)            # subnormal w, normal g
+    g[6] = (2.0 * FLT_MIN * rng.uniform(1.0, 2.0, size=LANES)
+            ).astype(np.float32)             # w - eta*g below FLT_MIN
+    g[14] = round_up_to_flt_min(0.02)        # eta*g rounds up
+    m = general_mask(kind, w.shape, rng)
+    m[20, :6] = [0.0, 0.0, 0.0, 1.0, 1.0, -0.0]
+    for eta, jit in ((0.02, False), (0.5, True)):
+        want = (jops.packed_masked_update(w, g, m, eta, impl="xla") if jit
+                else jref.masked_update_ref(jnp.asarray(w), jnp.asarray(g),
+                                            jnp.asarray(m), eta))
+        got = tops.packed_masked_update(_t(w), _t(g), _t(m), eta)
+        assert_bitwise(got, want)
+        assert not _subnormal(got).any()
+        assert np.isnan(_bits(got).view(np.float32)[20, :4]).all()
 
 
 # -- the noisy tail ------------------------------------------------------------
