@@ -19,8 +19,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      every C from 1 to 33 for the weighted aggregate, with zero-weight
      clients holding NaN at the front, in the middle, at the end or
      everywhere and with non-unit and subnormal weights, C in {1, 3, 8, 10,
-     16, 33} for the rank sort and the unweighted aggregate; the masked
-     update with keep-masks, masks of other values and NaN and inf in w),
+     16, 33} for the rank sort (also with a subnormal weight, which must
+     sort its client last as weight 0 does) and the unweighted aggregate;
+     the masked update with keep-masks, masks of other values and NaN and
+     inf in w),
      bit for bit, with its per-call time, its device time, the plain
      version's time, its bound and, where one PyTorch call computes the
      same function, that call's time; and the contract that the unweighted
@@ -35,11 +37,12 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
   3. the pruned-FedSGD path: the paper's pipeline on synthetic-mnist (10
      clients, sigma = 5) with the `proposed` AO schedule at E0 = 25 J,
      T0 = 15 s over 40 rounds, LeNet from a seeded init, trained once by
-     the packed backend (kernel launches counted) and once by the reference
+     the packed backend (its default: 32-round blocks on CUDA graphs,
+     kernel launches counted with the replays) and once by the reference
      backend; parameters must agree bit for bit, the broadcast gradient as
      values, and test accuracy at the last round must exceed 0.2; then five
-     packed rounds again under torch.profiler (device busy time, top
-     kernels);
+     packed rounds of one round a dispatch under torch.profiler (device
+     busy time, top kernels);
   4. the attack slice (the JAX package's benchmarks/robust_aggregation.py
      cell at a 30 % attack): 10 clients, sigma = 1, `fixed_selection` at
      unbounded budgets over 60 rounds, every client selected every round,
@@ -57,7 +60,20 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
   6. the entry points that no trainer path calls: one FedSGD step of the
      unweighted aggregate over ten clients' uploads at the trained attack
      model, and the pruned-checkpoint masked update, packed and per leaf;
-  7. the LM stack's kernels against their plain versions in bf16 (the
+  7. the quickstart through the experiment API (repro_torch.api): spec A
+     is examples/quickstart.py's (`proposed_exact`, E0 = 250 J, T0 = 150
+     s, one client a round), spec B the same with `proposed` at 25 J / 15
+     s (8 clients a round, per-client lambda), 40 rounds of LeNet each,
+     run three ways: "auto" (32-round blocks, each round a CUDA-graph
+     replay), one round a dispatch and the reference backend; parameters
+     bit for bit, v as values, equal histories, no batch uploaded by the
+     blocks, graph replays (with the eager round each capture follows)
+     equal to the block rounds, each round kernel once a round on both
+     packed paths; a profiled 8-round window of each packed path (ms a
+     round, device busy, idle share, the host's CUDA calls a round); kill
+     after round 20's checkpoint and `resume_from_checkpoint`, bit for bit
+     the uninterrupted blocked run;
+  8. the LM stack's kernels against their plain versions in bf16 (the
      JAX package's bf16 kernel tolerance, 2e-2): flash attention at
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
@@ -66,7 +82,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
      over every kernel the wrapper launches per call;
-  8. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
+  9. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
      served by the continuous-batching engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
      slots; flash launches == 40 x 16, engine tokens == a sequential
@@ -77,13 +93,13 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      of the plain version on its own inputs; then a profiled window; and
      the decode kernel on the served caches, every
      layer, each row at its last request's position;
-  9. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
+ 10. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
      (slots reused; tokens == a fresh sequential generation), and the SSD
      entry point on layer 0's real inputs for a 512-token prompt: its 4
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
- 10. one JSON line listing the ten kernels, then the result line.
+ 11. one JSON line listing the ten kernels, then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -111,6 +127,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.api import Callback  # noqa: E402
 from repro_torch.core import (AOConfig, BoundConstants, ClientData,  # noqa: E402
                               CorruptUpload, FederatedTrainer, GaussianPoison,
                               MixedFaults, ParamPack, ScaledMalicious,
@@ -707,6 +724,13 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
         po = pm.client_rank_sort_plain(grads, cw)
         ok &= bits_equal(ko, po)
         err = max(err, max_abs_err([ko], [po]))
+        # a subnormal weight is dead, as XLA compares the flushed weight:
+        # the client sorts last, as at weight 0
+        cw_sub, cw_dead = cw_np.copy(), cw_np.copy()
+        cw_sub[0], cw_dead[0] = np.float32(3e-39), 0.0
+        ks = pm.client_rank_sort(grads, arr(cw_sub))
+        ok &= bits_equal(ks, pm.client_rank_sort_plain(grads, arr(cw_sub)))
+        ok &= bits_equal(ks, pm.client_rank_sort_plain(grads, arr(cw_dead)))
     g10, cw10 = stacks[10]
     keys10 = torch.where(cw10[:, None, None] > 0, pm.order_keys(g10),
                          torch.full(g10.shape, pm.INT32_MAX,
@@ -1078,7 +1102,296 @@ def entry_point_phase(dev, tr, env):
     return problems, launches
 
 
-# -- phases 7-10: the LM stack, serving granite-3-2b and mamba2-130m ----------
+# -- phase 7: the quickstart through the experiment API -------------------------
+
+# examples/quickstart.py's spec (A) and the pruned slice's budgets and scheme
+# through the same API (B); "auto" dispatch, the spec's default
+QUICKSTART = dict(n_clients=10, sigma=5.0, n_train=4000, n_test=800,
+                  rounds=40, eta=0.1, batch=32)
+QUICK_SPECS = {"A": dict(scheme="proposed_exact", e0=250.0, t0=150.0,
+                         eval_every=10),
+               "B": dict(scheme="proposed", e0=25.0, t0=15.0,
+                         eval_every=40)}
+QUICK_WINDOW = 8          # rounds of each profiled window
+CKPT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+
+
+def quick_spec(name: str, **run):
+    from repro_torch.api import (DataSpec, ExperimentSpec, ModelSpec, RunSpec,
+                                 SchemeSpec, WirelessSpec)
+    q, c = QUICKSTART, QUICK_SPECS[name]
+    return ExperimentSpec(
+        data=DataSpec(dataset="synthetic-mnist", n_clients=q["n_clients"],
+                      sigma=q["sigma"], n_train=q["n_train"],
+                      n_test=q["n_test"], seed=0),
+        model=ModelSpec(name="lenet"),
+        wireless=WirelessSpec(e0=c["e0"], t0=c["t0"], seed=0),
+        scheme=SchemeSpec(name=c["scheme"], rounds=q["rounds"], eta=q["eta"],
+                          batch=q["batch"]),
+        run=RunSpec(seed=0, eval_every=c["eval_every"], **run))
+
+
+class BlockCounter(Callback):
+    """Counts the rounds that ran inside block dispatches."""
+
+    def __init__(self):
+        self.rounds = 0
+
+    def on_block_end(self, start, n_rounds, trainer):
+        self.rounds += n_rounds
+
+
+class Grab(Callback):
+    """Holds the trainer of the run it is passed to."""
+    trainer = None
+
+    def on_round_end(self, m, trainer):
+        self.trainer = trainer
+
+
+def quick_window(dev, env, spec, run_kw) -> dict:
+    """Rounds 1..QUICK_WINDOW of the spec's schedule on a fresh trainer of
+    one path, driven four times: first (the blocked path captures the
+    window's graphs there) and again, timed on the host clock; then under
+    torch.profiler (CUDA): wall and device-busy ms a round, the idle share
+    (against the profiled and the unprofiled wall), the device's kernels a
+    round; then under the CPU profiler: the kernel launches, graph launches
+    and copies the host issues a round."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import Experiment
+    run = Experiment(dataclasses.replace(
+        spec, run=dataclasses.replace(spec.run, evaluate=False,
+                                      stop_on_budget=False, **run_kw))
+                     ).build(env=env)
+    sched = run.schedule
+    win = dataclasses.replace(sched, a=sched.a[1:1 + QUICK_WINDOW],
+                              lam=sched.lam[1:1 + QUICK_WINDOW],
+                              power=sched.power[1:1 + QUICK_WINDOW],
+                              freq=sched.freq[1:1 + QUICK_WINDOW])
+    tr, ch = run.trainer, env.ch
+
+    def drive():
+        tr.run(win, env.sp, ch.uplink, ch.downlink)
+
+    n = QUICK_WINDOW
+    walls = []
+    for _ in range(2):                # the first captures the graphs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        drive()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t) / n)
+    steady = {"first_ms_per_round": walls[0],
+              "steady_ms_per_round": walls[1],
+              "capture_s": (tr.engine.capture_seconds
+                            if tr.engine is not None else 0.0)}
+    out = device_idle(drive)
+    if "wall_ms" not in out:
+        return {**steady, **out}
+    out = {**steady,
+           "profiled_wall_ms_per_round": out["wall_ms"] / n,
+           "device_busy_ms_per_round": out["device_busy_ms"] / n,
+           "device_idle_share": out["device_idle_share"],
+           "device_kernels_per_round": out["kernel_launches"] / n,
+           "top_kernels": out["top_kernels"]}
+    # idle against the unprofiled wall: CUPTI's tracing of a graph's
+    # kernels stretches the profiled one
+    out["device_idle_share_unprofiled"] = max(
+        0.0, 1.0 - out["device_busy_ms_per_round"]
+        / steady["steady_ms_per_round"])
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            drive()
+            torch.cuda.synchronize()
+        api = {ev.key: ev.count for ev in prof.key_averages()
+               if ev.key.startswith("cuda")}
+        out["host_calls_per_round"] = {
+            k: api.get(k, 0) / n for k in (
+                "cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaGraphLaunch", "cudaMemcpyAsync")}
+    except (AssertionError, RuntimeError) as err:
+        out["host_calls_per_round"] = f"not measured: {err}"
+    return out
+
+
+def quickstart_phase(dev, card):
+    """Specs A and B through repro_torch.api, each three ways: "auto"
+    (32-round blocks on CUDA graphs), rounds_per_dispatch=1 and the
+    reference backend. Parameters bit for bit across the three, v as
+    values, equal histories (losses, selections, delays, energies, eval);
+    on the blocked run every block round replays a graph (or is the eager
+    round its graph was captured after), no batch is uploaded, and each
+    round kernel launches once a round on both packed runs. Then a
+    profiled window of each packed path, and kill and resume of spec A
+    (checkpoints every 10 rounds, a raise after round 20's) against the
+    uninterrupted blocked run, bit for bit. Returns (problems, launches of
+    spec B's blocked run)."""
+    from repro_torch.api import (Experiment, build_environment,
+                                 resume_from_checkpoint)
+    problems, rows = [], {}
+    b_launches = {}
+    for name in QUICK_SPECS:
+        spec = quick_spec(name)
+        env = build_environment(spec, device=dev)
+        eval_s = [0.0]
+        plain_eval = env.eval_fn
+
+        def timed_eval(p, plain_eval=plain_eval):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = plain_eval(p)
+            eval_s[0] = eval_s[0] + time.perf_counter() - t
+            return out
+
+        env = dataclasses.replace(env, eval_fn=timed_eval)
+        runs = {}
+        for path, run_kw in (("blocked", {}),
+                             ("per_round", dict(rounds_per_dispatch=1)),
+                             ("reference", dict(backend="reference"))):
+            t = time.perf_counter()
+            run = Experiment(dataclasses.replace(
+                spec, run=dataclasses.replace(spec.run, **run_kw))
+                             ).build(env=env)
+            build_s = time.perf_counter() - t
+            counter = BlockCounter()
+            pm.reset_launches()
+            eval_s[0] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run.run(callbacks=[counter])
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t - eval_s[0]
+            launches = dict(pm.LAUNCHES)
+            tr = run.trainer
+            n = len(res.history)
+            row = {"rounds": n, "build_s": build_s,
+                   "ms_per_round": 1e3 * train_s / n,
+                   "card": card,
+                   "final_accuracy": res.summary["final_accuracy"],
+                   "block_dispatches": tr.n_block_dispatches,
+                   "batch_uploads": tr.n_batch_uploads,
+                   "rounds_per_dispatch": tr.rounds_per_dispatch}
+            if tr.engine is not None:
+                row.update(graphs_captured=tr.engine.graphs_captured,
+                           capture_s=tr.engine.capture_seconds,
+                           graph_replays=tr.engine.graph_replays,
+                           block_rounds=counter.rounds,
+                           launches={k: v for k, v in launches.items()
+                                     if v})
+                live = sum(1 for m in res.history if m.selected)
+                for kname in ("exponent_histogram",
+                              "fedsgd_aggregate_weighted"):
+                    if launches[kname] != live:
+                        problems.append(f"spec {name} {path}: {kname} "
+                                        f"launches {launches[kname]} != "
+                                        f"rounds {live}")
+                masks = (launches["importance_mask_2d"]
+                         + launches["importance_mask_batched"])
+                if masks != live:
+                    problems.append(f"spec {name} {path}: mask launches "
+                                    f"{masks} != rounds {live}")
+            runs[path] = (run, res)
+            rows[f"{name} {path}"] = row
+            print(json.dumps({"quickstart": name, "path": path, **row}))
+        (rb, hb), (r1, h1), (rr, hr) = (runs[p] for p in
+                                        ("blocked", "per_round",
+                                         "reference"))
+        row = rows[f"{name} blocked"]
+        if row["rounds_per_dispatch"] != 32 or row["block_dispatches"] < 1:
+            problems.append(f"spec {name}: 'auto' did not run 32-round "
+                            f"blocks ({row})")
+        if row["batch_uploads"] != 0:
+            problems.append(f"spec {name}: the blocked run uploaded "
+                            f"{row['batch_uploads']} batches")
+        if row["graph_replays"] + row["graphs_captured"] != \
+                row["block_rounds"] or row["graph_replays"] < 1:
+            problems.append(f"spec {name}: graph replays "
+                            f"{row['graph_replays']} + captures "
+                            f"{row['graphs_captured']} != block rounds "
+                            f"{row['block_rounds']}")
+        if name == "A" and row["launches"].get("importance_mask_batched"):
+            problems.append("spec A (one client a round) launched the "
+                            "per-client mask kernel")
+        if name == "B":
+            b_launches = row["launches"]
+            if not b_launches.get("importance_mask_batched"):
+                problems.append("spec B never launched the per-client "
+                                "mask kernel")
+        for other, (ro, ho) in (("per_round", (r1, h1)),
+                                ("reference", (rr, hr))):
+            pb, po = rb.trainer.params, ro.trainer.params
+            bits = sum(int((pb[k].view(torch.int32)
+                            != po[k].view(torch.int32)).sum()) for k in pb)
+            vb, vo = rb.trainer.global_grad, ro.trainer.global_grad
+            if bits or not all(torch.equal(vb[k], vo[k]) for k in vb):
+                problems.append(f"spec {name}: blocked != {other} "
+                                f"({bits} parameter bits)")
+            keys = ("round", "train_loss", "selected", "delay", "energy",
+                    "cumulative_delay", "cumulative_energy", "test_loss",
+                    "test_accuracy")
+            if [[getattr(m, k) for k in keys] for m in hb.history] != \
+                    [[getattr(m, k) for k in keys] for m in ho.history]:
+                problems.append(f"spec {name}: blocked history != {other}")
+        # spec A trains one non-IID client a round and stays near chance
+        # on the test set (0.12-0.16); that it learns shows in its train
+        # loss. Spec B is the pruned slice: phase 3's accuracy gate
+        losses = np.asarray([m.train_loss for m in hb.history])
+        if not np.isfinite(losses).all() or \
+                not losses[-5:].mean() < losses[:5].mean():
+            problems.append(f"spec {name}: the train loss did not fall "
+                            f"({losses[:5].mean()} -> {losses[-5:].mean()})")
+        acc = hb.summary["final_accuracy"]
+        if name == "B" and not acc > 0.2:
+            problems.append(f"spec {name}: final accuracy {acc} <= 0.2")
+        windows = {path: quick_window(dev, env, spec, kw) for path, kw in (
+            ("blocked", {}), ("per_round", dict(rounds_per_dispatch=1)))}
+        print(json.dumps({"quickstart_window": name, "card": card,
+                          "rounds": QUICK_WINDOW, **windows}))
+        if name == "A":
+            spec_a, env_a, res_a, run_a = spec, env, hb, rb
+
+    # kill after round 20's checkpoint, then resume from the checkpoint's
+    # own spec: the uninterrupted blocked run's parameters, bit for bit
+    class KillAfter(Callback):
+        checkpoint_every = 10
+
+        def on_checkpoint(self, m, trainer):
+            if m.round == 20:
+                raise RuntimeError("simulated kill after round 20")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    spec = dataclasses.replace(spec_a, run=dataclasses.replace(
+        spec_a.run, checkpoint_dir=str(CKPT_DIR), checkpoint_every=10))
+    killed = False
+    try:
+        Experiment(spec).build(env=env_a).run(callbacks=[KillAfter()])
+    except RuntimeError as err:
+        killed = "simulated kill" in str(err)
+    grab = Grab()
+    t = time.perf_counter()
+    resumed = resume_from_checkpoint(str(CKPT_DIR), callbacks=[grab],
+                                     device=dev)
+    resume_s = time.perf_counter() - t
+    ok_hist = ([m.train_loss for m in resumed.history]
+               == [m.train_loss for m in res_a.history])
+    pa, pr = run_a.trainer.params, grab.trainer.params
+    bits = sum(int((pa[k].view(torch.int32) != pr[k].view(torch.int32)
+                    ).sum()) for k in pa)
+    print(json.dumps({"quickstart_resume": "A", "killed": killed,
+                      "resumed_from": resumed.summary["resumed_from"],
+                      "rounds": len(resumed.history),
+                      "history_equal": ok_hist,
+                      "final_param_bits_differing": bits,
+                      "resume_s": resume_s}))
+    if not killed or resumed.summary["resumed_from"] != 20 or not ok_hist \
+            or bits or len(resumed.history) != len(res_a.history):
+        problems.append("spec A: kill and resume is not bit for bit")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return problems, b_launches
+
+
+# -- phases 8-10: the LM stack, serving granite-3-2b and mamba2-130m ----------
 
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "decode_attention":
@@ -1841,7 +2154,10 @@ def main() -> int:
                       "param_bits_differing": w_bits,
                       "v_signed_zero_differences": v_zero_signs,
                       "final_accuracy": final_acc}))
-    print(json.dumps(profile_rounds(dev, clients, sp, ch, sched, params)))
+    # the per-round path's profile, the series of earlier runs; the
+    # blocked path's is the quickstart phase's
+    print(json.dumps({"path": "per-round", **profile_rounds(
+        dev, clients, sp, ch, sched, params, rounds_per_dispatch=1)}))
     walls["pruned_fedsgd_path"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -1856,6 +2172,10 @@ def main() -> int:
     entry_problems, entry_launches = entry_point_phase(dev, median_tr, env)
     problems += entry_problems
     walls["entry_points"] = time.perf_counter() - t
+    t = time.perf_counter()
+    quick_problems, quick_launches = quickstart_phase(dev, card)
+    problems += quick_problems
+    walls["quickstart_api"] = time.perf_counter() - t
 
     # the LM stack. torch.cumsum on CUDA (the SSD scans') has no
     # deterministic implementation, so deterministic mode goes off here;
@@ -1889,8 +2209,9 @@ def main() -> int:
              "masked_update_2d": ("entry points", entry_launches)}
     rows = []
     for kname, res in kernels.items():
-        path, counts = paths.get(kname, ("pruned-FedSGD slice, packed",
-                                         launches))
+        path, counts = paths.get(kname, (
+            "pruned-FedSGD slice, packed, 32-round blocks on CUDA graphs "
+            "(replays counted)", launches))
         rows.append({"name": kname, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[kname],
                      "launches": counts[kname], "path": path,

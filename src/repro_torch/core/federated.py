@@ -1,7 +1,7 @@
 """Parameter-efficient FedSGD trainer (paper Sec. II-A, eqs. 2-7).
 
-The port of ``repro/core/federated.py`` (one device, one round per dispatch,
-plain FedSGD). Per round s:
+The port of ``repro/core/federated.py`` (one device, plain FedSGD). Per
+round s:
 
   1. the server broadcasts the previous global gradient v^(s-1);
   2. each selected client computes the importance Q = (v * rho)^2 (eq. 4)
@@ -33,10 +33,25 @@ order, so both packages and both backends see the same batches. Time and
 energy bookkeeping uses the port's wireless substrate with the schedule's
 per-round (a, lambda, p, f).
 
+Block execution (``rounds_per_dispatch`` > 1, packed backend): the
+wireless bookkeeping and stop conditions are schedule-pure, so the
+surviving rounds are split into homogeneous blocks that end at eval and
+checkpoint rounds (`_plan_blocks`), and each block is one
+`RoundEngine.block_step` over a device-resident `ClientStore`: one upload
+of the block's schedule operands, batches gathered on the device, and on
+CUDA one CUDA-graph replay a round. ``"auto"`` (the default) resolves to
+32-round blocks on CUDA and to one round a dispatch on the CPU, as the JAX
+package resolves it per backend. Both modes give the same bits.
+
+``run(callbacks=, start_round=)`` take the experiment API's lifecycle hooks
+(repro_torch.api.callbacks), fired at materialisation points only, and
+resume from a checkpoint taken after round ``start_round - 1``.
+
 The trainer runs on CUDA unless the caller passes ``device="cpu"``. On
 CUDA the packed backend needs a per-sample-weighted loss, so that ragged
 clients are padded and every round goes through the engine's kernels; only
-on the CPU may a ragged round fall back to the reference loop. Options of the JAX trainer that this port does not carry yet raise
+on the CPU may a ragged round fall back to the reference loop. Options of
+the JAX trainer that this port does not carry yet raise
 NotImplementedError naming the ROADMAP item that will bring them.
 """
 from __future__ import annotations
@@ -48,6 +63,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import pruning
+from repro_torch.core.client_store import (ClientStore, StoreBudgetError,
+                                           default_device_budget,
+                                           estimated_store_nbytes, to_device)
 from repro_torch.core.optimizer_ao import Schedule
 from repro_torch.core.packing import LANES, ParamPack
 from repro_torch.core.round_engine import RoundEngine, bucket_capacity
@@ -57,6 +75,23 @@ from repro_torch.wireless.comm import (SystemParams, per_client_delay,
                                        round_energy)
 
 Params = dict[str, torch.Tensor]
+
+# the block length "auto" targets on CUDA
+DEFAULT_ROUNDS_PER_DISPATCH = 32
+
+
+def _resolve_rounds_per_dispatch(rpd, device: torch.device) -> int:
+    """"auto" -> 1 on the CPU (rounds there are bound by the gradients'
+    arithmetic, and one round a dispatch is the audited default for parity
+    work), DEFAULT_ROUNDS_PER_DISPATCH on CUDA (where launching a round's
+    kernels one by one from Python dominates). Ints pass through; both
+    modes give the same bits."""
+    if rpd == "auto":
+        return 1 if device.type == "cpu" else DEFAULT_ROUNDS_PER_DISPATCH
+    r = int(rpd)
+    if r < 1:
+        raise ValueError(f"rounds_per_dispatch must be >= 1, got {rpd!r}")
+    return r
 
 
 @dataclasses.dataclass
@@ -114,24 +149,24 @@ class FederatedTrainer:
         weighted_loss_fn: Callable | None = None,
         device=None,
         shards: int | None = None,
-        rounds_per_dispatch: int = 1,
+        rounds_per_dispatch: int | str = "auto",
         channel_noise=None,
         fault_model=None,
         aggregator=None,
-        client_store: str | None = None,
+        client_store: str = "auto",
+        device_mem_budget: int | None = None,
         local_scheme=None,
     ):
         if backend not in ("packed", "reference"):
             raise ValueError(f"unknown backend {backend!r}")
-        if rounds_per_dispatch != 1:
-            _not_ported("rounds_per_dispatch != 1 (block dispatch)", "7")
+        if client_store not in ("auto", "replicated", "streamed"):
+            raise ValueError(f"unknown client_store {client_store!r}")
         if shards not in (None, 1):
-            _not_ported("shards > 1 (multi-device sharding)", "13")
+            _not_ported("shards > 1 (multi-device sharding)", "8")
         if local_scheme is not None:
-            _not_ported("local_scheme", "10")
-        if client_store is not None:
-            _not_ported(f"client_store={client_store!r}",
-                        "11" if client_store == "streamed" else "7")
+            _not_ported("local_scheme", "4")
+        if client_store == "streamed":
+            _not_ported("client_store='streamed' (cohort streaming)", "5")
         self.device = resolve_device(device)
         # Per-sample-weighted loss: ragged client batches are padded with
         # zero-weight samples so they stay on the packed path
@@ -154,6 +189,23 @@ class FederatedTrainer:
         self.prune_spec = prune_spec
         self.backend = backend
         self.n_fallback_rounds = 0
+        # block execution (packed backend): K rounds a block_step over the
+        # device-resident store; n_batch_uploads counts per-round
+        # host-to-device batch uploads (the block path makes none)
+        self.rounds_per_dispatch = (
+            _resolve_rounds_per_dispatch(rounds_per_dispatch, self.device)
+            if backend == "packed" else 1)
+        self._store: ClientStore | None = None
+        self.n_batch_uploads = 0
+        self.n_block_dispatches = 0
+        # the client-store policy: "replicated" builds the full store,
+        # "auto" does while its estimated size fits device_mem_budget
+        self.client_store = client_store
+        self.device_mem_budget = (int(device_mem_budget) if device_mem_budget
+                                  else default_device_budget())
+        self._store_nbytes: int | None = None
+        # lifecycle hooks of the current run() (the api.Callback protocol)
+        self._callbacks: tuple = ()
         # channel noise (wireless/channel.GaussianAggregateNoise protocol:
         # sample_packed(round, shape, valid)), drawn on the host per round
         # in the packed layout; the reference backend unpacks the same draw
@@ -171,6 +223,9 @@ class FederatedTrainer:
                                if aggregator is not None else "mean")
         self.agg_counters = ({aggregator.stat_field: 0}
                              if aggregator is not None else {})
+        # the local-update scheme's trainer-reuse key: single-step FedSGD,
+        # the only scheme the port runs
+        self.local_key = ("fedsgd",)
         params = {k: t.detach().to(self.device) for k, t in params.items()}
         if backend == "packed":
             self.pack = ParamPack.build(params, prune_spec)
@@ -188,10 +243,31 @@ class FederatedTrainer:
 
     def reset(self, params: Params, seed: int, *, channel_noise=None,
               fault_model=None) -> None:
-        """The sweep service's trainer-reuse hook (a fresh run over the same
-        wiring); not ported yet."""
-        _not_ported("FederatedTrainer.reset (trainer reuse by the sweep "
-                    "service)", "12")
+        """Reinitialise all run state for a fresh run over the same wiring
+        (clients, loss, eta, batch, backend): the trainer-reuse hook of
+        `Experiment.build(trainer=)`. The engine, its captured CUDA graphs
+        and the device-resident ClientStore survive; params, the global
+        gradient, the batch RNG and every counter are reset as the
+        constructor sets them, so a reused trainer's trajectory is bit for
+        bit a new one's."""
+        self.rng = np.random.default_rng(seed)
+        self.channel_noise = channel_noise
+        self.fault_model = fault_model
+        self.fault_counters = {"n_dropped": 0, "n_quarantined": 0,
+                               "n_skipped_rounds": 0, "n_corrupt_finite": 0}
+        self.agg_counters = ({self.aggregator.stat_field: 0}
+                             if self.aggregator is not None else {})
+        self.n_fallback_rounds = 0
+        self.n_batch_uploads = 0
+        self.n_block_dispatches = 0
+        self._callbacks = ()
+        params = {k: t.detach().to(self.device) for k, t in params.items()}
+        if self.backend == "packed":
+            self._w, self._v = self.engine.init_buffers(params)
+        else:
+            self._params = params
+            self._global_grad = {k: torch.zeros_like(t)
+                                 for k, t in params.items()}
 
     # Params / global gradient are stored packed on the packed backend; the
     # properties give both backends the same dict view.
@@ -474,11 +550,10 @@ class FederatedTrainer:
             return self._reference_round(selected, lam_s, batches, s=s,
                                          fault=fault)
         lam_sel = np.asarray([lam_s[n] for n in selected], np.float64)
-        xs = torch.as_tensor(np.stack([b[0] for b in batches]),
-                             device=self.device)
-        ys = torch.as_tensor(np.stack([b[1] for b in batches]),
-                             device=self.device)
+        xs = to_device(np.stack([b[0] for b in batches]), self.device)
+        ys = to_device(np.stack([b[1] for b in batches]), self.device)
         sws = np.stack([b[2] for b in batches])
+        self.n_batch_uploads += 1
         self._w, self._v, losses, _, _ = self.engine.round_step(
             self._w, self._v, xs, ys, lam_sel,
             # all-ones weights carry no information: the engine keeps a
@@ -492,6 +567,177 @@ class FederatedTrainer:
         ast = (self.engine.last_agg_stat if self.aggregator is not None
                else None)
         return losses, self.engine.last_n_ok, ast
+
+    # -- block execution ----------------------------------------------------
+
+    def store_nbytes(self) -> int:
+        """Estimated device bytes of a replicated ClientStore for this
+        trainer's clients (cached)."""
+        if self._store_nbytes is None:
+            self._store_nbytes = estimated_store_nbytes(self.clients)
+        return self._store_nbytes
+
+    def store_mode(self) -> str:
+        """The resolved client-store policy. "auto" resolves to
+        "replicated" while the estimated store fits device_mem_budget; past
+        it, to "streamed", which is not ported yet."""
+        if self.client_store != "auto":
+            return self.client_store
+        if self.store_nbytes() <= self.device_mem_budget:
+            return "replicated"
+        _not_ported(f"client_store='auto' over the device-memory budget "
+                    f"({self.store_nbytes()} > {self.device_mem_budget} "
+                    f"bytes) resolves to cohort streaming, which", "5")
+
+    def check_store_budget(self) -> None:
+        """Raise StoreBudgetError when block execution would build a
+        replicated store over the device-memory budget; `Experiment.build`
+        calls it at spec time and `_ensure_store` before the copy."""
+        if (self.backend == "packed" and self.rounds_per_dispatch > 1
+                and self.store_mode() == "replicated"
+                and self.store_nbytes() > self.device_mem_budget):
+            raise StoreBudgetError(len(self.clients), self.store_nbytes(),
+                                   self.device_mem_budget)
+
+    def _ensure_store(self) -> ClientStore:
+        """Build (once) the device-resident store the blocks gather from."""
+        if self._store is None:
+            self.check_store_budget()
+            self._store = ClientStore.build(self.clients, device=self.device)
+        return self._store
+
+    def _block_key(self, selected: list[int], lam_s: np.ndarray):
+        """What rounds of one block share (client-axis bucket, shared or
+        per-client lambda, batch length), or None for a round the block
+        path cannot take (empty, or mixed batch lengths without a weighted
+        loss: the per-round path handles those as before)."""
+        if not selected:
+            return None
+        lens = [min(self.batch_size, len(self.clients[n])) for n in selected]
+        if self._weighted_loss is not None:
+            blen = self.batch_size       # ragged clients pad to batch_size
+        elif len(set(lens)) == 1:
+            blen = lens[0]               # uniformly short: packed, no pad
+        else:
+            return None
+        ks = np.floor(np.asarray([lam_s[n] for n in selected], np.float64)
+                      * self.pack.n_prunable).astype(np.int32)
+        shared = bool((ks == ks[0]).all())
+        return (self.engine.bucket_size(len(selected)), shared, blen)
+
+    def _plan_blocks(self, infos, boundaries: set, rpd: int,
+                     first_round: int = 0) -> dict:
+        """Split the (truncated) schedule into blocks: {start: K}. Rounds
+        group while their _block_key matches, and a group ends at a
+        boundary round (eval or checkpoint: both read the state after that
+        round). Each group is cut into power-of-two blocks of at most `rpd`
+        rounds (no padded rounds, which would cost a round of gradients
+        each). `first_round` skips rounds already run before a resume."""
+        blocks: dict[int, int] = {}
+        n = len(infos)
+        i = first_round
+        while i < n:
+            key = self._block_key(infos[i][0], infos[i][1])
+            if key is None:
+                i += 1
+                continue
+            j = i
+            while j < n and self._block_key(infos[j][0], infos[j][1]) == key:
+                j += 1
+                if (j - 1) in boundaries:
+                    break
+            start, left = i, j - i
+            while left:
+                k = 1 << (min(left, rpd).bit_length() - 1)
+                blocks[start] = k
+                start += k
+                left -= k
+            i = j
+        return blocks
+
+    def _block_cids(self, start: int, n_rounds: int,
+                    infos) -> tuple[np.ndarray, np.ndarray]:
+        """The block's client ids [K, c_max] (a round padded by repeating
+        its last real client) and real counts [K]; consumes no RNG."""
+        sels = [infos[start + k][0] for k in range(n_rounds)]
+        counts = np.asarray([len(s) for s in sels], np.int64)
+        cids = np.empty((n_rounds, int(counts.max())), np.int32)
+        for k, sel in enumerate(sels):
+            cids[k, :len(sel)] = sel
+            cids[k, len(sel):] = sel[-1]
+        return cids, counts
+
+    def _exec_block(self, start: int, n_rounds: int, infos,
+                    out: dict) -> None:
+        """Rounds [start, start + n_rounds) as one engine.block_step; each
+        round's (losses, n_ok, agg stat), still on the device, lands in
+        `out`. The indices are drawn with the `choice` calls `_sample_batch`
+        makes, in the same order, so the batch stream is the per-round
+        path's bit for bit."""
+        sels = [infos[start + k][0] for k in range(n_rounds)]
+        cids, counts = self._block_cids(start, n_rounds, infos)
+        c_max = int(counts.max())
+        blen = self._block_key(sels[0], infos[start][1])[2]
+        idxs = np.empty((n_rounds, c_max, blen), np.int32)
+        sw = np.ones((n_rounds, c_max, blen), np.float32)
+        lams = np.empty((n_rounds, c_max), np.float64)
+        fault_on = self.fault_model is not None
+        fw = np.ones((n_rounds, c_max), np.float32) if fault_on else None
+        # per round: its factors and poison, or None where round_step
+        # would take none
+        cfs: list = [None] * n_rounds
+        pos: list = [None] * n_rounds
+        any_ragged = False
+        for k, sel in enumerate(sels):
+            lam_s = infos[start + k][1]
+            fault = infos[start + k][6]
+            if fault is not None:
+                fw[k, :len(sel)] = np.asarray(fault.upload_ok, np.float32)
+                po = self._poison_stack(fault)
+                if fault.corrupt is not None or po is not None:
+                    cf = np.ones(c_max, np.float32)
+                    if fault.corrupt is not None:
+                        cf[:len(sel)] = fault.corrupt
+                    cfs[k] = cf
+                if po is not None:
+                    pk = np.zeros((c_max,) + po.shape[1:], np.float32)
+                    pk[:len(sel)] = po
+                    pos[k] = pk
+            for j, n in enumerate(sel):
+                lams[k, j] = lam_s[n]
+                draw = self._draw_indices(len(self.clients[n]))
+                m = len(draw)
+                if m < blen:             # ragged: repeat the last sample
+                    idxs[k, j, :m] = draw        # with weight 0, as
+                    idxs[k, j, m:] = draw[-1]    # _sample_batch pads
+                    sw[k, j, m:] = 0.0
+                    any_ragged = True
+                else:
+                    idxs[k, j] = draw
+            c_k = len(sel)               # pad rows as _block_cids pads cids
+            idxs[k, c_k:] = idxs[k, c_k - 1]
+            sw[k, c_k:] = sw[k, c_k - 1]
+            lams[k, c_k:] = lam_s[sel[-1]]
+        noises = (np.stack([self._noise_packed(start + k)
+                            for k in range(n_rounds)])
+                  if self.channel_noise else None)
+        self._w, self._v, losses, _ = self.engine.block_step(
+            self._w, self._v, self._ensure_store(), cids, idxs, lams, counts,
+            sample_weights=sw if any_ragged else None, noises=noises,
+            upload_weights=fw,
+            corrupt=cfs if any(c is not None for c in cfs) else None,
+            poisons=pos if any(p is not None for p in pos) else None)
+        n_oks = self.engine.last_n_ok
+        asts = (self.engine.last_agg_stat if self.aggregator is not None
+                else None)
+        self.n_block_dispatches += 1
+        for k in range(n_rounds):
+            out[start + k] = (losses[k, :int(counts[k])], n_oks[k],
+                              asts[k] if asts is not None else None)
+        # right after the dispatch: the block's results are still on the
+        # device, so a hook here forces no sync
+        for cb in self._callbacks:
+            cb.on_block_end(start, n_rounds, self)
 
     # -- full run -----------------------------------------------------------
 
@@ -512,14 +758,29 @@ class FederatedTrainer:
         """Execute the schedule. eval_fn(params) -> (test_loss, test_acc),
         at rounds s % eval_every == 0 and at the last round.
 
-        Per-round train losses stay device tensors and are materialized
-        lazily (at eval points and at the end of the run), so the packed
-        rounds never wait on a device->host sync. The wireless bookkeeping
-        and the stop conditions are schedule-pure and computed up front."""
-        if callbacks:
-            _not_ported("run(callbacks=...) (the Experiment API)", "8")
-        if start_round:
-            _not_ported("run(start_round=...) (checkpoint resume)", "8")
+        ``callbacks`` follow the repro_torch.api.Callback protocol and fire
+        at materialisation points only (never a per-round device sync):
+        ``on_round_end(m, self)`` once a round, in order, batched at the
+        next materialisation point; ``on_eval(m, self)`` after eval_fn;
+        ``on_block_end(start, k, self)`` after each block dispatch;
+        ``on_checkpoint(m, self)`` at rounds where ``m.round %
+        cb.checkpoint_every == 0``, which become block boundaries, so the
+        state there is exactly the state after that round.
+
+        ``start_round`` skips the rounds before it (their bookkeeping is
+        still computed, so cumulative counters, stop truncation and the
+        eval cadence are an uninterrupted run's): with params, the global
+        gradient and the batch RNG restored from a checkpoint taken after
+        round ``start_round - 1`` the rest of the run replays bit for bit.
+        The returned history covers the executed rounds only.
+
+        Per-round train losses stay device tensors and are materialised
+        lazily (at eval and checkpoint points and at the end), so the
+        packed rounds never wait on a device->host sync. With
+        ``rounds_per_dispatch`` > 1 the rounds run in blocks
+        (`_plan_blocks`, `_exec_block`)."""
+        callbacks = tuple(callbacks)
+        self._callbacks = callbacks
         history: list[RoundMetrics] = []
         # rounds whose losses / survivor counts are still device values:
         # (metrics, losses, n_ok, fault draw, reducer count)
@@ -562,11 +823,15 @@ class FederatedTrainer:
                     flags = getattr(fault.poison, "flags", None)
                     if flags is not None:
                         ncf += int((arrived & np.asarray(flags, bool)).sum())
-                    self.fault_counters["n_corrupt_finite"] += ncf
+                    self.fault_counters["n_corrupt_finite"] = (
+                        self.fault_counters.get("n_corrupt_finite", 0) + ncf)
                 if ast is not None and self.aggregator is not None:
                     m.n_agg_adjusted = int(ast)
-                    self.agg_counters[self.aggregator.stat_field] += \
-                        m.n_agg_adjusted
+                    sf = self.aggregator.stat_field
+                    self.agg_counters[sf] = (self.agg_counters.get(sf, 0)
+                                             + m.n_agg_adjusted)
+                for cb in callbacks:
+                    cb.on_round_end(m, self)
             pending.clear()
 
         n_rounds = schedule.a.shape[0]
@@ -594,24 +859,62 @@ class FederatedTrainer:
             if stop_energy is not None and cum_e >= stop_energy:
                 break
 
-        for s, (selected, lam_s, d, e, cum_t, cum_e,
-                fault) in enumerate(infos):
-            if selected:
-                losses, n_ok, ast = self._round(selected, lam_s, s=s,
-                                                fault=fault)
-            else:
-                losses = n_ok = ast = None
-            m = RoundMetrics(
-                round=s, train_loss=float("nan"), selected=selected,
-                mean_lambda=(float(lam_s[selected].mean())
-                             if selected else 0.0),
-                delay=d, energy=e,
-                cumulative_delay=cum_t, cumulative_energy=cum_e)
-            pending.append((m, losses, n_ok, fault, ast))
-            if eval_fn is not None and (s % eval_every == 0
-                                        or s == n_rounds - 1):
-                materialize()
-                m.test_loss, m.test_accuracy = eval_fn(self.params)
-            history.append(m)
-        materialize()
+        # checkpoint rounds: materialisation points and block boundaries,
+        # so the hook sees the state after exactly that round
+        def _ckpt_cbs(s: int) -> list:
+            return [cb for cb in callbacks
+                    if getattr(cb, "checkpoint_every", None)
+                    and s % cb.checkpoint_every == 0]
+
+        ckpt_rounds = {s for s in range(start_round, len(infos))
+                       if _ckpt_cbs(s)}
+        blocks: dict[int, int] = {}
+        if self.rounds_per_dispatch > 1 and self.backend == "packed":
+            boundaries = set(ckpt_rounds)
+            if eval_fn is not None:
+                boundaries |= {s for s in range(len(infos))
+                               if s % eval_every == 0}
+                boundaries.add(n_rounds - 1)
+            blocks = self._plan_blocks(infos, boundaries,
+                                       self.rounds_per_dispatch,
+                                       first_round=start_round)
+
+        block_losses: dict[int, Any] = {}
+        try:
+            for s, (selected, lam_s, d, e, cum_t, cum_e,
+                    fault) in enumerate(infos):
+                if s < start_round:
+                    continue       # run before the checkpoint
+                if s in blocks:
+                    self._exec_block(s, blocks[s], infos, block_losses)
+                if s in block_losses:
+                    losses, n_ok, ast = block_losses.pop(s)
+                elif selected:
+                    losses, n_ok, ast = self._round(selected, lam_s, s=s,
+                                                    fault=fault)
+                else:
+                    losses = n_ok = ast = None
+                m = RoundMetrics(
+                    round=s, train_loss=float("nan"), selected=selected,
+                    mean_lambda=(float(lam_s[selected].mean())
+                                 if selected else 0.0),
+                    delay=d, energy=e,
+                    cumulative_delay=cum_t, cumulative_energy=cum_e)
+                pending.append((m, losses, n_ok, fault, ast))
+                is_eval = (eval_fn is not None
+                           and (s % eval_every == 0 or s == n_rounds - 1))
+                if is_eval or s in ckpt_rounds:
+                    materialize()
+                    if is_eval:
+                        m.test_loss, m.test_accuracy = eval_fn(self.params)
+                        for cb in callbacks:
+                            cb.on_eval(m, self)
+                    for cb in _ckpt_cbs(s):
+                        cb.on_checkpoint(m, self)
+                history.append(m)
+            materialize()
+        finally:
+            # a raising hook (a simulated kill after a checkpoint) must not
+            # leave callback references on the trainer
+            self._callbacks = ()
         return history

@@ -26,20 +26,34 @@ the weighted loss. Only the integers k and the scalar 1/C come from the
 host, with the fault and noise operands; nothing in the round syncs the
 device.
 
+``block_step`` runs K rounds from one upload of the block's schedule
+operands, gathering every batch on the device from a `ClientStore`
+(core/client_store.py): the port of the JAX package's ``lax.scan`` block.
+On CUDA each distinct round body (client bucket, shared or per-client
+lambda, batch length, sample weights, the noise / fault / poison operands)
+is captured once as a CUDA graph and replayed once a round; the first round
+of a body runs eagerly as its real round and serves as the capture's
+warm-up. On the CPU the same body runs eagerly. Either way each round is
+exactly the body ``round_step`` runs, so a block is bit for bit K
+``round_step`` calls.
+
 On the CPU the kernels' plain versions run and the engine reproduces the
 reference trainer value for value; on CUDA the kernels are bit-identical to
 the plain versions, so the same holds there.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.core.packing import ParamPack
+from repro_torch.core.packing import LANES, ParamPack
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.counters import LAUNCHES
 
 
 def kth_smallest_threshold(q: torch.Tensor, prunable: torch.Tensor, k, *,
@@ -136,6 +150,18 @@ class RoundEngine:
         self._zero_stat = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
         self.buckets_used: set[int] = set()
+        # block lengths run by block_step (the pow2 ladder of the trainer)
+        self.k_buckets_used: set[int] = set()
+        # CUDA graphs of the block's round bodies, by body key (see
+        # _BlockLayout); the store they gather from is baked into them
+        self._graphs: dict[tuple, _RoundGraph] = {}
+        self._graph_store = None
+        self._graph_wv: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._capture_stream = None
+        self.graphs_captured = 0
+        self.graph_replays = 0
+        # host seconds spent in _capture (the eager round and the capture)
+        self.capture_seconds = 0.0
         # device constants by (bucket, selected count) / sample-weight shape
         self._cw_cache: dict[tuple, torch.Tensor] = {}
         self._sw_cache: dict[tuple, torch.Tensor] = {}
@@ -364,3 +390,403 @@ class RoundEngine:
             if thr.ndim:                      # per-client thresholds
                 thr = thr[:n_clients]
         return w2, g, losses, thr, step
+
+    # -- multi-round blocks -------------------------------------------------
+
+    def _ones_sw(self, c_b: int, batch: int) -> torch.Tensor:
+        """The all-ones sample weights round_step takes for a round without
+        ragged clients (one device constant a shape)."""
+        key = (c_b, batch)
+        sw = self._sw_cache.get(key)
+        if sw is None:
+            sw = self._sw_cache[key] = torch.ones(key, device=self.device)
+        return sw
+
+    def _block_round(self, lay: "_BlockLayout", store, w, v, row, noise,
+                     poison, cf_on: bool, out) -> None:
+        """One round of a block from its operand row (`_BlockLayout`):
+        gathers the batches from the store, runs the `round_step` body on
+        (w, v), writes (w', g) back into (w, v) and the round's losses,
+        thresholds, survivor and reducer counts into `out`. Every operand is
+        a device tensor, so a CUDA graph can capture the whole round."""
+        c_b, n_k = lay.c_b, lay.n_k
+        rowf = row.view(torch.float32)
+        o = lay.offsets
+        cid = row[o["cid"]:o["cid"] + c_b].long()
+        ix = row[o["ix"]:o["ix"] + c_b * lay.batch].view(c_b,
+                                                        lay.batch).long()
+        xs = store.x[cid[:, None], ix]
+        ys = store.y[cid[:, None], ix]
+        sw = (rowf[o["sw"]:o["sw"] + c_b * lay.batch].view(c_b, lay.batch)
+              if lay.has_sw else self._ones_sw(c_b, lay.batch))
+        cw = rowf[o["cw"]:o["cw"] + c_b]
+        inv = rowf[o["inv"]]
+        faults = {}
+        if cf_on:
+            faults["cf"] = rowf[o["cf"]:o["cf"] + c_b]
+        if poison is not None:
+            faults["poison"] = poison
+        if noise is not None:
+            faults["noise"] = noise
+        if lay.shared:
+            res = self._round_shared(w, v, xs, ys, sw, cw, inv, row[o["k"]],
+                                     **faults)
+        else:
+            res = self._round_multi(w, v, xs, ys, sw, cw, inv,
+                                    row[o["k"]:o["k"] + c_b], **faults)
+        w2, g, losses, thr, _, n_ok, ast = res
+        w.copy_(w2)
+        v.copy_(g)
+        outf = out.view(torch.float32)
+        outf[:c_b].copy_(losses)
+        outf[c_b:c_b + n_k].copy_(thr.reshape(-1))
+        out[-2].copy_(n_ok)
+        out[-1].copy_(ast)
+
+    def _capture(self, key, lay, store, w, v, row, noise, poison,
+                 cf_on) -> "_RoundGraph":
+        """Run one round eagerly as its real round on the capture stream,
+        then capture the same body as a CUDA graph over static buffers.
+        The eager round is the capture's warm-up (autograd, cuBLAS and the
+        histogram's per-stream state are set up on that stream), so no
+        extra round runs and (w, v) advance once. A failed capture raises:
+        on CUDA a block never runs its rounds eagerly beyond this one. The
+        wrappers' launch counts of the captured body are kept with the
+        graph and added at every replay; capturing launches nothing."""
+        from repro_torch.kernels import _build
+        _build.load()                    # never nvcc inside a capture
+        t0 = time.perf_counter()
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+        s = self._capture_stream
+        rg = _RoundGraph(row=row.clone(),
+                         noise=None if noise is None else noise.clone(),
+                         poison=None if poison is None else poison.clone(),
+                         out=torch.empty(lay.out_width, dtype=torch.int32,
+                                         device=self.device))
+        cur = torch.cuda.current_stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):
+            self._block_round(lay, store, w, v, rg.row, rg.noise, rg.poison,
+                              cf_on, rg.out)
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=s):
+                self._block_round(lay, store, w, v, rg.row, rg.noise,
+                                  rg.poison, cf_on, rg.out)
+        finally:
+            rg.launches = {n: LAUNCHES[n] - before[n] for n in LAUNCHES
+                           if LAUNCHES[n] != before[n]}
+            LAUNCHES.update(before)
+        cur.wait_stream(s)
+        rg.graph = graph
+        self._graphs[key] = rg
+        self.graphs_captured += 1
+        self.capture_seconds += time.perf_counter() - t0
+        return rg
+
+    @torch.no_grad()
+    def block_step(self, w, v, store, cids, idxs, lams, counts,
+                   sample_weights=None, noises=None, upload_weights=None,
+                   corrupt=None, poisons=None, h=None):
+        """K rounds from one upload of the block's operands.
+
+        store : ClientStore, the device-resident [C_all, N_max, ...] data.
+        cids  : [K, C] int, selected client ids a round in selected order;
+            a round with fewer than C clients is right-padded by repeating
+            its last real id (the per-round path's padding clients).
+        idxs  : [K, C, B] int, host-drawn sample indices into each client's
+            store rows (the trainer draws them with `_sample_batch`'s RNG
+            calls, so the batches are the per-round path's).
+        lams  : [K, C] float, pruning ratios, padded like cids.
+        counts: [K] int, the real selected count of each round.
+        sample_weights : [K, C, B] 0/1 weights or None.
+        noises : [K, R, L] packed aggregation noise a round, or None.
+        upload_weights : [K, C] 0/1 fault weights (0 = the upload never
+            arrived), or None.
+        corrupt : [K, C] gradient factors (1.0 = clean), or None; or a
+            sequence of K entries, each a [C] array or None for a round
+            that carries no factor (round_step's `corrupt=None`).
+        poisons : [K, C, R, L] additive upload poison, or None; or a
+            sequence of K entries, each [C, R, L] or None.
+
+        Every round is exactly the body `round_step` runs with the same
+        operands, so the block equals K `round_step` calls bit for bit. The
+        schedule operands go to the device in one upload a block; the
+        batches are gathered there (no batch data crosses, and nothing
+        syncs). On CUDA each round replays the CUDA graph of its body (one
+        graph a body key, `graphs_captured`; the first round of a key runs
+        eagerly as its real round and is captured); on the CPU the body
+        runs eagerly.
+
+        Returns (w', v', losses [K, C_b], thresholds [K] or [K, C_b]), all
+        device tensors; `losses[k, counts[k]:]` belong to padding clients.
+        `last_n_ok` and `last_agg_stat` hold the [K] survivor and reducer
+        counts. The client axis buckets as in `round_step`, and every round
+        of a block must share one bucket; K is not padded."""
+        if h is not None:
+            raise NotImplementedError(
+                "block_step(h=...) (FedDyn's per-client state) is not ported "
+                "to repro_torch yet (ROADMAP.md §1 item 4)")
+        if getattr(store, "sharded", False):
+            raise NotImplementedError(
+                "a data-sharded cohort store is not ported to repro_torch "
+                "yet (ROADMAP.md §1 item 5)")
+        lams = np.asarray(lams, np.float64)
+        if np.any((lams < 0.0) | (lams >= 1.0)):
+            raise ValueError(f"lambda must be in [0,1), got {lams}")
+        idxs = np.asarray(idxs, np.int32)
+        if idxs.ndim != 3:
+            raise ValueError(
+                f"expected [K, C, B] indices, got shape {idxs.shape}")
+        n_rounds, c_max, batch = idxs.shape
+        counts = np.asarray(counts, np.int64)
+        cids = np.asarray(cids)
+        if counts.shape != (n_rounds,) or cids.shape != (n_rounds, c_max) \
+                or lams.shape != (n_rounds, c_max):
+            raise ValueError("inconsistent block array shapes")
+        if int(counts.max()) > c_max or int(counts.min()) < 1:
+            raise ValueError(f"counts {counts} outside [1, {c_max}]")
+        ks = np.floor(lams * self.pack.n_prunable).astype(np.int32)
+        c_b = self.bucket_size(int(counts.max()))
+        if self.bucket_size(int(counts.min())) != c_b:
+            raise ValueError(
+                "rounds in one block must share a client-axis bucket "
+                f"(got counts {counts} -> buckets "
+                f"{sorted({self.bucket_size(int(c)) for c in counts})})")
+        self.buckets_used.add(c_b)
+        self.k_buckets_used.add(n_rounds)
+        pad = c_b - c_max
+
+        def pad_cols(a):
+            return np.concatenate(
+                [a, np.repeat(a[:, -1:], pad, axis=1)], axis=1) if pad else a
+
+        def pad_ones(a):
+            # padding clients carry weight 0; their factors stay clean
+            return np.concatenate(
+                [a, np.ones((n_rounds, pad), np.float32)],
+                axis=1) if pad else a
+
+        rows, lanes = self.pack.rows, LANES
+        cf, cf_on = _per_round(corrupt, n_rounds, (c_max,), 1.0, "corrupt")
+        po, po_on = _per_round(poisons, n_rounds, (c_max, rows, lanes), 0.0,
+                               "poisons")
+        faulted = (upload_weights is not None or cf_on.any()
+                   or po_on.any())
+        col = np.arange(c_max)[None, :]
+        live = (col < counts[:, None]).astype(np.float32)
+        if faulted:
+            uw = (np.ones((n_rounds, c_max), np.float32)
+                  if upload_weights is None
+                  else np.asarray(upload_weights, np.float32))
+            if uw.shape != (n_rounds, c_max):
+                raise ValueError("fault operand shapes must be [K, C]")
+            # the float64 1/n -> float32 cast of round_step
+            surv = (uw.astype(np.float64) * live).sum(1)
+            inv = np.where(surv > 0, 1.0 / np.maximum(surv, 1.0), 0.0)
+            cw = live * uw
+        else:
+            inv = 1.0 / counts
+            cw = live
+        shared = bool((ks == ks[:, :1]).all())
+        lay = _BlockLayout(c_b=c_b, batch=int(batch), shared=shared,
+                           has_sw=sample_weights is not None, has_cf=faulted)
+        sw = (None if sample_weights is None
+              else pad_cols(np.asarray(sample_weights, np.float32)))
+        if pad:
+            cw = np.concatenate([cw, np.zeros((n_rounds, pad), np.float32)],
+                                axis=1)
+            if po is not None:
+                po = np.concatenate(
+                    [po, np.zeros((n_rounds, pad, rows, lanes), np.float32)],
+                    axis=1)
+        # one upload: the operand rows, then the noise and poison stacks
+        parts = [lay.pack(pad_cols(cids.astype(np.int32)), pad_cols(idxs),
+                          pad_cols(ks)[:, :lay.n_k], cw, inv, sw,
+                          pad_ones(cf) if faulted else None)]
+        if noises is not None:
+            noises = np.asarray(noises, np.float32)
+            if noises.shape != (n_rounds, rows, lanes):
+                raise ValueError(f"noises shape {noises.shape} != "
+                                 f"({n_rounds}, {rows}, {lanes})")
+            parts.append(noises)
+        if po is not None:
+            parts.append(po)
+        dev_parts = _upload(parts, self.device)
+        row_stack = dev_parts[0]
+        noise_stack = dev_parts[1] if noises is not None else None
+        po_stack = dev_parts[-1] if po is not None else None
+        out = torch.empty((n_rounds, lay.out_width), dtype=torch.int32,
+                          device=self.device)
+
+        def operands(k):
+            # round_step scales by the factors whenever a round carries
+            # factors or poison (ones when only poison came)
+            return (row_stack[k],
+                    None if noise_stack is None else noise_stack[k],
+                    po_stack[k] if po_on[k] else None,
+                    bool(cf_on[k] or po_on[k]))
+
+        if self.device.type == "cuda":
+            if self._graph_store is not store:
+                # the graphs gather from the store they were captured with
+                self._graphs.clear()
+                self._graph_store = store
+            if self._graph_wv is None:
+                self._graph_wv = (torch.empty_like(w), torch.empty_like(v))
+            ws, vs = self._graph_wv
+            ws.copy_(w)
+            vs.copy_(v)
+            for k in range(n_rounds):
+                row, noise, poison, cf_k = operands(k)
+                key = (lay, cf_k, poison is not None, noise is not None)
+                rg = self._graphs.get(key)
+                if rg is None:
+                    rg = self._capture(key, lay, store, ws, vs, row, noise,
+                                       poison, cf_k)
+                else:
+                    rg.row.copy_(row)
+                    if noise is not None:
+                        rg.noise.copy_(noise)
+                    if poison is not None:
+                        rg.poison.copy_(poison)
+                    rg.graph.replay()
+                    self.graph_replays += 1
+                    for name, n in rg.launches.items():
+                        LAUNCHES[name] += n
+                out[k].copy_(rg.out)
+            w2, v2 = ws.clone(), vs.clone()
+        else:
+            w2, v2 = w.clone(), v.clone()
+            for k in range(n_rounds):
+                row, noise, poison, cf_k = operands(k)
+                self._block_round(lay, store, w2, v2, row, noise, poison,
+                                  cf_k, out[k])
+        outf = out.view(torch.float32)
+        losses = outf[:, :c_b]
+        thrs = outf[:, c_b:c_b + lay.n_k]
+        self.last_n_ok = out[:, -2]
+        self.last_agg_stat = out[:, -1]
+        return w2, v2, losses, thrs[:, 0] if shared else thrs
+
+
+@dataclasses.dataclass(frozen=True)
+class _BlockLayout:
+    """The int32 words of one round's operand row in a block: client ids
+    [C_b], sample indices [C_b*B], k (one, shared lambda) or ks [C_b], the
+    client weights [C_b] and 1/n (fp32 bits), then the sample weights
+    [C_b*B] and the corruption factors [C_b] when the block has them. The
+    output row: losses [C_b] and thresholds [n_k] (fp32 bits), the
+    survivor count and the reducer count."""
+
+    c_b: int
+    batch: int
+    shared: bool
+    has_sw: bool
+    has_cf: bool
+
+    @property
+    def n_k(self) -> int:
+        return 1 if self.shared else self.c_b
+
+    @property
+    def offsets(self) -> dict[str, int]:
+        sizes = [("cid", self.c_b), ("ix", self.c_b * self.batch),
+                 ("k", self.n_k), ("cw", self.c_b), ("inv", 1)]
+        if self.has_sw:
+            sizes.append(("sw", self.c_b * self.batch))
+        if self.has_cf:
+            sizes.append(("cf", self.c_b))
+        out, at = {}, 0
+        for name, n in sizes:
+            out[name] = at
+            at += n
+        out["end"] = at
+        return out
+
+    @property
+    def out_width(self) -> int:
+        return self.c_b + self.n_k + 2
+
+    def pack(self, cids, idxs, ks, cw, inv, sw, cf) -> np.ndarray:
+        """[K, width] int32 rows from the padded host operands."""
+        n = cids.shape[0]
+        o = self.offsets
+        rows = np.empty((n, o["end"]), np.int32)
+        rows[:, o["cid"]:o["ix"]] = cids
+        rows[:, o["ix"]:o["k"]] = idxs.reshape(n, -1)
+        rows[:, o["k"]:o["cw"]] = ks
+        f = rows.view(np.float32)
+        f[:, o["cw"]:o["inv"]] = cw
+        f[:, o["inv"]] = np.asarray(inv, np.float64).astype(np.float32)
+        if self.has_sw:
+            f[:, o["sw"]:o["sw"] + self.c_b * self.batch] = sw.reshape(n, -1)
+        if self.has_cf:
+            f[:, o["cf"]:o["cf"] + self.c_b] = cf
+        return rows
+
+
+class _RoundGraph:
+    """A captured round body with its static operand buffers: the operand
+    row, the round's noise and poison, and the output row; `launches` are
+    the kernel launches of one replay."""
+
+    def __init__(self, row, noise, poison, out):
+        self.row, self.noise, self.poison, self.out = row, noise, poison, out
+        self.graph = None
+        self.launches: dict[str, int] = {}
+
+
+def _per_round(op, n_rounds: int, shape, fill: float, name: str):
+    """A per-round block operand as ([K, *shape] float32 or None, [K]
+    bool): an array applies to every round; a sequence may hold None for
+    the rounds that carry no such operand (they get `fill`)."""
+    if op is None:
+        return None, np.zeros(n_rounds, bool)
+    if not isinstance(op, (list, tuple)):
+        arr = np.asarray(op, np.float32)
+        if arr.shape != (n_rounds,) + tuple(shape):
+            raise ValueError(f"{name} shape {arr.shape} != "
+                             f"{(n_rounds,) + tuple(shape)}")
+        return arr, np.ones(n_rounds, bool)
+    if len(op) != n_rounds:
+        raise ValueError(f"{name}: {len(op)} entries for {n_rounds} rounds")
+    on = np.asarray([e is not None for e in op], bool)
+    arr = np.full((n_rounds,) + tuple(shape), fill, np.float32)
+    for k, e in enumerate(op):
+        if e is not None:
+            e = np.asarray(e, np.float32)
+            if e.shape != tuple(shape):
+                raise ValueError(f"{name}[{k}] shape {e.shape} != {shape}")
+            arr[k] = e
+    return arr, on
+
+
+def _upload(parts, device) -> list[torch.Tensor]:
+    """Host arrays of 4-byte words to the device in one copy (from pinned
+    memory on CUDA, without waiting for the host), returned as device
+    views of the arrays' shapes and dtypes."""
+    flat = [np.ascontiguousarray(p).reshape(-1).view(np.int32)
+            for p in parts]
+    total = sum(f.size for f in flat)
+    if device.type == "cuda":
+        host = torch.empty(total, dtype=torch.int32, pin_memory=True)
+    else:
+        host = torch.empty(total, dtype=torch.int32)
+    hv = host.numpy()
+    at = 0
+    for f in flat:
+        hv[at:at + f.size] = f
+        at += f.size
+    dev = (host.to(device, non_blocking=True) if device.type == "cuda"
+           else host)
+    out, at = [], 0
+    for p, f in zip(parts, flat):
+        t = dev[at:at + f.size]
+        if np.asarray(p).dtype == np.float32:
+            t = t.view(torch.float32)
+        out.append(t.view(np.asarray(p).shape))
+        at += f.size
+    return out

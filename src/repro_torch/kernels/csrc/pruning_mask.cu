@@ -474,7 +474,7 @@ __device__ __forceinline__ int order_key(float x) {
 // coordinate of the [C, n] stack: it reads the coordinate's C values (row
 // c of neighbouring threads is one contiguous segment, so every read is
 // coalesced), keys them (zero-weight clients get the INT_MAX sentinel and
-// sort last), runs the odd-even transposition network of the TPU kernel
+// sort last; the weight is flushed first, as XLA compares it), runs the odd-even transposition network of the TPU kernel
 // fully unrolled in registers (C is a template parameter), and writes the C
 // ranks. The network swaps only on a strict key > key, so it is stable:
 // equal keys (the sentinel lanes included) keep their input order, and the
@@ -494,7 +494,7 @@ __global__ void client_rank_sort_kernel(const float* __restrict__ grads,
     for (int c = 0; c < C; ++c) {
       const float v = grads[static_cast<long long>(c) * n + i];
       val[c] = v;
-      key[c] = __ldg(&cw[c]) > 0.0f ? order_key(v) : INT_MAX;
+      key[c] = flush(__ldg(&cw[c])) > 0.0f ? order_key(v) : INT_MAX;
     }
 #pragma unroll
     for (int p = 0; p < C; ++p) {
@@ -532,7 +532,7 @@ __global__ void client_rank_sort_generic_kernel(
       const long long at = static_cast<long long>(c) * n + i;
       const float v = grads[at];
       out[at] = v;
-      keys[at] = cw[c] > 0.0f ? order_key(v) : INT_MAX;
+      keys[at] = flush(cw[c]) > 0.0f ? order_key(v) : INT_MAX;
     }
     for (int p = 0; p < n_clients; ++p) {
       for (int j = p & 1; j < n_clients - 1; j += 2) {

@@ -205,7 +205,8 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
     g = grads.float()
     cw = cweights.float()
     dev = g.device
-    valid = cw > 0.0
+    # XLA compares the flushed weight: a subnormal one is dead
+    valid = _pm.flush(cw) > 0.0
     n = valid.int().sum()
     nn = torch.clamp(n, min=1)
     c_b = g.shape[0]

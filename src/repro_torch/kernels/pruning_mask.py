@@ -64,8 +64,10 @@ _SCALE = 2.0**32
 
 def f32_scalar(x, like: torch.Tensor) -> torch.Tensor:
     """A host scalar as an fp32 0-dim tensor on `like`'s device (rounded
-    from double as jnp.asarray(x, float32) rounds it)."""
-    return torch.tensor(np.float32(x), device=like.device)
+    from double as jnp.asarray(x, float32) rounds it). A fill, not a copy
+    from the host, so a CUDA graph can capture it."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                      device=like.device)
 
 
 def _host_f32(x) -> float:
@@ -186,10 +188,12 @@ def client_rank_sort_plain(grads, cweights):
     """[C, R, L] sorted per coordinate along the client axis by
     `order_keys`, zero-weight clients keyed INT32_MAX (last): a stable sort
     of the keys and a gather, bitwise the transposition network's output on
-    every rank (the network swaps only on a strict >, so it is stable)."""
+    every rank (the network swaps only on a strict >, so it is stable). The
+    weight is flushed before the test, as XLA compares it: a subnormal
+    weight is zero."""
     g = grads.float()
     key = order_keys(g)
-    invalid = ~(cweights.float() > 0.0)
+    invalid = ~(flush(cweights.float()) > 0.0)
     key = torch.where(invalid[:, None, None],
                       torch.full_like(key, INT32_MAX), key)
     idx = torch.sort(key, dim=0, stable=True).indices

@@ -298,7 +298,7 @@ def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
     if impl == "flash_vjp":
         raise NotImplementedError(
             "attn_impl='flash_vjp' (the training path's custom backward) is "
-            "not ported yet: ROADMAP.md section 1, item 14 (training)")
+            "not ported yet: ROADMAP.md section 1, item 7.1 (training)")
     if impl == "chunked_skip" and causal and not window \
             and q.shape[1] == k.shape[1]:
         return chunked_attention_causal_skip(q, k, v, cap=cap,

@@ -35,7 +35,7 @@ class Runtime:
     attn_impl: "naive" | "chunked" | "chunked_skip" | "cuda" (the
     flash-attention kernel; the JAX package's "pallas") | "flash_vjp" (not
     ported). The JAX Runtime's training knobs (loss_chunk, remat) come
-    with training (ROADMAP.md section 1, item 14)."""
+    with training (ROADMAP.md section 1, item 7.1)."""
 
     attn_impl: str = "chunked"
     q_chunk: int = 512
@@ -45,7 +45,7 @@ class Runtime:
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                              f"section 1, item 14 ({item})")
+                              f"section 1, item {item}")
 
 
 # -- attention sub-block ------------------------------------------------------
@@ -179,17 +179,17 @@ def ssm_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
 # -- families not ported yet --------------------------------------------------
 
 def moe_block(*args, **kwargs):
-    _not_ported("the MoE block (mixtral, arctic)", "MoE")
+    _not_ported("the MoE block (mixtral, arctic)", "7.3, MoE")
 
 
 def hybrid_block(*args, **kwargs):
-    _not_ported("the hybrid block (hymba)", "hybrid")
+    _not_ported("the hybrid block (hymba)", "7.2, hybrid")
 
 
 def encoder_block(*args, **kwargs):
-    _not_ported("the encoder block (whisper)", "audio/vlm")
+    _not_ported("the encoder block (whisper)", "7.4, audio/vlm")
 
 
 def cross_block(*args, **kwargs):
     _not_ported("the cross-attention block (whisper, llama-vision)",
-                "audio/vlm")
+                "7.4, audio/vlm")

@@ -14,7 +14,7 @@ layers takes the place of ``lax.scan``. Caches are written in place
 local/global alternation) and ssm; the others raise NotImplementedError
 naming their ROADMAP item. Training (`loss_fn`) is not ported yet. The
 JAX package's `constrain_batch_model` is a no-op on one device and is
-dropped (sharding is ROADMAP item 13). Entry points run on CUDA unless
+dropped (sharding is ROADMAP item 8). Entry points run on CUDA unless
 given device="cpu".
 """
 from __future__ import annotations
@@ -28,15 +28,16 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.blocks import Runtime
 from repro_torch.models.layers import embed_init, rms_norm, softcap
 
-_NOT_PORTED = {"moe": "MoE", "hybrid": "hybrid", "audio": "audio/vlm",
-               "vlm": "audio/vlm"}
+# family -> its ROADMAP.md section 1 item
+_NOT_PORTED = {"moe": "7.3, MoE", "hybrid": "7.2, hybrid",
+               "audio": "7.4, audio/vlm", "vlm": "7.4, audio/vlm"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md section 1, item 14 ({_NOT_PORTED[cfg.family]})")
+            f"ROADMAP.md section 1, item {_NOT_PORTED[cfg.family]}")
     if cfg.family not in ("dense", "ssm"):
         raise ValueError(f"unknown family {cfg.family}")
 

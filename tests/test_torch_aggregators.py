@@ -178,6 +178,34 @@ def test_reducers_flush_subnormals_like_jax(name, kwargs):
     assert ((np.abs(raw) > 0) & (np.abs(raw) < FLT_MIN)).any()
 
 
+@pytest.mark.parametrize("name,kwargs", AGG_CASES, ids=AGG_IDS)
+def test_reducers_take_a_subnormal_weight_as_dead_like_jax(name, kwargs):
+    """XLA:CPU compares the flushed weight, so a client of weight 3e-39 is
+    excluded as if its weight were 0: from the ranks (the rank sort's key),
+    the valid count, the norms' median and the Krum scores. The port flushes
+    the weight before every `> 0` test: its result equals JAX's (bit for
+    bit for the sorted reducers) and its own result at weight 0, bit for
+    bit. The client holds large finite values, so counting it would move
+    every output."""
+    g, cw = garbage_stack(c=8, n_valid=6, seed=12)
+    g[2] = 50.0
+    cw[2] = np.float32(3e-39)
+    (gj, sj), (gt, st) = _reduce_both(name, kwargs, g, cw)
+    assert st == sj
+    if name in BITWISE:
+        np.testing.assert_array_equal(_bits(gt), _bits(gj))
+    else:
+        _assert_close(gt, gj, np.delete(g, 2, 0), np.delete(cw, 2))
+    dead = cw.copy()
+    dead[2] = 0.0
+    g0, s0 = tagg.make_aggregator(name, **kwargs).reduce(_t(g), _t(dead))
+    np.testing.assert_array_equal(_bits(gt), _bits(g0))
+    assert st == int(s0)
+    sv = tops.packed_client_rank_sort(_t(g), _t(cw)).numpy()
+    np.testing.assert_array_equal(
+        _bits(sv), _bits(tops.packed_client_rank_sort(_t(g), _t(dead))))
+
+
 def test_reducer_stat_counts_match_jax():
     g, cw = garbage_stack(n_valid=6)
     for name, kwargs, want in (("trimmed_mean", {"beta": 0.34}, 4),

@@ -41,6 +41,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_blocks import BLOCK_BODIES, block_case, round_args  # noqa: E402
 from repro_torch.core import (ClientData, FederatedTrainer,  # noqa: E402
                               ScaledMalicious, make_aggregator)
 from repro_torch.core import round_engine as tre  # noqa: E402
@@ -951,3 +952,111 @@ def test_serving_engine_runs_through_the_flash_kernel(dev):
             out.append(tok)
             pos += 1
         assert by_uid[uid] == out
+
+
+# -- multi-round blocks on CUDA graphs -----------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", BLOCK_BODIES)
+def test_graph_block_step_equals_eager_round_steps(dev, body):
+    """Two blocks of 4 rounds through the captured graphs (the second all
+    replays) against 8 eager round_step calls: parameters, v, losses,
+    thresholds, survivor and reducer counts bit for bit, and the kernels'
+    launch counts equal."""
+    eng, store, params, ops_, kw = block_case(dev, body, seed=7)
+    w0, v0 = eng.init_buffers(params)
+    pm.reset_launches()
+    w, v = w0, v0
+    ref = []
+    for _rep in range(2):
+        for k in range(4):
+            xs, ys, args = round_args(store, ops_, kw, k)
+            lams = args.pop("lams")
+            w, v, losses, thr, _ = eng.round_step(w, v, xs, ys, lams, **args)
+            ref.append((losses, thr, eng.last_n_ok, eng.last_agg_stat))
+    torch.cuda.synchronize()
+    eager_launches = dict(pm.LAUNCHES)
+    pm.reset_launches()
+    wb, vb = w0, v0
+    got = []
+    for _rep in range(2):
+        wb, vb, losses, thrs = eng.block_step(wb, vb, store, *ops_, **kw)
+        for k in range(4):
+            got.append((losses[k], thrs[k], eng.last_n_ok[k],
+                        eng.last_agg_stat[k]))
+    torch.cuda.synchronize()
+    assert dict(pm.LAUNCHES) == eager_launches
+    assert eng.graphs_captured >= 1 and eng.graph_replays >= 4
+    assert eng.graphs_captured + eng.graph_replays == 8
+    assert_bitwise(wb, w)
+    assert torch.equal(vb, v)
+    for k, (a, b) in enumerate(zip(got, ref)):
+        n = int(ops_[3][k % 4])
+        assert_bitwise(a[0][:n], b[0])
+        assert_bitwise(a[1].reshape(-1)[:b[1].numel()], b[1].reshape(-1))
+        assert int(a[2]) == int(b[2])
+        assert int(a[3]) == int(b[3])
+
+
+@pytest.mark.cuda
+def test_graphs_captured_bounded_by_body_keys(dev):
+    """A trainer on the card over 24 rounds of varying selection size, block
+    length and lambda (32-round blocks, eval every 5 rounds): the blocked
+    run equals the per-round run bit for bit, uploads no batch, and
+    captures one graph a distinct round body, whatever the rounds."""
+    rng = np.random.default_rng(3)
+    sizes = [40, 30, 7, 25, 33, 28]
+    clients = [ClientData(rng.normal(size=(n, 28, 28, 1)).astype(np.float32),
+                          rng.integers(0, 10, n).astype(np.int32))
+               for n in sizes]
+    n_rounds, n = 24, len(sizes)
+    a = np.zeros((n_rounds, n))
+    for s in range(n_rounds):
+        a[s, rng.choice(n, rng.integers(1, n + 1), replace=False)] = 1.0
+    lam = np.where(rng.random((n_rounds, 1)) < 0.5,
+                   np.round(rng.uniform(0.1, 0.5, (n_rounds, 1)), 2),
+                   rng.uniform(0.1, 0.5, (n_rounds, n)))
+    lam = np.broadcast_to(lam, a.shape).copy()
+    sched = Schedule(a=a, lam=lam, power=0.3 * np.ones_like(a),
+                     freq=3e8 * np.ones_like(a), theta=0.0, energy=0.0,
+                     delay=0.0, feasible=True)
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(3), device="cpu")
+    ch = ChannelModel(n)
+    out = {}
+    for rpd in ("auto", 1):
+        tr = FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
+                              clients, eta=0.1, batch_size=16, seed=0,
+                              rounds_per_dispatch=rpd)
+        hist = tr.run(sched, SystemParams.table1(n), ch.uplink, ch.downlink,
+                      eval_fn=lambda p: (0.0, 0.0), eval_every=5)
+        out[rpd] = (tr, hist)
+    (tb, hb), (t1, h1) = out["auto"], out[1]
+    assert tb.rounds_per_dispatch == 32 and tb.n_batch_uploads == 0
+    assert tb.n_block_dispatches > 1
+    assert [m.train_loss for m in hb] == [m.train_loss for m in h1]
+    for k in tb.params:
+        assert_bitwise(tb.params[k], t1.params[k])
+    eng = tb.engine
+    # (bucket, shared lambda), times ragged blocks or not (client 2 holds
+    # fewer samples than the batch)
+    keys = {(tb.engine.bucket_size(int(a[s].sum())),
+             len(set(np.floor(lam[s][a[s] > 0] * tb.pack.n_prunable)
+                     .astype(int))) == 1) for s in range(n_rounds)}
+    assert eng.graphs_captured == len(eng._graphs) <= 2 * len(keys)
+    assert eng.graphs_captured + eng.graph_replays == n_rounds
+
+
+@pytest.mark.cuda
+def test_rank_sort_kernel_takes_a_subnormal_weight_as_zero(dev):
+    """Kernel 6 flushes each client's weight before the > 0 test, as XLA
+    compares it: a weight of 3e-39 sorts its client last, like weight 0,
+    at C = 5 (the register network) and C = 33 (the generic kernel)."""
+    for n_clients in (5, 33):
+        g, cw = _rank_stack(dev, n_clients, seed=n_clients)
+        cw = torch.ones_like(cw)
+        cw[2] = 3e-39
+        out = pm.client_rank_sort(g, cw)
+        assert_bitwise(out, pm.client_rank_sort_plain(g, cw))
+        cw0 = cw.clone()
+        cw0[2] = 0.0
+        assert_bitwise(out, pm.client_rank_sort_plain(g, cw0))

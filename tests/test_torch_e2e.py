@@ -234,7 +234,11 @@ for need in ("repro_torch.kernels._build", "repro_torch.configs.registry",
              "repro_torch.kernels.flash_attention",
              "repro_torch.kernels.decode_attention",
              "repro_torch.kernels.ssd_chunk", "repro_torch.serving.engine",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve", "repro_torch.api.spec",
+             "repro_torch.api.registry", "repro_torch.api.callbacks",
+             "repro_torch.api.experiment", "repro_torch.api.cli",
+             "repro_torch.checkpoint.io", "repro_torch.core.client_store",
+             "repro_torch.data.loader"):
     assert need in sys.modules, need
 print(len(names))
 """
@@ -244,7 +248,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 54
+    assert int(out.stdout.split()[-1]) >= 63
 
 
 def test_entry_points_default_to_cuda():

@@ -159,7 +159,7 @@ def test_attend_sends_short_sequences_to_the_naive_path(monkeypatch):
     (_, tq), (_, tk), (_, tv) = _qkv(1, 256, 4, 2, 64)
     attn.attend(tq, tk, tv, impl="cuda")
     assert called
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match=r"item 7\.1 "):
         attn.attend(tq, tk, tv, impl="flash_vjp")
     with pytest.raises(ValueError, match="unknown attention impl"):
         attn.attend(tq, tk, tv, impl="pallas")
@@ -293,7 +293,7 @@ def test_families_not_ported_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
         T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match=r"item 7\.[234], "):
         T.init_cache(cfg, 1, 16, device="cpu")
 
 
