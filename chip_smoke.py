@@ -31,9 +31,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      q; the weighted aggregate is also timed at the slices' own mixes (8
      clients with 2 padding, 10 clients); the histogram, the
      shared-threshold mask, the weighted aggregate and the masked update
-     also at R = 65,536, where bytes decide; the aggregate kernels
-     (weighted, unweighted, masked update) also on subnormal gradients,
-     with products that round up to FLT_MIN;
+     also at R = 65,536, where bytes decide; kernels 1-4 also at
+     ResNet-20's packed shape (R = 2,304, its prunable mask, spec C's 4
+     clients); the aggregate kernels (weighted, unweighted, masked update)
+     also on subnormal gradients, with products that round up to FLT_MIN;
   3. the pruned-FedSGD path: the paper's pipeline on synthetic-mnist (10
      clients, sigma = 5) with the `proposed` AO schedule at E0 = 25 J,
      T0 = 15 s over 40 rounds, LeNet from a seeded init, trained once by
@@ -73,7 +74,20 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      round, device busy, idle share, the host's CUDA calls a round); kill
      after round 20's checkpoint and `resume_from_checkpoint`, bit for bit
      the uninterrupted blocked run;
-  8. the LM stack's kernels against their plain versions in bf16 (the
+  8. the paper's CIFAR-10 path through the experiment API, spec C
+     (benchmarks/common.py's synthetic-cifar10 cell: 10 clients, sigma = 1,
+     ResNet-20 at 272,250 coordinates packed [2304, 128], `proposed` at
+     E0 = 4 J, T0 = 40 s, eta 0.1, batch 32): first ResNet-20's gradient
+     against an fp64 one (within 1e-3 relative L2 under the engine's
+     scope; TF32, the planted fault, outside it); FedSGD over 60 rounds (its
+     schedule spends 47 J, so the budget stop is off) and FedProx (E = 2,
+     mu 0.01), FedDyn (E = 2, alpha 0.01) and FedAvg at E = 3 over 20, each
+     three ways as in phase 7; parameters and FedDyn's state bit for bit,
+     v as values, equal histories, the last round's train loss below round
+     0's; steady 8-round windows of FedSGD and FedDyn, blocked and per
+     round; kill after round 10's checkpoint of the blocked FedDyn run and
+     resume, bit for bit with h;
+  9. the LM stack's kernels against their plain versions in bf16 (the
      JAX package's bf16 kernel tolerance, 2e-2): flash attention at
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
@@ -82,7 +96,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
      over every kernel the wrapper launches per call;
-  9. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
+ 10. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
      served by the continuous-batching engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
      slots; flash launches == 40 x 16, engine tokens == a sequential
@@ -93,13 +107,15 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      of the plain version on its own inputs; then a profiled window; and
      the decode kernel on the served caches, every
      layer, each row at its last request's position;
- 10. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
+ 11. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
      (slots reused; tokens == a fresh sequential generation), and the SSD
      entry point on layer 0's real inputs for a 512-token prompt: its 4
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
- 11. one JSON line listing the ten kernels, then the result line.
+ 12. one JSON line listing the ten kernels (kernels 1-4 with their
+     launches on spec C's blocked runs beside the slice's), then the
+     result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -139,7 +155,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
 from repro_torch.models import (lenet_apply, lenet_init, make_eval_fn,  # noqa: E402
-                                make_loss_fn)
+                                make_loss_fn, resnet_init)
 from repro_torch.wireless import (ChannelModel,  # noqa: E402
                                   GaussianAggregateNoise, SystemParams)
 
@@ -790,6 +806,57 @@ def check_kernels(dev, pack: ParamPack, card: str) -> dict:
               lambda: pm.masked_update_plain(wb, gb, mb, 0.05),
               MASKED_SYMBOL, 4 * 4 * nb, 3 * nb)
     del wb, gb, mb
+
+    # kernels 1-4 at ResNet-20's packed shape, spec C's path: R = 2304, its
+    # prunable mask (scale and bias leaves kept), lambda 0.7 as its
+    # schedule gives, 4 clients a round
+    rn = ParamPack.build(resnet_init(torch.Generator().manual_seed(0),
+                                     device=dev))
+    rs = (rn.rows, LANES)
+    nr = rs[0] * rs[1]
+    prr = torch.as_tensor(rn.prunable_mask(), device=dev)
+    wr = arr(rng.normal(size=rs))
+    vr = arr(1e-3 * rng.normal(size=rs))
+    qr = pm.importance(wr, vr)
+    label = f"R={rn.rows} (ResNet-20, spec C)"
+    extra_row("exponent_histogram", label,
+              all(bits_equal(pm.exponent_histogram(qr, prr),
+                             pm.exponent_histogram_plain(qr, prr))
+                  for _ in range(3)),
+              lambda: pm.exponent_histogram(qr, prr),
+              lambda: pm.exponent_histogram_plain(qr, prr), HIST_SYMBOL,
+              2 * 4 * nr + 4 * 256, 2 * nr)
+    thr_r = kth_smallest_threshold(qr, prr, int(0.7 * rn.n_prunable))
+    kq, km = pm.importance_mask_2d(wr, vr, prr, thr_r)
+    pq, pms = pm.importance_masks_plain(wr, vr, prr, thr_r)
+    extra_row("importance_mask_2d", label,
+              bits_equal(kq, pq) and bits_equal(km, pms[0]),
+              lambda: pm.importance_mask_2d(wr, vr, prr, thr_r),
+              lambda: pm.importance_masks_plain(wr, vr, prr, thr_r),
+              MASK_SYMBOL, 5 * 4 * nr + 4, 3 * nr)
+    thr_r4 = kth_smallest_threshold(qr, prr, torch.as_tensor(
+        [int(f * rn.n_prunable) for f in (0.6, 0.7, 0.7, 0.8)], device=dev))
+    extra_row("importance_mask_batched", label + ", C=4",
+              all(bits_equal(a, b) for a, b in zip(
+                  pm.importance_mask_batched(wr, vr, prr, thr_r4),
+                  pm.importance_masks_plain(wr, vr, prr, thr_r4))),
+              lambda: pm.importance_mask_batched(wr, vr, prr, thr_r4),
+              lambda: pm.importance_masks_plain(wr, vr, prr, thr_r4),
+              "importance_masks_kernel", (4 + 4) * 4 * nr + 4 * 4,
+              (3 + 4) * nr)
+    g4 = arr(rng.normal(size=(4,) + rs))
+    cw4 = torch.ones(4, device=dev)
+    inv4 = torch.tensor(np.float32(1 / 4), device=dev)
+    extra_row("fedsgd_aggregate_weighted", label + ", C=4",
+              all(bits_equal(a, b) for a, b in zip(
+                  pm.fedsgd_aggregate_weighted(wr, g4, cw4, inv4, eta),
+                  pm.fedsgd_aggregate_weighted_plain(wr, g4, cw4, inv4,
+                                                     eta))),
+              lambda: pm.fedsgd_aggregate_weighted(wr, g4, cw4, inv4, eta),
+              lambda: pm.fedsgd_aggregate_weighted_plain(wr, g4, cw4, inv4,
+                                                         eta),
+              AGG_SYMBOL, (1 + 4 + 3) * 4 * nr + 4 * 6, (2 * 4 + 3) * nr)
+    del wr, vr, qr, g4, kq, km, pq, pms
     for name, sub_ok in subnormal_checks(dev, shape).items():
         results[name]["subnormal_bitwise"] = sub_ok
         print(json.dumps({"kernel": name, "subnormal_input_equal": sub_ok}))
@@ -1391,7 +1458,266 @@ def quickstart_phase(dev, card):
     return problems, b_launches
 
 
-# -- phases 8-10: the LM stack, serving granite-3-2b and mamba2-130m ----------
+# -- phase 8: the paper's CIFAR-10 path (spec C) --------------------------------
+
+# benchmarks/common.py's ExpConfig(dataset="synthetic-cifar10"): 10 clients,
+# sigma = 1, ResNet-20, `proposed` at E0 = 4 J, T0 = 40 s, eta 0.1, batch 32
+CIFAR = dict(n_clients=10, sigma=1.0, n_train=4000, n_test=800, e0=4.0,
+             t0=40.0, eta=0.1, batch=32, eval_every=10)
+# (label, local scheme, E, its kwargs, rounds). The 60-round FedSGD
+# schedule spends 47 J of the 4 J budget (infeasible), so the budget stop
+# would end it after round 5: it runs all 60 rounds; the 20-round
+# schedules are feasible and keep the stop
+CIFAR_RUNS = (("fedsgd", "fedavg", 1, {}, 60),
+              ("fedprox", "fedprox", 2, {"mu": 0.01}, 20),
+              ("feddyn", "feddyn", 2, {"alpha": 0.01}, 20),
+              ("fedavg_e3", "fedavg", 3, {}, 20))
+
+
+def cifar_spec(label: str, **run):
+    from repro_torch.api import (DataSpec, ExperimentSpec, ModelSpec, RunSpec,
+                                 SchemeSpec, WirelessSpec)
+    c = CIFAR
+    _, local, steps, kw, rounds = next(r for r in CIFAR_RUNS
+                                       if r[0] == label)
+    run.setdefault("stop_on_budget", label != "fedsgd")
+    return ExperimentSpec(
+        data=DataSpec(dataset="synthetic-cifar10", n_clients=c["n_clients"],
+                      sigma=c["sigma"], n_train=c["n_train"],
+                      n_test=c["n_test"], seed=0),
+        model=ModelSpec(name="resnet"),
+        wireless=WirelessSpec(e0=c["e0"], t0=c["t0"], seed=0),
+        scheme=SchemeSpec(name="proposed", rounds=rounds, eta=c["eta"],
+                          batch=c["batch"], local_scheme=local,
+                          local_steps=steps, local_kwargs=kw),
+        run=RunSpec(seed=0, eval_every=c["eval_every"], **run))
+
+
+def _param_bits(pa, pb) -> int:
+    from repro_torch.tree import leaves
+    return sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in zip(leaves(pa), leaves(pb)))
+
+
+def _h_bits(ta, tb) -> int:
+    if ta._h is None or tb._h is None:
+        return 0 if ta._h is tb._h else -1
+    return int((ta._h.view(torch.int32) != tb._h.view(torch.int32)).sum())
+
+
+def resnet_grad_accuracy(dev) -> dict:
+    """ResNet-20's gradient on a CIFAR-shaped batch of 32 against an fp64
+    reference taken on the CPU, as relative L2: under the engine's scope
+    (fp32, deterministic cuDNN), with cuDNN off (torch's native
+    convolution), on the CPU in fp32, and, the planted fault, without the
+    scope under global TF32."""
+    import contextlib
+    from repro_torch.device import exact_fp32
+    from repro_torch.models import cnn
+    from repro_torch.tree import leaves, tree_map, unflatten
+    params = resnet_init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+    y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
+
+    def grad(d, dtype, ctx):
+        ps = [t.to(d, dtype).requires_grad_(True) for t in leaves(params)]
+        with ctx():
+            loss = make_loss_fn(cnn.resnet_apply)(unflatten(params, ps),
+                                                  x.to(d, dtype), y.to(d))
+            g = torch.autograd.grad(loss, ps)
+        return torch.cat([t.reshape(-1).double().cpu() for t in g])
+
+    @contextlib.contextmanager
+    def native():
+        with exact_fp32():
+            torch.backends.cudnn.enabled = False
+            yield
+
+    @contextlib.contextmanager
+    def tf32():
+        conv = torch.backends.cudnn.conv
+        prev = conv.fp32_precision
+        conv.fp32_precision = "tf32"
+        try:
+            yield
+        finally:
+            conv.fp32_precision = prev
+
+    cpu = torch.device("cpu")
+    g64 = grad(cpu, torch.float64, contextlib.nullcontext)
+    rel = {}
+    for name, d, ctx in (("cuda_scoped", dev, exact_fp32),
+                         ("cuda_native_conv", dev, native),
+                         ("cpu_fp32", cpu, contextlib.nullcontext),
+                         ("cuda_tf32_unscoped", dev, tf32)):
+        rel[name] = float((grad(d, torch.float32, ctx) - g64).norm()
+                          / g64.norm())
+    return rel
+
+
+def cifar_phase(dev, card):
+    """First ResNet-20's gradient against fp64 (`resnet_grad_accuracy`:
+    within 1e-3 relative L2, TF32 outside it). Then spec C through
+    repro_torch.api: FedSGD over 60 rounds and FedProx (E = 2), FedDyn (E =
+    2) and FedAvg at E = 3 over 20, each three ways ("auto": 32-round
+    blocks on CUDA graphs, one round a dispatch, the reference backend).
+    Parameters and FedDyn's state bit for bit across the three, v as
+    values, equal histories; the train loss of the last round below round
+    0's on every run; the blocked runs replay a graph
+    every block round (or capture it after the round) and upload no
+    batch; kernels 2, 3 and 4 launch once a round on both packed runs
+    (the masks: kernel 2 or, where a round's clients have different
+    lambdas, kernel 1). Then the
+    steady 8-round windows of FedSGD and FedDyn, blocked and per round,
+    and kill after round 10's checkpoint of the blocked FedDyn run and
+    `resume_from_checkpoint`: bit for bit, h included. Returns (problems,
+    launches of each packed run)."""
+    from repro_torch.api import (Experiment, build_environment,
+                                 resume_from_checkpoint)
+    problems, launches_by_run = [], {}
+    acc = resnet_grad_accuracy(dev)
+    print(json.dumps({"resnet20_grad_rel_l2_vs_fp64": acc, "card": card}))
+    if not acc["cuda_scoped"] < 1e-3 < acc["cuda_tf32_unscoped"]:
+        problems.append(f"ResNet-20's gradient against fp64: {acc}")
+    env = build_environment(cifar_spec("fedsgd"), device=dev)
+    keys = ("round", "train_loss", "selected", "delay", "energy",
+            "cumulative_delay", "cumulative_energy", "test_loss",
+            "test_accuracy")
+    blocked = {}
+    for label, *_ in CIFAR_RUNS:
+        spec = cifar_spec(label)
+        runs = {}
+        for path, run_kw in (("blocked", {}),
+                             ("per_round", dict(rounds_per_dispatch=1)),
+                             ("reference", dict(backend="reference"))):
+            run = Experiment(dataclasses.replace(
+                spec, run=dataclasses.replace(spec.run, **run_kw))
+                             ).build(env=env)
+            counter = BlockCounter()
+            pm.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = run.run(callbacks=[counter])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+            launches = dict(pm.LAUNCHES)
+            tr = run.trainer
+            n = len(res.history)
+            losses = [m.train_loss for m in res.history]
+            row = {"rounds": n, "wall_s_with_eval": wall_s,
+                   "ms_per_round_with_eval": 1e3 * wall_s / n,
+                   "card": card,
+                   "final_accuracy": res.summary["final_accuracy"],
+                   "train_loss_first_last": [losses[0], losses[-1]],
+                   "block_dispatches": tr.n_block_dispatches,
+                   "batch_uploads": tr.n_batch_uploads}
+            if not losses[-1] < losses[0]:
+                problems.append(f"spec C {label} {path}: the train loss did "
+                                f"not fall ({losses[0]} -> {losses[-1]})")
+            if tr.engine is not None:
+                live = sum(1 for m in res.history if m.selected)
+                row.update(graphs_captured=tr.engine.graphs_captured,
+                           capture_s=tr.engine.capture_seconds,
+                           graph_replays=tr.engine.graph_replays,
+                           block_rounds=counter.rounds,
+                           launches={k: v for k, v in launches.items()
+                                     if v})
+                launches_by_run[f"{label} {path}"] = row["launches"]
+                for kname in ("exponent_histogram",
+                              "fedsgd_aggregate_weighted"):
+                    if launches[kname] != live:
+                        problems.append(f"spec C {label} {path}: {kname} "
+                                        f"launches {launches[kname]} != "
+                                        f"rounds {live}")
+                if (launches["importance_mask_2d"]
+                        + launches["importance_mask_batched"]) != live:
+                    problems.append(f"spec C {label} {path}: mask launches "
+                                    f"!= rounds {live}")
+            runs[path] = (run, res)
+            print(json.dumps({"cifar10": label, "path": path, **row}))
+        (rb, hb) = runs["blocked"]
+        blocked[label] = (spec, rb, hb)
+        row_b = dict(graphs=rb.trainer.engine.graphs_captured,
+                     replays=rb.trainer.engine.graph_replays,
+                     uploads=rb.trainer.n_batch_uploads)
+        if row_b["uploads"] or rb.trainer.n_block_dispatches < 1 or \
+                row_b["replays"] < 1 or \
+                row_b["graphs"] + row_b["replays"] != len(hb.history):
+            problems.append(f"spec C {label}: the blocked run did not replay "
+                            f"a graph every block round ({row_b})")
+        for other in ("per_round", "reference"):
+            ro, ho = runs[other]
+            bits = _param_bits(rb.trainer.params, ro.trainer.params)
+            vb, vo = rb.trainer.global_grad, ro.trainer.global_grad
+            from repro_torch.tree import leaves
+            v_eq = all(torch.equal(a, b) for a, b in zip(leaves(vb),
+                                                         leaves(vo)))
+            hbits = _h_bits(rb.trainer, ro.trainer)
+            print(json.dumps({"cifar10": label, "blocked_vs": other,
+                              "param_bits_differing": bits, "v_equal": v_eq,
+                              "h_bits_differing": hbits}))
+            if bits or not v_eq or hbits:
+                problems.append(f"spec C {label}: blocked != {other} ({bits} "
+                                f"parameter bits, v equal {v_eq}, {hbits} h "
+                                "bits)")
+            if [[getattr(m, k) for k in keys] for m in hb.history] != \
+                    [[getattr(m, k) for k in keys] for m in ho.history]:
+                problems.append(f"spec C {label}: blocked history != {other}")
+        if label == "feddyn":
+            h = rb.trainer._h
+            if h is None or not float(h.abs().sum()) > 0:
+                problems.append("spec C feddyn: h never moved")
+    windows = {}
+    for label in ("fedsgd", "feddyn"):
+        spec = blocked[label][0]
+        windows[label] = {path: quick_window(dev, env, spec, kw) for path, kw
+                          in (("blocked", {}),
+                              ("per_round", dict(rounds_per_dispatch=1)))}
+        print(json.dumps({"cifar10_window": label, "card": card,
+                          "rounds": QUICK_WINDOW, **windows[label]}))
+
+    # kill the blocked FedDyn run after round 10's checkpoint, resume from
+    # the checkpoint's own spec: parameters and h bit for bit
+    class KillAfter(Callback):
+        checkpoint_every = 10
+
+        def on_checkpoint(self, m, trainer):
+            if m.round == 10:
+                raise RuntimeError("simulated kill after round 10")
+
+    spec_d, run_d, res_d = blocked["feddyn"]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    spec = dataclasses.replace(spec_d, run=dataclasses.replace(
+        spec_d.run, checkpoint_dir=str(CKPT_DIR), checkpoint_every=10))
+    killed = False
+    try:
+        Experiment(spec).build(env=env).run(callbacks=[KillAfter()])
+    except RuntimeError as err:
+        killed = "simulated kill" in str(err)
+    grab = Grab()
+    resumed = resume_from_checkpoint(str(CKPT_DIR), callbacks=[grab],
+                                     device=dev)
+    ok_hist = ([m.train_loss for m in resumed.history]
+               == [m.train_loss for m in res_d.history])
+    bits = _param_bits(run_d.trainer.params, grab.trainer.params)
+    hbits = _h_bits(run_d.trainer, grab.trainer)
+    print(json.dumps({"cifar10_resume": "feddyn", "killed": killed,
+                      "resumed_from": resumed.summary["resumed_from"],
+                      "rounds": len(resumed.history),
+                      "history_equal": ok_hist,
+                      "final_param_bits_differing": bits,
+                      "h_bits_differing": hbits,
+                      "resumed_graph_replays":
+                          grab.trainer.engine.graph_replays}))
+    if not killed or resumed.summary["resumed_from"] != 10 or not ok_hist \
+            or bits or hbits or len(resumed.history) != len(res_d.history):
+        problems.append("spec C feddyn: kill and resume is not bit for bit")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return problems, launches_by_run, windows
+
+
+# -- phases 9-11: the LM stack, serving granite-3-2b and mamba2-130m ---------
 
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "decode_attention":
@@ -2176,6 +2502,21 @@ def main() -> int:
     quick_problems, quick_launches = quickstart_phase(dev, card)
     problems += quick_problems
     walls["quickstart_api"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cifar_problems, cifar_launches, _ = cifar_phase(dev, card)
+    problems += cifar_problems
+    walls["cifar10_resnet20"] = time.perf_counter() - t
+    print(json.dumps({"phase_wall_s": {"cifar10_resnet20":
+                                       walls["cifar10_resnet20"]}}))
+    # spec C's own path: every round kernel of it launched in each of its
+    # packed runs (counts from 0 just before each run); its schedules give
+    # every client of a round one lambda, so kernel 1 is not on it
+    for run_name, counts in cifar_launches.items():
+        for kname in ("importance_mask_2d", "exponent_histogram",
+                      "fedsgd_aggregate_weighted"):
+            if not counts.get(kname):
+                problems.append(f"spec C {run_name}: {kname} never "
+                                "launched")
 
     # the LM stack. torch.cumsum on CUDA (the SSD scans') has no
     # deterministic implementation, so deterministic mode goes off here;
@@ -2212,9 +2553,14 @@ def main() -> int:
         path, counts = paths.get(kname, (
             "pruned-FedSGD slice, packed, 32-round blocks on CUDA graphs "
             "(replays counted)", launches))
+        spec_c = {run_name: c.get(kname, 0)
+                  for run_name, c in cifar_launches.items()
+                  if run_name.endswith("blocked")}
         rows.append({"name": kname, "route": "cuda", "source": SOURCE,
                      "replaces": REPLACES[kname],
                      "launches": counts[kname], "path": path,
+                     **({"spec_c_launches": spec_c}
+                        if any(spec_c.values()) else {}),
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],
                      "bound_ms": res["bound_ms"],

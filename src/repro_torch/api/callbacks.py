@@ -30,7 +30,9 @@ trainer unions those rounds with the eval cadence when planning blocks, so
 checkpointing never splits the middle of a compiled block.
 
 Checkpoint contents (`save_trainer_state`): params + global grad v (as
-trees through CheckpointManager's npz layer) plus JSON `extra` with
+trees through CheckpointManager's npz layer), FedDyn's per-client state
+``h`` when the trainer carries one (the leaf ``"['h']"``, as the JAX
+package writes it), plus JSON `extra` with
 the numpy batch-RNG state, the wireless budget counters, the round index,
 the originating spec, and the materialized history — everything needed to
 resume an interrupted run bit-for-bit on fp32 (tests/test_torch_api.py).
@@ -107,6 +109,10 @@ def save_trainer_state(
     trainer's params, global gradient, and batch RNG have to reflect
     exactly the state after round m.round."""
     tree = {"params": trainer.params, "v": trainer.global_grad}
+    if getattr(trainer, "_h", None) is not None:
+        # FedDyn's per-client state: an fp32 leaf like the rest, so resume
+        # restores it bit for bit
+        tree["h"] = trainer._h
     extra = {
         "round": int(m.round),
         "rng_state": trainer.rng.bit_generator.state,
@@ -129,11 +135,18 @@ def restore_trainer_state(
     """Load a checkpoint into `trainer` (params, global grad, batch RNG)
     and return the JSON `extra` dict (round index, counters, spec,
     history). The restored fp32 leaves are exact, so continuing from
-    extra["round"] + 1 replays the uninterrupted trajectory bit-for-bit."""
+    extra["round"] + 1 replays the uninterrupted trajectory bit-for-bit.
+    FedDyn's state is copied into the trainer's own tensor, which the
+    trainer's captured CUDA graphs update."""
     like = {"params": trainer.params, "v": trainer.global_grad}
+    ls = getattr(trainer, "local_scheme", None)
+    if ls is not None and ls.stateful:
+        like["h"] = trainer._ensure_h()
     tree, meta = manager.restore(like, step=step)
     trainer.params = tree["params"]
     trainer.global_grad = tree["v"]
+    if "h" in like:
+        trainer._h.copy_(tree["h"])
     extra = meta.get("extra", {})
     if "rng_state" in extra:
         trainer.rng.bit_generator.state = extra["rng_state"]

@@ -41,7 +41,7 @@ from repro_torch.api.callbacks import (
 )
 from repro_torch.api.registry import (
     CHANNEL_NOISE, DATA_SELECTION, DATASETS, FAULT_MODELS, LOCAL_SCHEMES,
-    MODELS, SCHEMES, local_spec_key,
+    MODELS, SCHEMES,
 )
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.checkpoint import CheckpointManager
@@ -50,6 +50,7 @@ from repro_torch.core import (
     solve_p1,
 )
 from repro_torch.core.aggregators import make_aggregator
+from repro_torch.core.local import local_spec_key
 from repro_torch.core.optimizer_ao import Schedule
 from repro_torch.data import partition_by_dirichlet
 from repro_torch.device import resolve_device

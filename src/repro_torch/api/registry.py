@@ -19,22 +19,21 @@ weights therefore differ from the JAX package's, which draws them with
 ``jax.random``; a caller that needs JAX's weights registers a model whose
 init returns them through `repro_torch.convert.params_from_numpy`.
 
-Entries whose components are not ported yet stay registered under their
-names and raise NotImplementedError naming their ROADMAP.md §1 item when
-the factory is called: ``resnet`` (item 3), the fleet datasets (item 5),
-and the ``fedprox`` / ``feddyn`` local schemes and multi-step ``fedavg``
-(item 4). ``fedavg`` with ``local_steps=1`` is FedSGD itself and resolves
-to None.
+The fleet datasets are not ported yet: they stay registered under their
+names and raise NotImplementedError naming ROADMAP.md §1 item 5 when the
+factory is called. ``fedavg`` with ``local_steps=1`` is FedSGD itself and
+resolves to None.
 """
 from __future__ import annotations
 
 from typing import Any, Callable
 
 from repro_torch.api.spec import DataSpec, ModelSpec, SchemeSpec, WirelessSpec
+from repro_torch.core.local import make_local_scheme
 from repro_torch.core.optimizer_ao import AOConfig
 from repro_torch.data import make_dataset
 from repro_torch.models import (lenet_apply, lenet_init, mlp_edge_apply,
-                                mlp_edge_init)
+                                mlp_edge_init, resnet_apply, resnet_init)
 
 
 def _not_ported(what: str, item: str):
@@ -119,8 +118,13 @@ def _mlp_edge(spec: ModelSpec, dataset) -> tuple[Callable, Callable]:
 
 
 @register_model("resnet")
-def _resnet(spec: ModelSpec, dataset):
-    _not_ported("model 'resnet' (ResNet and list leaves in ParamPack)", "3")
+def _resnet(spec: ModelSpec, dataset) -> tuple[Callable, Callable]:
+    in_ch = int(dataset.image_shape[2])
+    nc = int(dataset.num_classes)
+    kw = {"depth": 20, **spec.kwargs}
+    return (lambda gen, device=None: resnet_init(
+                gen, in_channels=in_ch, num_classes=nc, device=device, **kw),
+            resnet_apply)
 
 
 # ---------------------------------------------------------------------------
@@ -265,35 +269,18 @@ register_fault_model("gaussian_poison", _fault_factory("GaussianPoison"))
 
 
 # ---------------------------------------------------------------------------
-# Local-update schemes (SchemeSpec.local_scheme). Single-step fedavg is
-# FedSGD itself (None, the trainer's own round); the rest are item 4.
+# Local-update schemes (SchemeSpec.local_scheme): a core/local.LocalScheme,
+# or None for single-step fedavg, which is FedSGD itself. Unknown
+# local_kwargs keys raise at build time.
 # ---------------------------------------------------------------------------
 
 def _local_scheme_factory(name: str):
     def factory(spec: SchemeSpec):
-        # the JAX package's make_local_scheme checks, then: single-step
-        # fedavg is FedSGD (None); every other scheme is item 4
-        steps = int(spec.local_steps)
-        if steps < 1:
-            raise ValueError(f"local_steps must be >= 1, got {steps}")
-        unknown = sorted(set(spec.local_kwargs) - {"mu", "alpha"})
-        if unknown:
-            raise ValueError(f"unknown local scheme kwargs: {unknown}")
-        if name == "fedavg" and steps == 1:
-            return None
-        _not_ported(f"local scheme {name!r} (local_steps={steps}, "
-                    "core/local.py)", "4")
+        return make_local_scheme(name, steps=spec.local_steps,
+                                 **spec.local_kwargs)
     return factory
 
 
 for _name in ("fedavg", "fedprox", "feddyn"):
     register_local_scheme(_name, _local_scheme_factory(_name))
 
-
-def local_spec_key(local) -> tuple:
-    """The local-scheme fragment of a trainer-reuse key, as the JAX
-    package's: ("fedsgd",) for the single-step body, the only one the port
-    runs."""
-    if local is not None:
-        _not_ported("local_scheme", "4")
-    return ("fedsgd",)

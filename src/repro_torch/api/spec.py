@@ -2,9 +2,10 @@
 
 The port of ``repro/api/spec.py``, unchanged: one spec file runs in either
 package. Fields whose options the port does not carry yet (``shards`` > 1,
-``client_store="streamed"``, local schemes other than single-step fedavg,
-resnet, the fleet datasets) parse here and raise at build time naming
-their ROADMAP item.
+``client_store="streamed"``, the fleet datasets) parse here and raise at
+build time naming their ROADMAP item; the scheme's ``local_scheme``,
+``local_steps`` and ``local_kwargs`` reach the trainer, and ``resnet``
+builds ResNet-CIFAR.
 
 One `ExperimentSpec` captures everything the paper's pipeline needs — data
 federation, model, wireless system, optimization scheme, and run policy —

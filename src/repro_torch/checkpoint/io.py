@@ -5,8 +5,8 @@ leaf is stored under its tree path as the JAX package writes it
 (``jax.tree_util.keystr``: ``"['params']['conv1']"``, a list index as
 ``"[0]"``, with "/" stored as "⁄"), the meta JSON beside it, so a
 checkpoint written by either package loads in the other. A tree here is
-nested dicts (keys taken in sorted order, as JAX flattens a dict), lists
-and tuples, with torch tensors or numpy arrays as leaves; tensors are
+nested dicts, lists and tuples with torch tensors or numpy arrays as
+leaves, walked as JAX flattens it (repro_torch/tree.py); tensors are
 stored from the host and restored onto the device and dtype of the
 template leaf.
 
@@ -30,6 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten_with_path, unflatten
+
 PyTree = Any
 
 
@@ -40,35 +42,6 @@ class CheckpointCorruptError(RuntimeError):
     the previous intact step; an explicitly requested step re-raises."""
 
 
-def _flatten_with_path(tree: PyTree, prefix: str = "") -> list:
-    """[(keystr path, leaf)] in JAX's flattening order: a dict's keys
-    sorted, a list's or tuple's items by index."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_path(tree[k], f"{prefix}[{k!r}]")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten_with_path(v, f"{prefix}[{i}]")
-        return out
-    return [(prefix, tree)]
-
-
-def _unflatten(like: PyTree, leaves: list) -> PyTree:
-    """`like`'s structure with its leaves, in flattening order, replaced."""
-    it = iter(leaves)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
-    return build(like)
-
-
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
@@ -76,7 +49,7 @@ def _host(leaf) -> np.ndarray:
 
 
 def _path_dict(tree: PyTree) -> dict[str, np.ndarray]:
-    return {key: _host(leaf) for key, leaf in _flatten_with_path(tree)}
+    return {key: _host(leaf) for key, leaf in flatten_with_path(tree)}
 
 
 def atomic_write_text(path: str, text: str) -> None:
@@ -186,7 +159,7 @@ def load_checkpoint(path: str, like: PyTree) -> tuple[PyTree, dict]:
                 f"checkpoint metadata {meta_path!r} is not valid JSON "
                 f"({e}) — truncated or corrupt file") from e
     leaves = []
-    for key, leaf in _flatten_with_path(like):
+    for key, leaf in flatten_with_path(like):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
         arr = arrays[key]
@@ -200,7 +173,7 @@ def load_checkpoint(path: str, like: PyTree) -> tuple[PyTree, dict]:
                 device=leaf.device, dtype=leaf.dtype))
         else:
             leaves.append(arr.astype(np.asarray(leaf).dtype))
-    return _unflatten(like, leaves), meta
+    return unflatten(like, leaves), meta
 
 
 class CheckpointManager:

@@ -2,10 +2,11 @@
 
 The JAX package initialises its models with ``jax.random``, whose numbers
 torch cannot reproduce. A caller that wants both packages to start from the
-same weights exports the JAX parameter dict as numpy arrays
-(``{k: np.asarray(v) for k, v in params.items()}``) and hands it here;
-the LM stack's nested, layer-stacked trees (parameters and caches) go
-through `lm_params_from_numpy`.
+same weights exports the JAX parameter tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``: a flat dict for LeNet, nested dicts
+and lists for ResNet) and hands it to `params_from_numpy`; the LM stack's
+nested, layer-stacked trees (parameters and caches, bfloat16 among them)
+go through `lm_params_from_numpy`.
 """
 from __future__ import annotations
 
@@ -13,10 +14,14 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree) -> dict[str, torch.Tensor]:
-    """{name: array} -> {name: CPU tensor holding a copy, dtype kept}."""
-    return {str(k): torch.from_numpy(np.array(v, copy=True))
-            for k, v in tree.items()}
+def params_from_numpy(tree):
+    """A tree of arrays (nested dicts and lists) -> the same nesting of CPU
+    tensors, each holding a copy, dtype kept."""
+    if isinstance(tree, dict):
+        return {str(k): params_from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True))
 
 
 def _tensor(a) -> torch.Tensor:

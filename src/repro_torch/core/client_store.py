@@ -137,7 +137,9 @@ class ClientStore:
 
     def gather(self, cids, idx) -> tuple[torch.Tensor, torch.Tensor]:
         """Batch assembly on the device: cids [C], idx [C, B] -> (x [C, B,
-        ...], y [C, B]). The block's round body gathers the same way."""
+        ...], y [C, B]); idx [C, E, B] (E local steps) gives [C, E, B, ...].
+        The block's round body gathers the same way."""
         cids = torch.as_tensor(cids, device=self.x.device).long()
         idx = torch.as_tensor(idx, device=self.x.device).long()
-        return self.x[cids[:, None], idx], self.y[cids[:, None], idx]
+        cx = cids.view(cids.shape + (1,) * (idx.ndim - 1))
+        return self.x[cx, idx], self.y[cx, idx]

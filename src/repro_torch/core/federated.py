@@ -1,7 +1,6 @@
 """Parameter-efficient FedSGD trainer (paper Sec. II-A, eqs. 2-7).
 
-The port of ``repro/core/federated.py`` (one device, plain FedSGD). Per
-round s:
+The port of ``repro/core/federated.py`` (one device). Per round s:
 
   1. the server broadcasts the previous global gradient v^(s-1);
   2. each selected client computes the importance Q = (v * rho)^2 (eq. 4)
@@ -9,6 +8,13 @@ round s:
   3. the client computes a mini-batch gradient on the pruned model (eq. 5)
      and uploads it masked;
   4. the server averages the uploads (eq. 6) and steps w <- w - eta*G (eq. 7).
+
+A ``local_scheme`` (core/local.py: FedAvg with E local steps, FedProx,
+FedDyn) replaces step 3's single gradient with E local steps a client; the
+client uploads the sum of its step directions, and FedDyn keeps a
+per-client correction state ``[N, R, 128]`` (`_ensure_h`), updated in
+place by both backends and saved with checkpoints. A client's E batches
+are drawn in the JAX package's order: round, then client, then step.
 
 Beyond the paper, as in the JAX package (DESIGN.md §9-§11): a
 ``channel_noise`` model (the server observes mean + noise, drawn per round
@@ -66,15 +72,19 @@ from repro_torch.core import pruning
 from repro_torch.core.client_store import (ClientStore, StoreBudgetError,
                                            default_device_budget,
                                            estimated_store_nbytes, to_device)
+from repro_torch.core.local import local_spec_key
 from repro_torch.core.optimizer_ao import Schedule
 from repro_torch.core.packing import LANES, ParamPack
-from repro_torch.core.round_engine import RoundEngine, bucket_capacity
-from repro_torch.device import resolve_device
+from repro_torch.core.round_engine import (RoundEngine, bucket_capacity,
+                                           h_scatter)
+from repro_torch.device import exact_fp32, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.tree import leaves, tree_map, unflatten
 from repro_torch.wireless.comm import (SystemParams, per_client_delay,
                                        round_energy)
 
-Params = dict[str, torch.Tensor]
+# a tree of tensors: a flat dict (LeNet, mlp-edge) or nested (ResNet)
+Params = dict
 
 # the block length "auto" targets on CUDA
 DEFAULT_ROUNDS_PER_DISPATCH = 32
@@ -163,8 +173,6 @@ class FederatedTrainer:
             raise ValueError(f"unknown client_store {client_store!r}")
         if shards not in (None, 1):
             _not_ported("shards > 1 (multi-device sharding)", "8")
-        if local_scheme is not None:
-            _not_ported("local_scheme", "4")
         if client_store == "streamed":
             _not_ported("client_store='streamed' (cohort streaming)", "5")
         self.device = resolve_device(device)
@@ -223,23 +231,29 @@ class FederatedTrainer:
                                if aggregator is not None else "mean")
         self.agg_counters = ({aggregator.stat_field: 0}
                              if aggregator is not None else {})
-        # the local-update scheme's trainer-reuse key: single-step FedSGD,
-        # the only scheme the port runs
-        self.local_key = ("fedsgd",)
-        params = {k: t.detach().to(self.device) for k, t in params.items()}
+        # the local-update scheme (core/local.py; None is single-step
+        # FedSGD) and its trainer-reuse key
+        self.local_scheme = local_scheme
+        self.local_key = local_spec_key(local_scheme)
+        # FedDyn's per-client correction state [N, R, 128], zeros at first
+        # use (`_ensure_h`) on both backends; allocated once and updated in
+        # place, so a CUDA graph that captured it stays valid (restore and
+        # reset write into it)
+        self._h: torch.Tensor | None = None
+        params = tree_map(lambda t: t.detach().to(self.device), params)
         if backend == "packed":
             self.pack = ParamPack.build(params, prune_spec)
             self.engine = RoundEngine(loss_fn, self.pack, eta=self.eta,
                                       weighted_loss_fn=self._weighted_loss,
                                       max_clients=len(self.clients),
                                       aggregator=aggregator,
+                                      local_scheme=local_scheme,
                                       device=self.device)
             self._w, self._v = self.engine.init_buffers(params)
         else:
             self.pack = self.engine = None
             self._params = params
-            self._global_grad = {k: torch.zeros_like(t)
-                                 for k, t in params.items()}
+            self._global_grad = tree_map(torch.zeros_like, params)
 
     def reset(self, params: Params, seed: int, *, channel_noise=None,
               fault_model=None) -> None:
@@ -249,7 +263,8 @@ class FederatedTrainer:
         and the device-resident ClientStore survive; params, the global
         gradient, the batch RNG and every counter are reset as the
         constructor sets them, so a reused trainer's trajectory is bit for
-        bit a new one's."""
+        bit a new one's. FedDyn's state is zeroed in place (its tensor stays
+        the one the captured graphs update)."""
         self.rng = np.random.default_rng(seed)
         self.channel_noise = channel_noise
         self.fault_model = fault_model
@@ -261,13 +276,14 @@ class FederatedTrainer:
         self.n_batch_uploads = 0
         self.n_block_dispatches = 0
         self._callbacks = ()
-        params = {k: t.detach().to(self.device) for k, t in params.items()}
+        if self._h is not None:
+            self._h.zero_()
+        params = tree_map(lambda t: t.detach().to(self.device), params)
         if self.backend == "packed":
             self._w, self._v = self.engine.init_buffers(params)
         else:
             self._params = params
-            self._global_grad = {k: torch.zeros_like(t)
-                                 for k, t in params.items()}
+            self._global_grad = tree_map(torch.zeros_like, params)
 
     # Params / global gradient are stored packed on the packed backend; the
     # properties give both backends the same dict view.
@@ -332,39 +348,99 @@ class FederatedTrainer:
         return x, y, sw
 
     def _value_and_grad(self, params: Params, x, y, sw=None):
-        leaves = {k: t.detach().requires_grad_(True)
-                  for k, t in params.items()}
-        with torch.enable_grad():
+        ps = [t.detach().requires_grad_(True) for t in leaves(params)]
+        tree = unflatten(params, ps)
+        with torch.enable_grad(), exact_fp32():
             if sw is None:
-                loss = self.loss_fn(leaves, x, y)
+                loss = self.loss_fn(tree, x, y)
             else:
-                loss = self._weighted_loss(leaves, x, y, sw)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
+                loss = self._weighted_loss(tree, x, y, sw)
+            grads = torch.autograd.grad(loss, ps)
+        return loss.detach(), unflatten(params, grads)
 
-    def client_update(self, n: int, lam: float, batch: tuple | None = None):
-        """Steps 2-3 for client n: returns (masked gradient, mask, loss)."""
-        if lam > 0.0:
-            imp = pruning.taylor_importance(self.params, self.global_grad)
-            masks = pruning.build_masks(imp, lam, self.prune_spec)
-        else:
-            masks = {k: torch.ones_like(w, dtype=torch.float32)
-                     for k, w in self.params.items()}
-        pruned = pruning.apply_masks(self.params, masks)
-        if batch is None:
-            batch = self._sample_batch(self.clients[n])
+    def _batch_grad(self, params: Params, batch):
+        """(loss, gradient tree) of one drawn batch (x, y, sample weights):
+        the plain mean for a full batch, the weighted mean the packed engine
+        takes for a ragged client."""
         x, y, sw = batch
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, device=self.device)
         if sw is None or sw.all():
-            # full batch: the plain mean loss
-            loss, grads = self._value_and_grad(pruned, x, y)
-        else:
-            # ragged client: the same weighted mean the packed engine takes
-            loss, grads = self._value_and_grad(
-                pruned, x, y, torch.as_tensor(sw, device=self.device))
+            return self._value_and_grad(params, x, y)
+        return self._value_and_grad(params, x, y,
+                                    torch.as_tensor(sw, device=self.device))
+
+    def _masks(self, lam: float) -> Params:
+        """Client masks at pruning ratio lam from the host threshold."""
+        if lam > 0.0:
+            imp = pruning.taylor_importance(self.params, self.global_grad)
+            return pruning.build_masks(imp, lam, self.prune_spec)
+        return tree_map(lambda w: torch.ones_like(w, dtype=torch.float32),
+                        self.params)
+
+    def client_update(self, n: int, lam: float, batch: tuple | None = None):
+        """Steps 2-3 for client n: returns (masked gradient, mask, loss)."""
+        masks = self._masks(lam)
+        pruned = pruning.apply_masks(self.params, masks)
+        if batch is None:
+            batch = self._sample_batch(self.clients[n])
+        loss, grads = self._batch_grad(pruned, batch)
         grads = pruning.apply_masks(grads, masks)  # pruned coords not uploaded
         return grads, masks, float(loss)
+
+    @torch.no_grad()
+    def _client_update_local(self, n: int, lam: float, batches: list,
+                             h_row=None):
+        """The reference body of the local-update schemes, op for op the
+        engine's `_local_client`: E local steps from the pruned start u0 =
+        w*mask, each taking the masked gradient at the current iterate
+        (with respect to the leaves, from the host-threshold masks), adding
+        the scheme's regularizer, accumulating the direction into the
+        upload (from zeros) and stepping u <- u - eta*d, every op flushed
+        as XLA flushes it. The step arithmetic runs on the packed layout,
+        as the reference's round tail does: every op is elementwise, so
+        each coordinate gets the per-leaf bits, in one launch an op.
+        `batches`: the client's E drawn batches in step order; `h_row`: its
+        packed FedDyn state row or None. Returns (upload tree, loss at step
+        0, packed FedDyn state delta or None)."""
+        ls = self.local_scheme
+        pack = self._noise_layout()
+        masks = self._masks(lam)
+        u0 = pack.pack(pruning.apply_masks(self.params, masks))
+        u, acc = u0, torch.zeros_like(u0)
+        hm = None if h_row is None else h_row * pack.pack(masks)
+        loss0 = None
+        for t, batch in enumerate(batches):
+            loss, g = self._batch_grad(pack.unpack(u), batch)
+            if t == 0:
+                loss0 = float(loss)
+            g = pack.pack(pruning.apply_masks(g, masks))
+            d = (g if ls.name == "fedavg" else
+                 ops.packed_local_delta(g, u, u0, ls.coeff, hm=hm))
+            acc = ops.flush_add(acc, d)
+            u = ops.flush_sub(u, ops.flush_mul(self.eta, d))
+        hd = (ops.flush_mul(ls.alpha, ops.flush_sub(u, u0)) if ls.stateful
+              else None)
+        return pack.unpack(acc), loss0, hd
+
+    def _ensure_h(self) -> torch.Tensor:
+        """FedDyn's correction state [N, R, 128] on the trainer's device,
+        zeros at first use; the same tensor for the trainer's life."""
+        if self._h is None:
+            pack = self._noise_layout()
+            self._h = torch.zeros((len(self.clients), pack.rows, LANES),
+                                  dtype=torch.float32, device=self.device)
+        return self._h
+
+    def _client_upload(self, n: int, lam: float, batch, dyn: bool):
+        """(upload tree, loss, packed FedDyn state delta or None) of client
+        n in the reference loop: `client_update`, or the local steps (batch
+        is then the client's E batches)."""
+        if self.local_scheme is None:
+            g, _, loss = self.client_update(n, lam, batch=batch)
+            return g, loss, None
+        return self._client_update_local(
+            n, lam, batch, h_row=self._h[n] if dyn else None)
 
     @torch.no_grad()
     def server_step(self, grads: list[Params],
@@ -453,9 +529,11 @@ class FederatedTrainer:
         is quarantined, and `server_step` averages the survivors (and skips
         the update when none survive). The uploads are packed as they
         arrive: the fault ops are elementwise, so the layout does not change
-        their bits. A robust aggregator routes through
-        `_reference_robust_round`. Returns (per-client losses, surviving
-        upload count, reducer count or None)."""
+        their bits. With FedDyn the survivors' state rows then move by
+        their deltas (`h_scatter`, the engine's own update). A robust
+        aggregator routes through `_reference_robust_round`. Returns
+        (per-client losses, surviving upload count, reducer count or
+        None)."""
         if self.aggregator is not None:
             return self._reference_robust_round(selected, lam_s, batches,
                                                 s=s, fault=fault)
@@ -465,8 +543,10 @@ class FederatedTrainer:
               else np.ones(len(selected), bool))
         cf = fault.corrupt if fault is not None else None
         po = self._poison_stack(fault)
+        dyn = self._dyn()
+        surv_ids, surv_hds = [], []
         for j, (n, batch) in enumerate(zip(selected, batches)):
-            g, _, loss = self.client_update(n, float(lam_s[n]), batch=batch)
+            g, loss, hd = self._client_upload(n, float(lam_s[n]), batch, dyn)
             losses.append(loss)
             if not ok[j]:
                 continue                     # the upload never arrived
@@ -481,9 +561,28 @@ class FederatedTrainer:
                                                        device=self.device))
             if bool(torch.isfinite(gp).all()):
                 gps.append(gp)
+                if dyn:
+                    surv_ids.append(n)
+                    surv_hds.append(hd)
         self._server_step_packed(
             gps, noise=self._noise_tensor(s) if self.channel_noise else None)
+        self._h_update(surv_ids, surv_hds)
         return losses, len(gps), None
+
+    def _dyn(self) -> bool:
+        """Whether the scheme carries FedDyn's state (allocated here)."""
+        if self.local_scheme is None or not self.local_scheme.stateful:
+            return False
+        self._ensure_h()
+        return True
+
+    @torch.no_grad()
+    def _h_update(self, ids: list[int], hds: list) -> None:
+        """The reference's FedDyn update: h[n] -= hd for each surviving
+        client, in place."""
+        if ids:
+            h_scatter(self._h, torch.as_tensor(ids, device=self.device),
+                      -torch.stack(hds))
 
     @torch.no_grad()
     def _reference_robust_round(self, selected: list[int],
@@ -496,16 +595,19 @@ class FederatedTrainer:
         0 (the reducers are weight-aware and bucket-capacity invariant, so
         zero padding and the engine's replicated batches give the same
         bits). The same `Aggregator.reduce` runs, and the update is the
-        eager form of the engine's inv = 1 tail. No survivor: no update."""
+        eager form of the engine's inv = 1 tail. No survivor: no update.
+        FedDyn's survivors move their state rows as in `_reference_round`."""
         pack = self._noise_layout()
         ok = (np.asarray(fault.upload_ok, bool) if fault is not None
               else np.ones(len(selected), bool))
         cf = fault.corrupt if fault is not None else None
         po = self._poison_stack(fault)
-        losses, gps, cws = [], [], []
+        dyn = self._dyn()
+        losses, gps, cws, hds = [], [], [], []
         for j, (n, batch) in enumerate(zip(selected, batches)):
-            g, _, loss = self.client_update(n, float(lam_s[n]), batch=batch)
+            g, loss, hd = self._client_upload(n, float(lam_s[n]), batch, dyn)
             losses.append(loss)
+            hds.append(hd)
             gp = pack.pack(g)
             if cf is not None:
                 gp = ops.flush_mul(gp, cf[j])
@@ -523,6 +625,10 @@ class FederatedTrainer:
         cw = torch.as_tensor(np.asarray(cws, np.float32), device=self.device)
         ghat, ast = self.aggregator.reduce(torch.stack(gps), cw)
         n_ok = int(np.asarray(cws).sum())
+        if dyn:
+            live = [j for j, c in enumerate(cws[:len(selected)]) if c > 0]
+            self._h_update([selected[j] for j in live],
+                           [hds[j] for j in live])
         if n_ok > 0:
             if self.channel_noise:
                 ghat = ops.flush_add(ghat, self._noise_tensor(s))
@@ -532,11 +638,19 @@ class FederatedTrainer:
     def _round(self, selected: list[int], lam_s: np.ndarray, s: int = 0,
                fault=None):
         """Steps 2-4 for one round; batches are drawn once, in selected
-        order, so both backends consume the identical RNG sequence.
+        order (with a local scheme E a client, client-major), so both
+        backends consume the identical RNG sequence.
         Returns (losses, n_ok, agg_stat) without synchronizing on the packed
         path (agg_stat is None on the mean path)."""
-        batches = [self._sample_batch(self.clients[n]) for n in selected]
-        stackable = len({b[0].shape for b in batches}) <= 1
+        ls = self.local_scheme
+        if ls is None:
+            batches = [self._sample_batch(self.clients[n]) for n in selected]
+            flat = batches
+        else:
+            batches = [[self._sample_batch(self.clients[n])
+                        for _ in range(ls.steps)] for n in selected]
+            flat = [b for bs in batches for b in bs]
+        stackable = len({b[0].shape for b in flat}) <= 1
         if self.backend == "packed" and not stackable:
             if self.device.type == "cuda":
                 raise RuntimeError(
@@ -550,9 +664,16 @@ class FederatedTrainer:
             return self._reference_round(selected, lam_s, batches, s=s,
                                          fault=fault)
         lam_sel = np.asarray([lam_s[n] for n in selected], np.float64)
-        xs = to_device(np.stack([b[0] for b in batches]), self.device)
-        ys = to_device(np.stack([b[1] for b in batches]), self.device)
-        sws = np.stack([b[2] for b in batches])
+        shape = (len(selected), -1) if ls is None else (len(selected),
+                                                         ls.steps, -1)
+        xs = np.stack([b[0] for b in flat])
+        xs = to_device(xs.reshape(shape[:-1] + xs.shape[1:]), self.device)
+        ys = to_device(np.stack([b[1] for b in flat]).reshape(shape),
+                       self.device)
+        sws = np.stack([b[2] for b in flat]).reshape(shape)
+        dyn = {}
+        if self._dyn():
+            dyn = dict(h=self._h, client_ids=np.asarray(selected, np.int64))
         self.n_batch_uploads += 1
         self._w, self._v, losses, _, _ = self.engine.round_step(
             self._w, self._v, xs, ys, lam_sel,
@@ -563,7 +684,7 @@ class FederatedTrainer:
             upload_weights=(fault.upload_ok.astype(np.float32)
                             if fault is not None else None),
             corrupt=fault.corrupt if fault is not None else None,
-            poison=self._poison_stack(fault))
+            poison=self._poison_stack(fault), **dyn)
         ast = (self.engine.last_agg_stat if self.aggregator is not None
                else None)
         return losses, self.engine.last_n_ok, ast
@@ -672,14 +793,16 @@ class FederatedTrainer:
         """Rounds [start, start + n_rounds) as one engine.block_step; each
         round's (losses, n_ok, agg stat), still on the device, lands in
         `out`. The indices are drawn with the `choice` calls `_sample_batch`
-        makes, in the same order, so the batch stream is the per-round
-        path's bit for bit."""
+        makes, in the same order (round, client, then local step), so the
+        batch stream is the per-round path's bit for bit."""
         sels = [infos[start + k][0] for k in range(n_rounds)]
         cids, counts = self._block_cids(start, n_rounds, infos)
         c_max = int(counts.max())
         blen = self._block_key(sels[0], infos[start][1])[2]
-        idxs = np.empty((n_rounds, c_max, blen), np.int32)
-        sw = np.ones((n_rounds, c_max, blen), np.float32)
+        ls = self.local_scheme
+        steps = 1 if ls is None else ls.steps
+        idxs = np.empty((n_rounds, c_max, steps, blen), np.int32)
+        sw = np.ones((n_rounds, c_max, steps, blen), np.float32)
         lams = np.empty((n_rounds, c_max), np.float64)
         fault_on = self.fault_model is not None
         fw = np.ones((n_rounds, c_max), np.float32) if fault_on else None
@@ -705,19 +828,22 @@ class FederatedTrainer:
                     pos[k] = pk
             for j, n in enumerate(sel):
                 lams[k, j] = lam_s[n]
-                draw = self._draw_indices(len(self.clients[n]))
-                m = len(draw)
-                if m < blen:             # ragged: repeat the last sample
-                    idxs[k, j, :m] = draw        # with weight 0, as
-                    idxs[k, j, m:] = draw[-1]    # _sample_batch pads
-                    sw[k, j, m:] = 0.0
-                    any_ragged = True
-                else:
-                    idxs[k, j] = draw
+                for t in range(steps):
+                    draw = self._draw_indices(len(self.clients[n]))
+                    m = len(draw)
+                    if m < blen:         # ragged: repeat the last sample
+                        idxs[k, j, t, :m] = draw         # with weight 0, as
+                        idxs[k, j, t, m:] = draw[-1]     # _sample_batch pads
+                        sw[k, j, t, m:] = 0.0
+                        any_ragged = True
+                    else:
+                        idxs[k, j, t] = draw
             c_k = len(sel)               # pad rows as _block_cids pads cids
             idxs[k, c_k:] = idxs[k, c_k - 1]
             sw[k, c_k:] = sw[k, c_k - 1]
             lams[k, c_k:] = lam_s[sel[-1]]
+        if ls is None:                   # the FedSGD body's [K, C, B]
+            idxs, sw = idxs[:, :, 0], sw[:, :, 0]
         noises = (np.stack([self._noise_packed(start + k)
                             for k in range(n_rounds)])
                   if self.channel_noise else None)
@@ -726,7 +852,8 @@ class FederatedTrainer:
             sample_weights=sw if any_ragged else None, noises=noises,
             upload_weights=fw,
             corrupt=cfs if any(c is not None for c in cfs) else None,
-            poisons=pos if any(p is not None for p in pos) else None)
+            poisons=pos if any(p is not None for p in pos) else None,
+            h=self._h if self._dyn() else None)
         n_oks = self.engine.last_n_ok
         asts = (self.engine.last_agg_stat if self.aggregator is not None
                 else None)

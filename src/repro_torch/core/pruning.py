@@ -1,17 +1,18 @@
 """Model pruning: importance scores (eq. 4) and mask construction.
 
-The port of ``repro/core/pruning.py`` over parameter dicts of tensors. The
-paper prunes, per selected client and round, the fraction lambda_n of model
+The port of ``repro/core/pruning.py`` over parameter trees of tensors
+(nested dicts and lists, repro_torch/tree.py). The paper prunes, per selected client and round, the fraction lambda_n of model
 weights with the *lowest* first-order Taylor importance
 
     Q_{n,m} = (v_m^{(s-1)} * rho_{n,m}^{(s-1)})^2
 
 (v = global gradient of weight m from the previous round, rho = the
-weight). Masks are dicts of {0,1} fp32 tensors congruent with the
+weight). Masks are trees of {0,1} fp32 tensors congruent with the
 parameters; only leaves whose path passes `PruneSpec.prunable` are masked.
 
-Paths are the strings JAX's ``keystr`` gives a flat dict, e.g. ``"['fc1']"``,
-so `default_prunable` decides exactly as the JAX package does. Importance
+Paths are the strings JAX's ``keystr`` gives, e.g. ``"['fc1']"`` or
+``"['blocks'][0]['scale1']"``, taken in JAX's flatten order, so
+`default_prunable` decides leaf for leaf as the JAX package does. Importance
 and the mask compare follow the JAX reference's denormals-are-zero
 semantics (kernels/pruning_mask.daz).
 """
@@ -24,8 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.pruning_mask import FLT_MIN, importance
+from repro_torch.tree import flatten_with_path, tree_map, unflatten
 
-Params = dict[str, torch.Tensor]
+# a tree of tensors: nested dicts and lists (repro_torch/tree.py)
+Params = dict
 
 # Parameters whose leaf-path contains one of these substrings are never pruned.
 PROTECTED_SUBSTRINGS = (
@@ -44,14 +47,13 @@ def keystr(name: str) -> str:
     return f"[{name!r}]"
 
 
-def flatten_with_paths(tree: Params) -> list[tuple[str, torch.Tensor]]:
-    """(path, leaf) in JAX flatten order: dict keys sorted."""
-    return [(keystr(k), tree[k]) for k in sorted(tree)]
+# (path, leaf) in JAX flatten order: dict keys sorted, lists by index
+flatten_with_paths = flatten_with_path
 
 
 def taylor_importance(params: Params, grads: Params) -> Params:
     """Eq. (4): Q = (v * rho)^2, elementwise over every leaf."""
-    return {k: importance(params[k], grads[k]) for k in params}
+    return tree_map(importance, params, grads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,15 +93,13 @@ def build_masks(importance: Params, lam: float,
     The compare is q >= daz(thr), as the JAX reference evaluates it."""
     thr = global_threshold(importance, lam, spec)
     thr_d = None if thr == -np.inf else _daz_scalar(thr)
-    out = {}
-    for k, q in importance.items():
-        if thr_d is None or not spec.prunable(keystr(k)):
-            out[k] = torch.ones_like(q, dtype=torch.float32)
-        else:
-            out[k] = (q >= thr_d).float()
-    return out
+    masks = [torch.ones_like(q, dtype=torch.float32)
+             if thr_d is None or not spec.prunable(pth)
+             else (q >= thr_d).float()
+             for pth, q in flatten_with_path(importance)]
+    return unflatten(importance, masks)
 
 
 def apply_masks(params: Params, masks: Params) -> Params:
     """w~ = w * mask (pruned model of eq. (2))."""
-    return {k: params[k] * masks[k].to(params[k].dtype) for k in params}
+    return tree_map(lambda w, m: w * m.to(w.dtype), params, masks)

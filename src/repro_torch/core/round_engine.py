@@ -1,8 +1,8 @@
 """Single-device packed round engine (paper Sec. II-A, eqs. 2-7).
 
-The port of ``repro/core/round_engine.py`` (its single-device, one-round-
-per-dispatch paths). One ``round_step`` runs a whole FedSGD round on the
-device over the packed ``[R, 128]`` parameter buffer (core/packing.py):
+The port of ``repro/core/round_engine.py`` (its single-device paths). One
+``round_step`` runs a whole round on the device over the packed
+``[R, 128]`` parameter buffer (core/packing.py):
 
   1. importance Q = (w * v)^2 (eq. 4), denormals zero;
   2. the global pruning threshold — the k-th smallest prunable importance,
@@ -11,13 +11,19 @@ device over the packed ``[R, 128]`` parameter buffer (core/packing.py):
   3. the keep-masks from one importance+mask kernel: one shared mask when
      every selected client has the same k, else one mask per client;
   4. per-client mini-batch gradients on the pruned model (eq. 5), taken by
-     autograd with respect to the packed buffer, masked on the device;
+     autograd with respect to the packed buffer, masked on the device; or,
+     with a local-update scheme (core/local.py), each client's E local
+     steps from its pruned start, uploading the sum of its step
+     directions (FedAvg, FedProx's proximal term, FedDyn's correction
+     state, `_local_client`);
   5. the fault operands (per-client factors `cf`, additive poison), the
      non-finite quarantine, then the fused weighted aggregate + FedSGD step
      kernel (eqs. 6-7) — or, with a robust `aggregator`, its reducer (the
      rank-sort kernel for the median and the trimmed mean) and the same
      update tail with inv = 1; with channel noise the server steps with
-     mean + noise. The aggregate is the next round's v.
+     mean + noise. The aggregate is the next round's v;
+  6. FedDyn only: the per-client state h [N, R, 128] of every client whose
+     upload survived moves by -alpha*(u_E - u0), in place (`h_scatter`).
 
 The client axis is padded to the JAX package's bucket size (`bucket_capacity`);
 padding clients replicate the last real batch and carry weight 0, so they
@@ -51,9 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import LANES, ParamPack
-from repro_torch.device import resolve_device
+from repro_torch.device import exact_fp32, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.counters import LAUNCHES
+from repro_torch.tree import tree_map
 
 
 def kth_smallest_threshold(q: torch.Tensor, prunable: torch.Tensor, k, *,
@@ -112,6 +119,22 @@ def kth_smallest_threshold(q: torch.Tensor, prunable: torch.Tensor, k, *,
     return torch.where(k > 0, nxt, -inf)
 
 
+def h_scatter(h: torch.Tensor, cid: torch.Tensor, upd: torch.Tensor) -> None:
+    """h[cid[c]] += upd[c] for each c in order, in place, each add flushed
+    as XLA's scatter-add is on the CPU: FedDyn's state update. A repeated
+    id (the round's padding clients repeat the last real one, adding +0.0)
+    adds to the row its earlier entries left, as the sequential scatter
+    does. Gathers the rows, updates them and writes them back with
+    `index_copy_` (repeated ids then write equal rows): deterministic with
+    no atomics and no host sync, so a CUDA graph can capture it."""
+    rows = h.index_select(0, cid)
+    same = cid[:, None] == cid[None, :]
+    for c in range(cid.shape[0]):
+        new = ops.flush_add(rows[c], upd[c])
+        rows = torch.where(same[c][:, None, None], new, rows)
+    h.index_copy_(0, cid, rows)
+
+
 def bucket_capacity(n_clients: int, *, max_clients: int | None = None) -> int:
     """Padded client-axis size for a round selecting `n_clients` on one
     device: next_pow2(n), capped at the population (padding clients cost
@@ -123,26 +146,29 @@ def bucket_capacity(n_clients: int, *, max_clients: int | None = None) -> int:
 
 
 class RoundEngine:
-    """Packed-buffer FedSGD round (pruning -> gradients -> aggregate) on one
+    """Packed-buffer round (pruning -> client updates -> aggregate) on one
     device.
 
     loss_fn(params, x, y) -> scalar is differentiated through `pack.unpack`,
     so gradients live on the packed buffer. weighted_loss_fn(params, x, y,
     sample_weights) carries ragged clients; without it sample weights are
     ignored. `aggregator` (core/aggregators.py) replaces the weighted mean
-    with a robust reducer; None keeps the mean path. The kernels are the
-    CUDA ones on a CUDA device and their plain versions on the CPU
-    (kernels/ops.py, impl="auto"); device=None means CUDA.
+    with a robust reducer; None keeps the mean path. `local_scheme`
+    (core/local.LocalScheme) makes each client run E local steps; None is
+    the single-gradient FedSGD body. The kernels are the CUDA ones on a
+    CUDA device and their plain versions on the CPU (kernels/ops.py,
+    impl="auto"); device=None means CUDA.
     """
 
     def __init__(self, loss_fn: Callable, pack: ParamPack, *, eta: float,
                  weighted_loss_fn: Callable | None = None,
                  max_clients: int | None = None, aggregator=None,
-                 device=None):
+                 local_scheme=None, device=None):
         self.pack = pack
         self.eta = float(eta)
         self.max_clients = int(max_clients) if max_clients else None
         self.aggregator = aggregator
+        self.local_scheme = local_scheme
         self.device = resolve_device(device)
         self.prunable = torch.as_tensor(pack.prunable_mask(),
                                         device=self.device)
@@ -156,6 +182,7 @@ class RoundEngine:
         # _BlockLayout); the store they gather from is baked into them
         self._graphs: dict[tuple, _RoundGraph] = {}
         self._graph_store = None
+        self._graph_h = None
         self._graph_wv: tuple[torch.Tensor, torch.Tensor] | None = None
         self._capture_stream = None
         self.graphs_captured = 0
@@ -170,6 +197,8 @@ class RoundEngine:
         # the robust reducer's count of the most recent round (clients
         # trimmed / clipped / excluded; 0 on the mean path), lazy int32
         self.last_agg_stat = None
+        # FedDyn: the state tensor the most recent dispatch updated in place
+        self.last_h = None
         if weighted_loss_fn is not None:
             def packed_loss(wp, x, y, sw):
                 return weighted_loss_fn(pack.unpack(wp), x, y, sw)
@@ -182,30 +211,72 @@ class RoundEngine:
 
     def _value_and_grad(self, wp, x, y, sw):
         wp = wp.detach().requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), exact_fp32():
             loss = self._packed_loss(wp, x, y, sw)
             (g,) = torch.autograd.grad(loss, wp)
         return loss.detach(), g
 
-    def _grads_shared(self, pruned, mask, xs, ys, sw):
-        """Every client sees the same pruned buffer and mask [R, L].
-        Returns (losses [C], masked grads [C, R, L])."""
+    def _grads(self, start, xs, ys, sw):
+        """The FedSGD client axis: client c's masked gradient at its pruned
+        start, `start(c)` -> (pruned buffer, mask [R, L]) (the shared mask,
+        or w * masks[c] formed inside its own step). Returns (losses [C],
+        masked grads [C, R, L])."""
         losses, grads = [], []
         for c in range(xs.shape[0]):
-            loss, g = self._value_and_grad(pruned, xs[c], ys[c], sw[c])
+            u0, mask = start(c)
+            loss, g = self._value_and_grad(u0, xs[c], ys[c], sw[c])
             losses.append(loss)
             grads.append(g * mask)
         return torch.stack(losses), torch.stack(grads)
 
-    def _grads_multi(self, w, masks, xs, ys, sw):
-        """Per-client masks [C, R, L]: each client's pruned buffer
-        w * masks[c] is formed inside its own step."""
-        losses, grads = [], []
-        for c in range(xs.shape[0]):
-            loss, g = self._value_and_grad(w * masks[c], xs[c], ys[c], sw[c])
-            losses.append(loss)
-            grads.append(g * masks[c])
-        return torch.stack(losses), torch.stack(grads)
+    def _local_client(self, u0, mask, xs, ys, sw, hm=None):
+        """One client's E local steps (xs [E, B, ...]) from its pruned start
+        u0 = w * mask: each step takes the masked gradient at the current
+        iterate, adds the scheme's regularizer (FedProx / FedDyn,
+        `ops.packed_local_delta`; hm is FedDyn's masked state row),
+        accumulates the direction into the upload and steps u <- u -
+        eta*d, every op flushed as XLA flushes it. The upload starts from
+        zeros, so it is 0 + d_0 + ..., as the JAX package's (the first add
+        turns a -0.0 into +0.0). Returns (loss at step 0, upload, FedDyn's
+        state delta alpha*(u_E - u0) or None). The JAX package pads E to a
+        power of two with steps that are exact no-ops; running exactly E
+        steps gives its bits."""
+        ls = self.local_scheme
+        u, acc, loss0 = u0, torch.zeros_like(u0), None
+        for t in range(xs.shape[0]):
+            loss, g = self._value_and_grad(u, xs[t], ys[t], sw[t])
+            g = g * mask
+            d = (g if ls.name == "fedavg" else
+                 ops.packed_local_delta(g, u, u0, ls.coeff, hm=hm))
+            acc = ops.flush_add(acc, d)
+            u = ops.flush_sub(u, ops.flush_mul(self.eta, d))
+            if t == 0:
+                loss0 = loss
+        hd = (ops.flush_mul(ls.alpha, ops.flush_sub(u, u0)) if ls.stateful
+              else None)
+        return loss0, acc, hd
+
+    def _locals(self, start, xs, ys, sw, hms=None):
+        """The local-step client axis (xs [C, E, B, ...]), `start` as in
+        `_grads`; hms the selected clients' masked FedDyn state [C, R, L]
+        or None. Returns (losses [C], uploads [C, R, L], state deltas
+        [C, R, L] or None)."""
+        out = [self._local_client(*start(c), xs[c], ys[c], sw[c],
+                                  None if hms is None else hms[c])
+               for c in range(xs.shape[0])]
+        losses, ups, hds = zip(*out)
+        return (torch.stack(losses), torch.stack(ups),
+                None if hds[0] is None else torch.stack(hds))
+
+    def _client_axis(self, start, masks, xs, ys, sw, h, cid):
+        """Client updates of one round: the FedSGD gradients, or the local
+        steps with FedDyn's state rows h[cid] (masked by `masks`, one mask
+        or [C] of them) when h is given. Returns (losses, uploads, state
+        deltas or None)."""
+        if self.local_scheme is None:
+            return (*self._grads(start, xs, ys, sw), None)
+        hms = None if h is None else h.index_select(0, cid) * masks
+        return self._locals(start, xs, ys, sw, hms)
 
     def _aggregate_update(self, w, v, grads, cw, inv, noise=None, cf=None,
                           poison=None):
@@ -225,7 +296,9 @@ class RoundEngine:
         survives, (w, v) are carried unchanged. The factor and the poison
         are flushed as XLA flushes them (subnormal inputs and results are
         zeros of their sign), like the rest of the tail.
-        Returns (w', v', step, n_ok, agg_stat)."""
+        Returns (w', v', step, n_ok, agg_stat, cw_eff), as the JAX
+        package's: the quarantine's weights decide whose FedDyn state
+        moves."""
         if cf is not None:
             grads = ops.flush_mul(grads, cf[:, None, None])
         if poison is not None:
@@ -247,28 +320,45 @@ class RoundEngine:
                 w, gsum, inv_eff, self._eta, noise=noise)
         w2 = torch.where(alive, w2, w)
         g = torch.where(alive, g, v)
+        return w2, g, step, n_ok, ast, cw_eff
+
+    def _tail(self, w, v, ups, hds, cw, inv, h, cid, faults):
+        """The aggregate and step, then FedDyn's state: h[cid] -= hd for
+        every client whose upload survived the quarantine (a subnormal
+        weight is dead, as XLA compares it flushed); the others, padding
+        clients included, add exact +0.0."""
+        w2, g, step, n_ok, ast, cw_eff = self._aggregate_update(
+            w, v, ups, cw, inv, **faults)
+        if hds is not None:
+            live = ops.flush(cw_eff)[:, None, None] > 0.0
+            h_scatter(h, cid, torch.where(live, -hds, 0.0))
         return w2, g, step, n_ok, ast
 
-    def _round_shared(self, w, v, xs, ys, sw, cw, inv, k, **faults):
+    def _round_shared(self, w, v, xs, ys, sw, cw, inv, k, h=None, cid=None,
+                      **faults):
         """One shared-lambda round; `faults` are _aggregate_update's
-        noise / cf / poison."""
+        noise / cf / poison, (h, cid) FedDyn's state and the ids of its
+        rows."""
         q = ops.importance(w, v)
         thr = kth_smallest_threshold(q, self.prunable, k)
         _, mask = ops.packed_importance_mask(w, v, self.prunable, thr)
         pruned = w * mask
-        losses, grads = self._grads_shared(pruned, mask, xs, ys, sw)
-        w2, g, step, n_ok, ast = self._aggregate_update(w, v, grads, cw, inv,
-                                                        **faults)
+        losses, ups, hds = self._client_axis(lambda c: (pruned, mask), mask,
+                                             xs, ys, sw, h, cid)
+        w2, g, step, n_ok, ast = self._tail(w, v, ups, hds, cw, inv, h, cid,
+                                            faults)
         return w2, g, losses, thr, step, n_ok, ast
 
-    def _round_multi(self, w, v, xs, ys, sw, cw, inv, ks, **faults):
+    def _round_multi(self, w, v, xs, ys, sw, cw, inv, ks, h=None, cid=None,
+                     **faults):
         """One per-client-lambda round."""
         q = ops.importance(w, v)
         thr = kth_smallest_threshold(q, self.prunable, ks)      # [C]
         _, masks = ops.packed_importance_masks(w, v, self.prunable, thr)
-        losses, grads = self._grads_multi(w, masks, xs, ys, sw)
-        w2, g, step, n_ok, ast = self._aggregate_update(w, v, grads, cw, inv,
-                                                        **faults)
+        losses, ups, hds = self._client_axis(
+            lambda c: (w * masks[c], masks[c]), masks, xs, ys, sw, h, cid)
+        w2, g, step, n_ok, ast = self._tail(w, v, ups, hds, cw, inv, h, cid,
+                                            faults)
         return w2, g, losses, thr, step, n_ok, ast
 
     # -- public API ---------------------------------------------------------
@@ -277,17 +367,21 @@ class RoundEngine:
         return bucket_capacity(n_clients, max_clients=self.max_clients)
 
     def init_buffers(self, params) -> tuple[torch.Tensor, torch.Tensor]:
-        w = self.pack.pack({k: t.to(self.device) for k, t in params.items()})
+        w = self.pack.pack(tree_map(lambda t: t.to(self.device), params))
         return w, torch.zeros_like(w)
 
     @torch.no_grad()
     def round_step(self, w, v, xs, ys, lams, sample_weights=None,
                    noise=None, upload_weights=None, corrupt=None,
-                   poison=None):
+                   poison=None, h=None, client_ids=None):
         """One full round. xs: [C, B, ...], ys: [C, B] (tensors or arrays),
         lams: [C] host-side pruning ratios of the selected clients;
         sample_weights: optional [C, B] 0/1 per-sample weights (ragged
-        clients padded to B).
+        clients padded to B). With a local scheme the batches carry a step
+        axis after the client axis: xs [C, E, B, ...], ys and
+        sample_weights [C, E, B], E = local_scheme.steps. FedDyn also takes
+        `h`, its [N, R, L] state (updated in place: `last_h` is h), and
+        `client_ids`, the [C] ids of the selected clients' rows.
 
         The scenario operands, all host arrays: `noise` [R, L] aggregation
         channel noise (zero on padding lanes) added to the aggregate before
@@ -311,6 +405,10 @@ class RoundEngine:
         dev = self.device
         xs = torch.as_tensor(xs, device=dev)
         ys = torch.as_tensor(ys, device=dev)
+        ls = self.local_scheme
+        if ls is not None and (xs.ndim < 3 or int(xs.shape[1]) != ls.steps):
+            raise ValueError(f"expected {ls.steps} local-step batches per "
+                             f"client ([C, E, B, ...]), got {tuple(xs.shape)}")
 
         # pad the client axis to the bucket; padding clients replicate the
         # last real batch and carry weight 0, so they never touch the update
@@ -372,6 +470,18 @@ class RoundEngine:
         if noise is not None:
             faults["noise"] = torch.as_tensor(np.asarray(noise, np.float32),
                                               device=dev)
+        if self._dyn(h):
+            if client_ids is None:
+                raise ValueError("feddyn round_step requires the selected "
+                                 "client_ids")
+            cid = np.asarray(client_ids, np.int64)
+            if cid.shape != (n_clients,):
+                raise ValueError(f"client_ids shape {cid.shape} != "
+                                 f"({n_clients},)")
+            # padding clients repeat the last real id and add exact +0.0
+            cid = np.concatenate([cid, np.full(pad, cid[-1], np.int64)])
+            faults.update(h=h, cid=torch.as_tensor(cid, device=dev))
+            self.last_h = h
 
         if np.all(ks == ks[0]):
             out = self._round_shared(w, v, xs, ys, sw, cw, inv, int(ks[0]),
@@ -391,37 +501,50 @@ class RoundEngine:
                 thr = thr[:n_clients]
         return w2, g, losses, thr, step
 
+    def _dyn(self, h) -> bool:
+        """Whether a dispatch carries FedDyn's state: the scheme needs it,
+        and no other takes it."""
+        ls = self.local_scheme
+        stateful = ls is not None and ls.stateful
+        if stateful and h is None:
+            raise ValueError("feddyn needs its per-client state h")
+        if h is not None and not stateful:
+            raise ValueError("h= is FedDyn's per-client state; this engine's "
+                             f"local scheme {ls!r} carries none")
+        return stateful
+
     # -- multi-round blocks -------------------------------------------------
 
-    def _ones_sw(self, c_b: int, batch: int) -> torch.Tensor:
+    def _ones_sw(self, shape) -> torch.Tensor:
         """The all-ones sample weights round_step takes for a round without
         ragged clients (one device constant a shape)."""
-        key = (c_b, batch)
-        sw = self._sw_cache.get(key)
+        sw = self._sw_cache.get(shape)
         if sw is None:
-            sw = self._sw_cache[key] = torch.ones(key, device=self.device)
+            sw = self._sw_cache[shape] = torch.ones(shape, device=self.device)
         return sw
 
     def _block_round(self, lay: "_BlockLayout", store, w, v, row, noise,
-                     poison, cf_on: bool, out) -> None:
+                     poison, cf_on: bool, out, h=None) -> None:
         """One round of a block from its operand row (`_BlockLayout`):
         gathers the batches from the store, runs the `round_step` body on
-        (w, v), writes (w', g) back into (w, v) and the round's losses,
-        thresholds, survivor and reducer counts into `out`. Every operand is
-        a device tensor, so a CUDA graph can capture the whole round."""
+        (w, v) (and FedDyn's h, in place), writes (w', g) back into (w, v)
+        and the round's losses, thresholds, survivor and reducer counts
+        into `out`. Every operand is a device tensor, so a CUDA graph can
+        capture the whole round."""
         c_b, n_k = lay.c_b, lay.n_k
         rowf = row.view(torch.float32)
         o = lay.offsets
+        shape = lay.batch_shape
         cid = row[o["cid"]:o["cid"] + c_b].long()
-        ix = row[o["ix"]:o["ix"] + c_b * lay.batch].view(c_b,
-                                                        lay.batch).long()
-        xs = store.x[cid[:, None], ix]
-        ys = store.y[cid[:, None], ix]
-        sw = (rowf[o["sw"]:o["sw"] + c_b * lay.batch].view(c_b, lay.batch)
-              if lay.has_sw else self._ones_sw(c_b, lay.batch))
+        ix = row[o["ix"]:o["k"]].view(shape).long()
+        cidx = cid.view((c_b,) + (1,) * (len(shape) - 1))
+        xs = store.x[cidx, ix]
+        ys = store.y[cidx, ix]
+        sw = (rowf[o["sw"]:o["sw"] + ix.numel()].view(shape)
+              if lay.has_sw else self._ones_sw(shape))
         cw = rowf[o["cw"]:o["cw"] + c_b]
         inv = rowf[o["inv"]]
-        faults = {}
+        faults = {} if h is None else dict(h=h, cid=cid)
         if cf_on:
             faults["cf"] = rowf[o["cf"]:o["cf"] + c_b]
         if poison is not None:
@@ -444,7 +567,7 @@ class RoundEngine:
         out[-1].copy_(ast)
 
     def _capture(self, key, lay, store, w, v, row, noise, poison,
-                 cf_on) -> "_RoundGraph":
+                 cf_on, h) -> "_RoundGraph":
         """Run one round eagerly as its real round on the capture stream,
         then capture the same body as a CUDA graph over static buffers.
         The eager round is the capture's warm-up (autograd, cuBLAS and the
@@ -468,13 +591,13 @@ class RoundEngine:
         s.wait_stream(cur)
         with torch.cuda.stream(s):
             self._block_round(lay, store, w, v, rg.row, rg.noise, rg.poison,
-                              cf_on, rg.out)
+                              cf_on, rg.out, h)
         before = dict(LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=s):
                 self._block_round(lay, store, w, v, rg.row, rg.noise,
-                                  rg.poison, cf_on, rg.out)
+                                  rg.poison, cf_on, rg.out, h)
         finally:
             rg.launches = {n: LAUNCHES[n] - before[n] for n in LAUNCHES
                            if LAUNCHES[n] != before[n]}
@@ -498,7 +621,8 @@ class RoundEngine:
             its last real id (the per-round path's padding clients).
         idxs  : [K, C, B] int, host-drawn sample indices into each client's
             store rows (the trainer draws them with `_sample_batch`'s RNG
-            calls, so the batches are the per-round path's).
+            calls, so the batches are the per-round path's); [K, C, E, B]
+            with a local scheme of E steps.
         lams  : [K, C] float, pruning ratios, padded like cids.
         counts: [K] int, the real selected count of each round.
         sample_weights : [K, C, B] 0/1 weights or None.
@@ -510,6 +634,9 @@ class RoundEngine:
             that carries no factor (round_step's `corrupt=None`).
         poisons : [K, C, R, L] additive upload poison, or None; or a
             sequence of K entries, each [C, R, L] or None.
+        h : FedDyn's [N, R, L] per-client state (required with FedDyn),
+            updated in place round after round (a CUDA graph captures this
+            tensor: pass the same one to every block).
 
         Every round is exactly the body `round_step` runs with the same
         operands, so the block equals K `round_step` calls bit for bit. The
@@ -525,10 +652,7 @@ class RoundEngine:
         `last_n_ok` and `last_agg_stat` hold the [K] survivor and reducer
         counts. The client axis buckets as in `round_step`, and every round
         of a block must share one bucket; K is not padded."""
-        if h is not None:
-            raise NotImplementedError(
-                "block_step(h=...) (FedDyn's per-client state) is not ported "
-                "to repro_torch yet (ROADMAP.md §1 item 4)")
+        dyn = self._dyn(h)
         if getattr(store, "sharded", False):
             raise NotImplementedError(
                 "a data-sharded cohort store is not ported to repro_torch "
@@ -537,10 +661,14 @@ class RoundEngine:
         if np.any((lams < 0.0) | (lams >= 1.0)):
             raise ValueError(f"lambda must be in [0,1), got {lams}")
         idxs = np.asarray(idxs, np.int32)
-        if idxs.ndim != 3:
+        ls = self.local_scheme
+        if ls is None and idxs.ndim != 3:
             raise ValueError(
                 f"expected [K, C, B] indices, got shape {idxs.shape}")
-        n_rounds, c_max, batch = idxs.shape
+        if ls is not None and (idxs.ndim != 4 or idxs.shape[2] != ls.steps):
+            raise ValueError(f"expected [K, C, {ls.steps}, B] local-step "
+                             f"indices, got shape {idxs.shape}")
+        n_rounds, c_max, batch = idxs.shape[0], idxs.shape[1], idxs.shape[-1]
         counts = np.asarray(counts, np.int64)
         cids = np.asarray(cids)
         if counts.shape != (n_rounds,) or cids.shape != (n_rounds, c_max) \
@@ -592,7 +720,8 @@ class RoundEngine:
             cw = live
         shared = bool((ks == ks[:, :1]).all())
         lay = _BlockLayout(c_b=c_b, batch=int(batch), shared=shared,
-                           has_sw=sample_weights is not None, has_cf=faulted)
+                           has_sw=sample_weights is not None, has_cf=faulted,
+                           steps=0 if ls is None else ls.steps, dyn=dyn)
         sw = (None if sample_weights is None
               else pad_cols(np.asarray(sample_weights, np.float32)))
         if pad:
@@ -629,11 +758,14 @@ class RoundEngine:
                     po_stack[k] if po_on[k] else None,
                     bool(cf_on[k] or po_on[k]))
 
+        if dyn:
+            self.last_h = h
         if self.device.type == "cuda":
-            if self._graph_store is not store:
+            if self._graph_store is not store or self._graph_h is not h:
                 # the graphs gather from the store they were captured with
+                # and update the FedDyn state they were captured with
                 self._graphs.clear()
-                self._graph_store = store
+                self._graph_store, self._graph_h = store, h
             if self._graph_wv is None:
                 self._graph_wv = (torch.empty_like(w), torch.empty_like(v))
             ws, vs = self._graph_wv
@@ -645,7 +777,7 @@ class RoundEngine:
                 rg = self._graphs.get(key)
                 if rg is None:
                     rg = self._capture(key, lay, store, ws, vs, row, noise,
-                                       poison, cf_k)
+                                       poison, cf_k, h)
                 else:
                     rg.row.copy_(row)
                     if noise is not None:
@@ -663,7 +795,7 @@ class RoundEngine:
             for k in range(n_rounds):
                 row, noise, poison, cf_k = operands(k)
                 self._block_round(lay, store, w2, v2, row, noise, poison,
-                                  cf_k, out[k])
+                                  cf_k, out[k], h)
         outf = out.view(torch.float32)
         losses = outf[:, :c_b]
         thrs = outf[:, c_b:c_b + lay.n_k]
@@ -675,28 +807,39 @@ class RoundEngine:
 @dataclasses.dataclass(frozen=True)
 class _BlockLayout:
     """The int32 words of one round's operand row in a block: client ids
-    [C_b], sample indices [C_b*B], k (one, shared lambda) or ks [C_b], the
-    client weights [C_b] and 1/n (fp32 bits), then the sample weights
-    [C_b*B] and the corruption factors [C_b] when the block has them. The
-    output row: losses [C_b] and thresholds [n_k] (fp32 bits), the
-    survivor count and the reducer count."""
+    [C_b], sample indices [C_b*B] ([C_b*E*B] with E local steps), k (one,
+    shared lambda) or ks [C_b], the client weights [C_b] and 1/n (fp32
+    bits), then the sample weights (shaped as the indices) and the
+    corruption factors [C_b] when the block has them. The output row:
+    losses [C_b] and thresholds [n_k] (fp32 bits), the survivor count and
+    the reducer count. `steps` (0 for the FedSGD body) and `dyn` (FedDyn's
+    state) also key the round body's graph."""
 
     c_b: int
     batch: int
     shared: bool
     has_sw: bool
     has_cf: bool
+    steps: int = 0
+    dyn: bool = False
 
     @property
     def n_k(self) -> int:
         return 1 if self.shared else self.c_b
 
     @property
+    def batch_shape(self) -> tuple[int, ...]:
+        """The shape of a round's indices and sample weights."""
+        return ((self.c_b, self.steps, self.batch) if self.steps
+                else (self.c_b, self.batch))
+
+    @property
     def offsets(self) -> dict[str, int]:
-        sizes = [("cid", self.c_b), ("ix", self.c_b * self.batch),
+        n_ix = int(np.prod(self.batch_shape))
+        sizes = [("cid", self.c_b), ("ix", n_ix),
                  ("k", self.n_k), ("cw", self.c_b), ("inv", 1)]
         if self.has_sw:
-            sizes.append(("sw", self.c_b * self.batch))
+            sizes.append(("sw", n_ix))
         if self.has_cf:
             sizes.append(("cf", self.c_b))
         out, at = {}, 0
@@ -722,7 +865,7 @@ class _BlockLayout:
         f[:, o["cw"]:o["inv"]] = cw
         f[:, o["inv"]] = np.asarray(inv, np.float64).astype(np.float32)
         if self.has_sw:
-            f[:, o["sw"]:o["sw"] + self.c_b * self.batch] = sw.reshape(n, -1)
+            f[:, o["sw"]:o["sw"] + o["k"] - o["ix"]] = sw.reshape(n, -1)
         if self.has_cf:
             f[:, o["cf"]:o["cf"] + self.c_b] = cf
         return rows

@@ -43,7 +43,8 @@ INT32_MAX = _pm.INT32_MAX
 # q = (w*v)^2 with denormals zero: the round engine's threshold input
 importance = _pm.importance
 # sums, differences and products on gradient values, flushed as XLA does
-flush_add, flush_sub, flush_mul = _pm.flush_add, _pm.flush_sub, _pm.flush_mul
+flush, flush_add, flush_sub, flush_mul = (_pm.flush, _pm.flush_add,
+                                          _pm.flush_sub, _pm.flush_mul)
 
 
 def _check_impl(impl: str, t: torch.Tensor) -> None:
@@ -134,6 +135,20 @@ def masked_update(w, g, mask, eta, *, impl="auto"):
 # the plain tail pieces, as the JAX package's ops names them
 packed_weighted_grad_sum = _pm.weighted_grad_sum
 packed_apply_mean_update = _pm.apply_mean_update
+
+
+def packed_local_delta(g, u, u0, coeff, hm=None):
+    """A local step's update direction for FedProx / FedDyn: d = g +
+    coeff*(u - u0) [- hm], hm FedDyn's masked correction state. Plain
+    torch, as the JAX package computes it outside any Pallas kernel: every
+    op rounded on its own (the product before the add, which the JAX
+    package's fence forces inside jit) and flushed as XLA flushes it, so it
+    is bit for bit the jitted ``ops.packed_local_delta`` on the CPU,
+    subnormal input included. `coeff` is a host scalar."""
+    d = flush_add(g, flush_mul(coeff, flush_sub(u, u0)))
+    if hm is not None:
+        d = flush_sub(d, hm)
+    return d
 
 
 def packed_client_quarantine(grads, cweights, inv):

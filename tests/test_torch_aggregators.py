@@ -321,7 +321,7 @@ def test_round_tail_matches_jax(name, kwargs, noisy):
         inv, None if noise is None else jnp.asarray(noise),
         jnp.asarray(cf), jnp.asarray(poison))
     jw, jg, jstep, jn, jast = (np.asarray(a) for a in jout[:5])
-    tw, tg, tstep, tn, tast = teng._aggregate_update(
+    tw, tg, tstep, tn, tast, _ = teng._aggregate_update(
         _t(w), _t(v), _t(grads), _t(cw), inv,
         noise=None if noise is None else _t(noise), cf=_t(cf),
         poison=_t(poison))
@@ -345,7 +345,7 @@ def test_round_tail_with_no_survivor_keeps_the_model(name, kwargs):
     grads = _t(rng.normal(size=(4, 256, 128)).astype(np.float32))
     cf = torch.tensor([np.nan, np.nan, 1.0, 1.0])
     cw = torch.tensor([1.0, 1.0, 0.0, 0.0])
-    w2, g2, _, n_ok, _ = teng._aggregate_update(w, v, grads, cw,
-                                                np.float32(0.5), cf=cf)
+    w2, g2, _, n_ok, _, _ = teng._aggregate_update(w, v, grads, cw,
+                                                   np.float32(0.5), cf=cf)
     assert int(n_ok) == 0
     assert torch.equal(w2, w) and torch.equal(g2, v)

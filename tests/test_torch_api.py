@@ -125,16 +125,21 @@ def test_registries_match_jax_and_name_unported_items():
         tapi.register_model("lenet", lambda s, d: None)
     ds = tapi.DATASETS.get("synthetic-mnist")(tapi.DataSpec(n_train=40,
                                                             n_test=10))
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tapi.MODELS.get("resnet")(tapi.ModelSpec(name="resnet"), ds)
+    # resnet and the local schemes resolve (ported); the fleet datasets
+    # still name item 5
+    init, apply = tapi.MODELS.get("resnet")(tapi.ModelSpec(name="resnet"), ds)
+    assert apply is cnn.resnet_apply
+    assert len(init(torch.Generator().manual_seed(0), device="cpu")
+               ["blocks"]) == 9
     for fleet in ("synthetic-fleet", "synthetic-fleet-cifar"):
         with pytest.raises(NotImplementedError, match="item 5"):
             tapi.DATASETS.get(fleet)(tapi.DataSpec(dataset=fleet))
     assert tapi.LOCAL_SCHEMES.get("fedavg")(tapi.SchemeSpec()) is None
+    from repro.core.local import make_local_scheme as jmake
     for name, steps in (("fedavg", 2), ("fedprox", 1), ("feddyn", 3)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tapi.LOCAL_SCHEMES.get(name)(
-                tapi.SchemeSpec(local_scheme=name, local_steps=steps))
+        assert tapi.LOCAL_SCHEMES.get(name)(tapi.SchemeSpec(
+            local_scheme=name, local_steps=steps)).spec_key == \
+            jmake(name, steps=steps).spec_key
     with pytest.raises(ValueError, match="unknown local scheme kwargs"):
         tapi.LOCAL_SCHEMES.get("fedavg")(
             tapi.SchemeSpec(local_kwargs={"nu": 1.0}))

@@ -216,7 +216,7 @@ def test_block_step_validates_inputs():
     with pytest.raises(ValueError, match="corrupt"):
         eng.block_step(w, v, store, cids, idxs, np.full((2, 2), 0.2),
                        np.full(2, 2), corrupt=[None])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="FedDyn's per-client state"):
         eng.block_step(w, v, store, cids, idxs, np.full((2, 2), 0.2),
                        np.full(2, 2), h=w)
 

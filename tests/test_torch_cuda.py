@@ -41,7 +41,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_blocks import BLOCK_BODIES, block_case, round_args  # noqa: E402
+from _torch_blocks import (BLOCK_BODIES, LOCAL_BODIES, block_case,  # noqa: E402
+                           local_block_case, round_args)
 from repro_torch.core import (ClientData, FederatedTrainer,  # noqa: E402
                               ScaledMalicious, make_aggregator)
 from repro_torch.core import round_engine as tre  # noqa: E402
@@ -1060,3 +1061,176 @@ def test_rank_sort_kernel_takes_a_subnormal_weight_as_zero(dev):
         cw0 = cw.clone()
         cw0[2] = 0.0
         assert_bitwise(out, pm.client_rank_sort_plain(g, cw0))
+
+
+# -- the paper's CIFAR-10 path: local schemes and ResNet on the card ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LOCAL_BODIES))
+def test_graph_local_block_step_equals_eager_round_steps(dev, name):
+    """Two blocks of 4 rounds of a local scheme through the captured graphs
+    (the second all replays) against 8 eager round_step calls: parameters,
+    v, losses, thresholds, survivor counts and FedDyn's state bit for bit,
+    and the kernels' launch counts equal."""
+    eng, store, params, ops_, kw = local_block_case(dev, name, seed=7)
+    cids, _, _, counts = ops_
+    dyn = name == "feddyn"
+    w0, v0 = eng.init_buffers(params)
+    h_e = torch.zeros((6,) + tuple(w0.shape), device=dev) if dyn else None
+    h_b = torch.zeros_like(h_e) if dyn else None
+    pm.reset_launches()
+    w, v = w0, v0
+    ref = []
+    for _rep in range(2):
+        for k in range(4):
+            xs, ys, args = round_args(store, ops_, kw, k)
+            lams = args.pop("lams")
+            if dyn:
+                args.update(h=h_e, client_ids=cids[k, :int(counts[k])])
+            w, v, losses, thr, _ = eng.round_step(w, v, xs, ys, lams, **args)
+            ref.append((losses, thr, eng.last_n_ok))
+    torch.cuda.synchronize()
+    eager_launches = dict(pm.LAUNCHES)
+    pm.reset_launches()
+    wb, vb = w0, v0
+    got = []
+    for _rep in range(2):
+        wb, vb, losses, thrs = eng.block_step(wb, vb, store, *ops_, h=h_b,
+                                              **kw)
+        for k in range(4):
+            got.append((losses[k], thrs[k], eng.last_n_ok[k]))
+    torch.cuda.synchronize()
+    assert dict(pm.LAUNCHES) == eager_launches
+    assert eng.graphs_captured >= 1 and eng.graph_replays >= 4
+    assert eng.graphs_captured + eng.graph_replays == 8
+    assert_bitwise(wb, w)
+    assert torch.equal(vb, v)
+    if dyn:
+        assert_bitwise(h_b, h_e)
+        assert float(h_b.abs().sum()) > 0
+    for k, (a, b) in enumerate(zip(got, ref)):
+        n = int(counts[k % 4])
+        assert_bitwise(a[0][:n], b[0])
+        assert_bitwise(a[1].reshape(-1)[:b[1].numel()], b[1].reshape(-1))
+        assert int(a[2]) == int(b[2])
+
+
+def _resnet_grads(dev, params, x, y):
+    """ResNet's loss and packed gradient through the round engine."""
+    from repro_torch.core import ParamPack, RoundEngine
+    loss = cnn.make_loss_fn(cnn.resnet_apply)
+    pack = ParamPack.build(params)
+    eng = RoundEngine(loss, pack, eta=0.1, weighted_loss_fn=loss.weighted,
+                      device=dev)
+    sw = torch.ones(x.shape[0], device=dev)
+    return eng._value_and_grad(pack.pack(params), x, y, sw)
+
+
+def _leaf_grads(params, x, y, scope=True):
+    """ResNet's loss and its gradient leaves, concatenated in flatten
+    order, with or without the exact_fp32 scope."""
+    import contextlib
+    from repro_torch.device import exact_fp32
+    from repro_torch.tree import leaves, unflatten
+    ps = [t.detach().clone().requires_grad_(True) for t in leaves(params)]
+    with (exact_fp32() if scope else contextlib.nullcontext()):
+        loss = cnn.make_loss_fn(cnn.resnet_apply)(unflatten(params, ps), x,
+                                                  y)
+        g = torch.autograd.grad(loss, ps)
+    return loss.detach(), torch.cat([t.reshape(-1) for t in g])
+
+
+def _tf32_on():
+    """Switch TF32 on for cuDNN convolutions globally; returns the undo."""
+    conv = torch.backends.cudnn.conv
+    prev = conv.fp32_precision
+    conv.fp32_precision = "tf32"
+    return lambda: setattr(conv, "fp32_precision", prev)
+
+
+@pytest.mark.cuda
+def test_resnet_gradients_ignore_the_callers_cudnn_flags(dev):
+    """ResNet-20's loss and packed gradient on a CIFAR-shaped batch of 32:
+    the same bits with TF32 and cuDNN's benchmark mode switched on
+    globally as with the defaults (the engine's exact_fp32 scope), and the
+    same bits as the leaf gradients the reference backend takes. Against
+    an fp64 reference on the CPU the gradient is within 1e-3 relative L2
+    (fp32 on cuDNN's deterministic algorithms; the same call without the
+    scope under global TF32, the planted fault, misses it)."""
+    from repro_torch.tree import tree_map
+    params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+    y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
+    on_card = tree_map(lambda t: t.to(dev), params)
+    xd, yd = x.to(dev), y.to(dev)
+    l0, g0 = _resnet_grads(dev, on_card, xd, yd)
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    undo = _tf32_on()
+    try:
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.deterministic = False
+        l1, g1 = _resnet_grads(dev, on_card, xd, yd)
+        _, g_tf32 = _leaf_grads(on_card, xd, yd, scope=False)
+    finally:
+        undo()
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = flags
+    assert_bitwise(l1, l0)
+    assert_bitwise(g1, g0)
+    _, g_leaf = _leaf_grads(on_card, xd, yd)
+    n = g_leaf.numel()
+    assert_bitwise(g0.reshape(-1)[:n], g_leaf)
+    _, g64 = _leaf_grads(tree_map(lambda t: t.double(), params), x.double(),
+                         y)
+
+    def rel(g):
+        return float((g.double().cpu() - g64).norm() / g64.norm())
+    assert rel(g_leaf) < 1e-3
+    assert rel(g_tf32) > 1e-3
+
+
+@pytest.mark.cuda
+def test_feddyn_restore_into_a_captured_trainer_then_replay(dev, tmp_path):
+    """A blocked FedDyn trainer on the card runs 8 rounds with checkpoints
+    after rounds 0 and 4; restoring round 4's checkpoint into the same
+    trainer (its graphs captured, h written in place) and running rounds
+    5-7 again replays the captured graphs to the uninterrupted run's
+    parameters and FedDyn state, bit for bit."""
+    from repro_torch.api.callbacks import (CheckpointCallback,
+                                           restore_trainer_state)
+    from repro_torch.core.local import make_local_scheme
+    rng = np.random.default_rng(5)
+    sizes = [40, 30, 25, 35, 28, 33]
+    clients = [ClientData(rng.normal(size=(n, 28, 28, 1)).astype(np.float32),
+                          rng.integers(0, 10, n).astype(np.int32))
+               for n in sizes]
+    n = len(sizes)
+    a = (rng.random((8, n)) < 0.7).astype(np.float64)
+    a[:, 0] = 1.0
+    sched = Schedule(a=a, lam=0.3 * a, power=0.3 * np.ones_like(a),
+                     freq=3e8 * np.ones_like(a), theta=0.0, energy=0.0,
+                     delay=0.0, feasible=True)
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(5), device="cpu")
+    tr = FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
+                          clients, eta=0.1, batch_size=16, seed=0,
+                          local_scheme=make_local_scheme("feddyn", steps=2,
+                                                         alpha=0.1))
+    ch = ChannelModel(n)
+    ckpt = CheckpointCallback(str(tmp_path), 4)
+    tr.run(sched, SystemParams.table1(n), ch.uplink, ch.downlink,
+           callbacks=[ckpt])
+    want_w = tr.pack.pack(tr.params).clone()
+    want_h = tr._h.clone()
+    h_tensor, captured = tr._h, tr.engine.graphs_captured
+    assert tr.n_block_dispatches >= 2 and tr.engine.graph_replays >= 1
+    restore_trainer_state(ckpt.manager, tr, step=4)
+    assert tr._h is h_tensor and not torch.equal(tr._h, want_h)
+    replays = tr.engine.graph_replays
+    tr.run(sched, SystemParams.table1(n), ch.uplink, ch.downlink,
+           start_round=5)
+    assert tr.engine.graphs_captured == captured
+    assert tr.engine.graph_replays == replays + 3
+    assert_bitwise(tr.pack.pack(tr.params), want_w)
+    assert_bitwise(tr._h, want_h)

@@ -238,7 +238,8 @@ for need in ("repro_torch.kernels._build", "repro_torch.configs.registry",
              "repro_torch.api.registry", "repro_torch.api.callbacks",
              "repro_torch.api.experiment", "repro_torch.api.cli",
              "repro_torch.checkpoint.io", "repro_torch.core.client_store",
-             "repro_torch.data.loader"):
+             "repro_torch.data.loader", "repro_torch.core.local",
+             "repro_torch.tree"):
     assert need in sys.modules, need
 print(len(names))
 """
@@ -248,7 +249,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 63
+    assert int(out.stdout.split()[-1]) >= 65
 
 
 def test_entry_points_default_to_cuda():
