@@ -87,7 +87,30 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      0's; steady 8-round windows of FedSGD and FedDyn, blocked and per
      round; kill after round 10's checkpoint of the blocked FedDyn run and
      resume, bit for bit with h;
-  9. the LM stack's kernels against their plain versions in bf16 (the
+  9. fleet streaming through the experiment API (random_k: 8 clients a
+     round at lambda 0.5, so kernels 2-4 prune; batch 4, 8-round blocks,
+     unbounded budgets, evaluation off): (a) LeNet over a 1,000-client
+     synthetic-fleet roster (24 samples a client on average), 64 rounds,
+     client_store "streamed", "replicated" and the reference backend:
+     parameters bit for bit, v as values, equal histories, 8 cohort
+     swaps, the streamed run's graph captures equal to the replicated
+     run's, kernels 2-4 once a round (their launches go into the kernels
+     line as `fleet_launches`); kill after round 32's checkpoint of a
+     streamed run and resume, bit for bit; (b) FedDyn (E = 2, alpha 0.01)
+     over 32 rounds of the same roster, streamed == replicated bit for bit,
+     h included; (c) ResNet-20 at full width over a 100,000-client
+     synthetic-fleet-cifar roster (2 samples a client on average), 32
+     rounds, client_store "auto": its ~3.7 GB replicated estimate is over
+     the 1 GiB budget, so it must stream; env build s, ms a round, H2D
+     bytes, peak cohort bytes (per sample within 4x of (a)'s), prefetch
+     stall and captures printed;
+ 10. the sweep service: four cells, (synthetic-mnist, lenet) and
+     (synthetic-cifar10, resnet) zipped over seeds 0 and 1, 10 rounds
+     each, run with workers=1 and workers=2 (two ResNet cells in flight):
+     per-run JSONL byte-identical, one environment build per group; then
+     a sweep killed during its third cell and resumed with workers=2,
+     byte-identical again;
+ 11. the LM stack's kernels against their plain versions in bf16 (the
      JAX package's bf16 kernel tolerance, 2e-2): flash attention at
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
@@ -96,7 +119,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
      over every kernel the wrapper launches per call;
- 10. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
+ 12. granite-3-2b at full width and depth in bf16 (random weights, seed 0)
      served by the continuous-batching engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
      slots; flash launches == 40 x 16, engine tokens == a sequential
@@ -107,15 +130,15 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      of the plain version on its own inputs; then a profiled window; and
      the decode kernel on the served caches, every
      layer, each row at its last request's position;
- 11. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
+ 13. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
      (slots reused; tokens == a fresh sequential generation), and the SSD
      entry point on layer 0's real inputs for a 512-token prompt: its 4
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
- 12. one JSON line listing the ten kernels (kernels 1-4 with their
-     launches on spec C's blocked runs beside the slice's), then the
-     result line.
+ 14. one JSON line listing the ten kernels (kernels 1-4 with their
+     launches on spec C's blocked runs beside the slice's, every kernel
+     with its launches on phase 9's streamed run), then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -1717,7 +1740,350 @@ def cifar_phase(dev, card):
     return problems, launches_by_run, windows
 
 
-# -- phases 9-11: the LM stack, serving granite-3-2b and mamba2-130m ---------
+# -- phases 9-10: fleet streaming and the sweep service -------------------------
+
+# random_k over a virtual roster: 8 clients a round at one lambda (kernels
+# 2-4 prune), batch 4, unbounded budgets, 8-round blocks
+FLEET = dict(k=8, lam=0.5, seed=1, batch=4, rpd=8, n_test=800)
+# (a) and (b): LeNet over 1,000 clients (the JAX benchmark's parity cap,
+# benchmarks/fleet_scaling.py PARITY_MAX_POP), 24 samples a client on
+# average; (c): ResNet-20 over 100,000 clients, 2 a client
+FLEET_PARITY = dict(dataset="synthetic-fleet", model="lenet",
+                    population=1_000, per_client=24, rounds=64)
+FLEET_SCALE = dict(dataset="synthetic-fleet-cifar", model="resnet",
+                   population=100_000, per_client=2, rounds=32)
+FLEET_FEDDYN_ROUNDS = 32
+PEAK_FLAT_FACTOR = 4.0    # benchmarks/fleet_scaling.py's flatness bound
+
+
+def fleet_spec(cfg: dict, mode: str, rounds: int | None = None,
+               scheme_kw=None, **run):
+    from repro_torch.api import (DataSpec, ExperimentSpec, ModelSpec, RunSpec,
+                                 SchemeSpec, WirelessSpec)
+    f = FLEET
+    return ExperimentSpec(
+        data=DataSpec(dataset=cfg["dataset"], n_clients=cfg["population"],
+                      n_train=cfg["per_client"] * cfg["population"],
+                      n_test=f["n_test"], seed=0),
+        model=ModelSpec(name=cfg["model"]),
+        wireless=WirelessSpec(e0=1e12, t0=1e12, seed=0),
+        scheme=SchemeSpec(name="random_k", rounds=rounds or cfg["rounds"],
+                          eta=0.1, batch=f["batch"],
+                          ao={"k": f["k"], "lam": f["lam"],
+                              "seed": f["seed"]}, **(scheme_kw or {})),
+        run=RunSpec(seed=0, evaluate=False, stop_on_budget=False,
+                    rounds_per_dispatch=f["rpd"], client_store=mode, **run))
+
+
+def _fleet_run(spec, env, card, label, trainer=None):
+    """Build and run one fleet spec over `env` (on `trainer`, reset, when
+    given), launch counts from 0; the run's row (ms a round, graphs, the
+    fleet counters, launches)."""
+    from repro_torch.api import Experiment
+    run = Experiment(spec).build(env=env, trainer=trainer)
+    counter = BlockCounter()
+    pm.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run.run(callbacks=[counter])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    tr = run.trainer
+    n = len(res.history)
+    row = {"run": label, "card": card, "rounds": n,
+           "ms_per_round": 1e3 * wall_s / n,
+           "store_mode": tr.store_mode(), "streaming": tr.streaming,
+           "block_dispatches": tr.n_block_dispatches,
+           "batch_uploads": tr.n_batch_uploads,
+           "launches": {k: v for k, v in pm.LAUNCHES.items() if v}}
+    if tr.engine is not None:
+        row.update(graphs_captured=tr.engine.graphs_captured,
+                   graph_replays=tr.engine.graph_replays,
+                   capture_s=tr.engine.capture_seconds,
+                   block_rounds=counter.rounds)
+    if tr.streaming:
+        row["fleet"] = dict(tr.fleet_counters)
+    print(json.dumps({"fleet": label, **row}))
+    return run, res, row
+
+
+def _round_launch_problems(label, row, live) -> list:
+    c = row["launches"]
+    out = [f"fleet {label}: {k} launches {c.get(k, 0)} != rounds {live}"
+           for k in ("exponent_histogram", "fedsgd_aggregate_weighted")
+           if c.get(k, 0) != live]
+    masks = c.get("importance_mask_2d", 0) + \
+        c.get("importance_mask_batched", 0)
+    if masks != live:
+        out.append(f"fleet {label}: mask launches {masks} != rounds {live}")
+    return out
+
+
+def fleet_phase(dev, card):
+    """Fleet streaming through repro_torch.api (random_k, k 8, lambda 0.5,
+    batch 4, 8-round blocks, evaluation off). (a) LeNet over a 1,000-client
+    synthetic-fleet roster, 64 rounds, client_store "streamed",
+    "replicated" and the reference backend: parameters bit for bit, v as
+    values, equal histories, 8 cohort swaps, the streamed run's graph
+    captures equal to the replicated run's, kernels 2-4 once a round; kill
+    after round 32's checkpoint of a streamed run and resume, bit for bit.
+    (b) FedDyn (E = 2, alpha 0.01) over 32 rounds of the same roster,
+    streamed == replicated bit for bit, h included. (c) ResNet-20 over a
+    100,000-client synthetic-fleet-cifar roster, 32 rounds, "auto": its
+    replicated estimate is over the 1 GiB budget, so it streams; its peak
+    cohort bytes per sample within 4x of (a)'s. Returns (problems, the
+    streamed (a) run's launches)."""
+    from repro_torch.api import (Experiment, build_environment,
+                                 resume_from_checkpoint)
+    problems = []
+    keys = ("round", "train_loss", "selected", "delay", "energy",
+            "cumulative_delay", "cumulative_energy")
+    t = time.perf_counter()
+    env = build_environment(fleet_spec(FLEET_PARITY, "streamed"), device=dev)
+    env_s = time.perf_counter() - t
+    runs = {}
+    for label, mode, run_kw in (("streamed", "streamed", {}),
+                                ("replicated", "replicated", {}),
+                                ("reference", "streamed",
+                                 dict(backend="reference"))):
+        runs[label] = _fleet_run(fleet_spec(FLEET_PARITY, mode, **run_kw),
+                                 env, card, f"parity {label}")
+    (rs, hs, row_s), (rr, hr, row_r) = runs["streamed"], runs["replicated"]
+    print(json.dumps({"fleet_parity_env_build_s": env_s, "card": card}))
+    live = sum(1 for m in hs.history if m.selected)
+    for label in ("streamed", "replicated"):
+        problems += _round_launch_problems(f"parity {label}",
+                                           runs[label][2], live)
+    if not rs.trainer.streaming or row_s["fleet"]["n_cohort_swaps"] != 8:
+        problems.append(f"fleet parity: not 8 cohort swaps ({row_s})")
+    if row_s["graphs_captured"] != row_r["graphs_captured"]:
+        problems.append("fleet parity: streamed captured "
+                        f"{row_s['graphs_captured']} graphs, replicated "
+                        f"{row_r['graphs_captured']}")
+    if row_s["graphs_captured"] + row_s["graph_replays"] != \
+            row_s["block_rounds"] or row_s["batch_uploads"]:
+        problems.append(f"fleet parity: the streamed blocks did not replay "
+                        f"a graph every round ({row_s})")
+    for other in ("replicated", "reference"):
+        ro, ho, _ = runs[other]
+        bits = _param_bits(rs.trainer.params, ro.trainer.params)
+        v_eq = all(torch.equal(rs.trainer.global_grad[k],
+                               ro.trainer.global_grad[k])
+                   for k in rs.trainer.params)
+        same = [[getattr(m, k) for k in keys] for m in hs.history] == \
+            [[getattr(m, k) for k in keys] for m in ho.history]
+        print(json.dumps({"fleet_parity": f"streamed vs {other}",
+                          "param_bits_differing": bits, "v_equal": v_eq,
+                          "history_equal": same}))
+        if bits or not v_eq or not same:
+            problems.append(f"fleet parity: streamed != {other} ({bits} "
+                            f"parameter bits, v equal {v_eq}, history "
+                            f"equal {same})")
+    fleet_launches = row_s["launches"]
+    per_sample_a = rs.trainer._cohort_slots.x[0, 0].nbytes + 4
+    peak_a = row_s["fleet"]["peak_cohort_bytes"]
+    # the same spec again on each packed trainer, reset (the sweep's
+    # trainer pool): the streamed one rebuilds its cohort store but keeps
+    # its slots, so it captures nothing new; steady ms a round
+    for label, (run, _, row) in (("streamed", runs["streamed"]),
+                                 ("replicated", runs["replicated"])):
+        want = run.trainer.pack.pack(run.trainer.params).clone()
+        _, _, again = _fleet_run(run.spec, env, card, f"rerun {label}",
+                                 trainer=run.trainer)
+        bits = int((run.trainer.pack.pack(run.trainer.params)
+                    .view(torch.int32) != want.view(torch.int32)).sum())
+        if bits or again["graphs_captured"] != row["graphs_captured"] or \
+                again["graph_replays"] != row["graph_replays"] + 64:
+            problems.append(f"fleet rerun {label}: {bits} parameter bits "
+                            f"differ, graphs {row['graphs_captured']} -> "
+                            f"{again['graphs_captured']}, replays "
+                            f"{row['graph_replays']} -> "
+                            f"{again['graph_replays']}")
+
+    # kill after round 32's checkpoint, resume from the checkpoint's spec
+    class KillAfter(Callback):
+        checkpoint_every = 16
+
+        def on_checkpoint(self, m, trainer):
+            if m.round == 32:
+                raise RuntimeError("simulated kill after round 32")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    spec = fleet_spec(FLEET_PARITY, "streamed", checkpoint_dir=str(CKPT_DIR),
+                      checkpoint_every=16)
+    killed = False
+    try:
+        Experiment(spec).build(env=env).run(callbacks=[KillAfter()])
+    except RuntimeError as err:
+        killed = "simulated kill" in str(err)
+    grab = Grab()
+    resumed = resume_from_checkpoint(str(CKPT_DIR), callbacks=[grab],
+                                     device=dev)
+    ok_hist = ([m.train_loss for m in resumed.history]
+               == [m.train_loss for m in hs.history])
+    bits = _param_bits(rs.trainer.params, grab.trainer.params)
+    print(json.dumps({"fleet_resume": "parity streamed", "killed": killed,
+                      "resumed_from": resumed.summary["resumed_from"],
+                      "history_equal": ok_hist,
+                      "final_param_bits_differing": bits,
+                      "resumed_fleet": resumed.summary.get("fleet")}))
+    if not killed or resumed.summary["resumed_from"] != 32 or not ok_hist \
+            or bits or "fleet" not in resumed.summary:
+        problems.append("fleet parity: kill and resume is not bit for bit")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del runs, rr, hr, grab
+
+    # (b) FedDyn over streamed cohorts: h bit for bit
+    dyn = {}
+    for mode in ("streamed", "replicated"):
+        dyn[mode] = _fleet_run(fleet_spec(
+            FLEET_PARITY, mode, rounds=FLEET_FEDDYN_ROUNDS,
+            scheme_kw=dict(local_scheme="feddyn", local_steps=2,
+                           local_kwargs={"alpha": 0.01})),
+            env, card, f"feddyn {mode}")
+    (ds_, dh, drow), (dr, drh, drow_r) = dyn["streamed"], dyn["replicated"]
+    bits = _param_bits(ds_.trainer.params, dr.trainer.params)
+    hbits = _h_bits(ds_.trainer, dr.trainer)
+    same = [m.train_loss for m in dh.history] == \
+        [m.train_loss for m in drh.history]
+    print(json.dumps({"fleet_feddyn": "streamed vs replicated",
+                      "param_bits_differing": bits, "h_bits_differing": hbits,
+                      "history_equal": same}))
+    if bits or hbits or not same or not drow.get("fleet") or \
+            drow["graphs_captured"] != drow_r["graphs_captured"]:
+        problems.append(f"fleet feddyn: streamed != replicated ({bits} "
+                        f"parameter bits, {hbits} h bits, history {same}, "
+                        f"graphs {drow.get('graphs_captured')} / "
+                        f"{drow_r.get('graphs_captured')})")
+    if ds_.trainer._h is None or not float(ds_.trainer._h.abs().sum()) > 0:
+        problems.append("fleet feddyn: h never moved")
+    del dyn, ds_, dr
+    torch.cuda.empty_cache()
+
+    # (c) ResNet-20 over 100,000 clients: "auto" streams
+    t = time.perf_counter()
+    spec = fleet_spec(FLEET_SCALE, "auto")
+    env_c = build_environment(spec, device=dev)
+    env_c_s = time.perf_counter() - t
+    run_c, res_c, row_c = _fleet_run(spec, env_c, card, "scale auto")
+    tr = run_c.trainer
+    per_sample_c = tr._cohort_slots.x[0, 0].nbytes + 4
+    peak_c = row_c.get("fleet", {}).get("peak_cohort_bytes", 0)
+    scaled = (peak_c / per_sample_c) / (peak_a / per_sample_a)
+    print(json.dumps({"fleet_scale": "resnet20 x 100000", "card": card,
+                      "env_build_s": env_c_s,
+                      "replicated_estimate_bytes": tr.store_nbytes(),
+                      "budget_bytes": tr.device_mem_budget,
+                      "ms_per_round": row_c["ms_per_round"],
+                      "h2d_bytes": row_c.get("fleet", {}).get("h2d_bytes"),
+                      "peak_cohort_bytes": peak_c,
+                      "prefetch_stall_s":
+                          row_c.get("fleet", {}).get("prefetch_stall_s"),
+                      "graphs_captured": row_c["graphs_captured"],
+                      "graph_replays": row_c["graph_replays"],
+                      "peak_per_sample_vs_parity": scaled}))
+    if tr.store_mode() != "streamed" or not tr.streaming:
+        problems.append(f"fleet scale: 'auto' did not stream "
+                        f"({tr.store_nbytes()} bytes estimated)")
+    if not scaled <= PEAK_FLAT_FACTOR:
+        problems.append(f"fleet scale: peak cohort bytes per sample "
+                        f"{scaled:.2f}x the parity run's")
+    losses = [m.train_loss for m in res_c.history]
+    if len(losses) != FLEET_SCALE["rounds"] or \
+            not np.isfinite(losses).all():
+        problems.append(f"fleet scale: {len(losses)} rounds, losses "
+                        f"finite {np.isfinite(losses).all()}")
+    problems += _round_launch_problems("scale", row_c, len(losses))
+    return problems, fleet_launches
+
+
+# four cells: (synthetic-mnist, lenet) and (synthetic-cifar10, resnet)
+# zipped, each over seeds 0 and 1, 10 rounds
+SWEEP_DIR = pathlib.Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_sweep"
+
+
+def sweep_phase(dev, card):
+    """The sweep service on the card: four cells, workers=1 and then
+    workers=2 (two ResNet cells in flight at once: exact_fp32 and graph
+    captures under two threads), per-run JSONL byte-identical and one
+    environment build per group; then a sweep killed during its third cell
+    and resumed with workers=2, byte-identical again. Returns problems."""
+    from repro_torch.api import (DataSpec, ExperimentSpec, JsonlDirSink,
+                                 ModelSpec, RunSpec, SchemeSpec, SweepSpec,
+                                 WirelessSpec, run_sweep)
+    problems = []
+    base = ExperimentSpec(
+        data=DataSpec(dataset="synthetic-mnist", n_clients=10, sigma=1.0,
+                      n_train=4000, n_test=800, seed=0),
+        model=ModelSpec(name="lenet"),
+        wireless=WirelessSpec(e0=1e12, t0=1e12, seed=0),
+        scheme=SchemeSpec(name="random_k", rounds=10, eta=0.1, batch=32,
+                          ao={"k": 4, "lam": 0.5, "seed": 1}),
+        run=RunSpec(seed=0, eval_every=5, stop_on_budget=False,
+                    checkpoint_every=5))
+    sw = SweepSpec(base=base, seeds=[0, 1],
+                   zip={"data.dataset": ["synthetic-mnist",
+                                         "synthetic-cifar10"],
+                        "model.name": ["lenet", "resnet"]})
+
+    def files(d):
+        return {p.name: p.read_bytes() for p in sorted(d.glob("0*.jsonl"))}
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    out = {}
+    for workers in (1, 2):
+        d = SWEEP_DIR / f"w{workers}"
+        t = time.perf_counter()
+        res = run_sweep(sw, sink=JsonlDirSink(str(d)), workers=workers,
+                        device=dev)
+        wall = time.perf_counter() - t
+        out[workers] = files(d)
+        row = {"workers": workers, "card": card, "cells": len(res.cells),
+               "wall_s": wall, "env_builds": res.n_env_builds,
+               "trainer_builds": res.n_trainer_builds,
+               "errors": [e["error"] for e in res.errors],
+               "final_accuracy": [r.summary["final_accuracy"] if r else None
+                                  for r in res.results]}
+        print(json.dumps({"sweep": row}))
+        if res.errors or res.n_env_builds != 2 or len(out[workers]) != 4:
+            problems.append(f"sweep workers={workers}: {row}")
+    if out[1] != out[2]:
+        diff = sorted(k for k in out[1] if out[1][k] != out[2].get(k))
+        problems.append(f"sweep: workers 1 and 2 differ in {diff}")
+
+    class InterruptAfterRounds(Callback):
+        def __init__(self, n):
+            self.n, self.seen = n, 0
+
+        def on_round_end(self, m, trainer):
+            self.seen += 1
+            if self.seen >= self.n:
+                raise KeyboardInterrupt
+
+    d = SWEEP_DIR / "killed"
+    interrupted = False
+    try:
+        run_sweep(sw, sink=JsonlDirSink(str(d)), device=dev,
+                  callbacks=[InterruptAfterRounds(2 * 10 + 7)])
+    except KeyboardInterrupt:
+        interrupted = True
+    partial = len(files(d))
+    t = time.perf_counter()
+    res = run_sweep(sw, sink=JsonlDirSink(str(d)), workers=2, resume=True,
+                    device=dev)
+    row = {"interrupted": interrupted, "files_before_resume": partial,
+           "skipped": res.n_skipped, "resume_wall_s": time.perf_counter() - t,
+           "byte_identical": files(d) == out[1], "card": card}
+    print(json.dumps({"sweep_resume": row}))
+    if not interrupted or res.n_skipped != 2 or res.errors or \
+            not row["byte_identical"]:
+        problems.append(f"sweep: kill and resume is not byte for byte ({row})")
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    return problems
+
+
+# -- phases 11-13: the LM stack, serving granite-3-2b and mamba2-130m ---------
 
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "decode_attention":
@@ -2517,6 +2883,16 @@ def main() -> int:
             if not counts.get(kname):
                 problems.append(f"spec C {run_name}: {kname} never "
                                 "launched")
+    t = time.perf_counter()
+    fleet_problems, fleet_launches = fleet_phase(dev, card)
+    problems += fleet_problems
+    walls["fleet_streaming"] = time.perf_counter() - t
+    t = time.perf_counter()
+    problems += sweep_phase(dev, card)
+    walls["sweep_service"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase_wall_s": {
+        k: walls[k] for k in ("fleet_streaming", "sweep_service")}}))
 
     # the LM stack. torch.cumsum on CUDA (the SSD scans') has no
     # deterministic implementation, so deterministic mode goes off here;
@@ -2561,6 +2937,7 @@ def main() -> int:
                      "launches": counts[kname], "path": path,
                      **({"spec_c_launches": spec_c}
                         if any(spec_c.values()) else {}),
+                     "fleet_launches": fleet_launches.get(kname, 0),
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],
                      "bound_ms": res["bound_ms"],
@@ -2584,6 +2961,7 @@ def main() -> int:
                      "source": LM_SOURCES[kname],
                      "replaces": LM_REPLACES[kname],
                      "launches": counts[kname], "path": path,
+                     "fleet_launches": fleet_launches.get(kname, 0),
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"],
                      "device_ms": res["device_ms"],

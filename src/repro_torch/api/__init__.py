@@ -4,10 +4,10 @@ registries, run lifecycle hooks, and bit-for-bit resumable runs.
     from repro_torch.api import ExperimentSpec, Experiment
     result = Experiment(ExperimentSpec.from_file("spec.json")).run()
 
-CLI: `python -m repro_torch.api.cli run spec.json` / `resume CKPT_DIR`.
-The same spec files, JSON-lines results and checkpoints as the JAX
-package's `repro.api`; its sweep service is not ported yet (ROADMAP.md §1
-item 6).
+CLI: `python -m repro_torch.api.cli run spec.json` / `resume CKPT_DIR` /
+`sweep sweep.json --out-dir DIR`. The same spec files, sweep files,
+JSON-lines results, sweep directories and checkpoints as the JAX package's
+`repro.api`.
 """
 from repro_torch.api.spec import (
     DataSpec, ExperimentSpec, ModelSpec, RunSpec, SchemeSpec, SpecError,
@@ -27,6 +27,11 @@ from repro_torch.api.experiment import (
     Environment, Experiment, Run, RunResult, build_environment,
     resume_from_checkpoint,
 )
+from repro_torch.api.sweep import (
+    CellTimeout, JsonlDirSink, RunSink, SweepCell, SweepInterrupted,
+    SweepResult, SweepSpec, load_manifest, override_field, run_sweep,
+    spec_hash, verify_cell_run, write_manifest,
+)
 
 __all__ = [
     "DataSpec", "ModelSpec", "WirelessSpec", "SchemeSpec", "RunSpec",
@@ -40,4 +45,7 @@ __all__ = [
     "save_trainer_state", "restore_trainer_state", "load_run_state",
     "Environment", "build_environment", "Experiment", "Run", "RunResult",
     "resume_from_checkpoint",
+    "SweepSpec", "SweepCell", "SweepResult", "RunSink", "JsonlDirSink",
+    "run_sweep", "override_field", "CellTimeout", "SweepInterrupted",
+    "spec_hash", "write_manifest", "load_manifest", "verify_cell_run",
 ]

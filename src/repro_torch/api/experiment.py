@@ -64,7 +64,7 @@ class Environment:
 
     spec: ExperimentSpec
     dataset: Any                      # SyntheticImageDataset-like
-    clients: Sequence                 # list[ClientData]
+    clients: Sequence                 # list[ClientData] or a FleetRoster
     phi: np.ndarray                   # [N] generalization statements (Lemma 1)
     sp: SystemParams
     ch: ChannelModel
@@ -88,12 +88,21 @@ def build_environment(spec: ExperimentSpec, *,
     dataset = DATASETS.get(d.dataset)(d)
     nc = int(dataset.num_classes)
     test_hist = np.bincount(dataset.y_test, minlength=nc).astype(float)
-    parts = partition_by_dirichlet(dataset.y_train, d.n_clients, d.sigma,
-                                   rng=np.random.default_rng(d.seed))
-    clients = [ClientData(dataset.x_train[i], dataset.y_train[i])
-               for i in parts]
-    phi = phis(np.stack([c.label_histogram(nc) for c in clients]),
-               test_hist[None])
+    roster = getattr(dataset, "roster", None)
+    if roster is not None:
+        # a fleet-scale virtual population (data/fleet.py): the roster IS
+        # the client sequence (lazy, on the host) and already non-IID per
+        # client, so the Dirichlet split is skipped; phi comes from the
+        # labels-only histogram pass, O(population) ints and no image data
+        clients: Sequence = roster
+        phi = phis(roster.label_histograms(), test_hist[None])
+    else:
+        parts = partition_by_dirichlet(dataset.y_train, d.n_clients, d.sigma,
+                                       rng=np.random.default_rng(d.seed))
+        clients = [ClientData(dataset.x_train[i], dataset.y_train[i])
+                   for i in parts]
+        phi = phis(np.stack([c.label_histogram(nc) for c in clients]),
+                   test_hist[None])
     table = spec.wireless.table
     if table == "auto":
         table = "mnist" if "mnist" in d.dataset else "cifar10"
@@ -144,7 +153,8 @@ class RunResult:
               history: list[RoundMetrics], *,
               resumed_from: int | None = None,
               faults: dict | None = None,
-              aggregation: dict | None = None) -> "RunResult":
+              aggregation: dict | None = None,
+              fleet: dict | None = None) -> "RunResult":
         evals = [(m.test_accuracy, m.round) for m in history
                  if m.test_accuracy is not None]
         acc, acc_round = evals[-1] if evals else (float("nan"), -1)
@@ -172,6 +182,11 @@ class RunResult:
             # same golden-stability argument: clean mean summaries stay
             # byte-identical
             summary["aggregation"] = dict(aggregation)
+        if fleet:
+            # present only when cohort streaming was active this run (the
+            # same only-when-active contract); its stall seconds are wall
+            # clock, so parity compares round records, never summary bytes
+            summary["fleet"] = dict(fleet)
         return cls(spec=spec.to_dict(), summary=summary, history=history,
                    schedule=schedule)
 
@@ -308,10 +323,12 @@ class Run:
             agg = {"aggregator": self.trainer.aggregator.name,
                    **{k: int(v)
                       for k, v in self.trainer.agg_counters.items()}}
+        fleet = (dict(self.trainer.fleet_counters)
+                 if self.trainer.streaming else None)
         return RunResult.build(self.spec, self.schedule, prefix + history,
                                resumed_from=resumed_from,
                                faults=fc if include else None,
-                               aggregation=agg)
+                               aggregation=agg, fleet=fleet)
 
 
 class Experiment:
@@ -420,6 +437,12 @@ class Experiment:
             trainer.reset(params, spec.run.seed, channel_noise=noise,
                           fault_model=fault)
         else:
+            if select is not None and hasattr(env.clients, "store_nbytes"):
+                raise ValueError(
+                    "data-selection policies materialize every client's "
+                    "samples and cannot run over a lazy fleet roster "
+                    f"(population {len(env.clients)}); use "
+                    "scheme.data_selection='none' with fleet datasets")
             clients = select(env.clients) if select is not None \
                 else env.clients
             trainer = FederatedTrainer(

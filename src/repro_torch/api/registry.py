@@ -19,9 +19,8 @@ weights therefore differ from the JAX package's, which draws them with
 ``jax.random``; a caller that needs JAX's weights registers a model whose
 init returns them through `repro_torch.convert.params_from_numpy`.
 
-The fleet datasets are not ported yet: they stay registered under their
-names and raise NotImplementedError naming ROADMAP.md §1 item 5 when the
-factory is called. ``fedavg`` with ``local_steps=1`` is FedSGD itself and
+The fleet datasets build the port's roster (data/fleet.py), byte for byte
+the JAX package's. ``fedavg`` with ``local_steps=1`` is FedSGD itself and
 resolves to None.
 """
 from __future__ import annotations
@@ -34,11 +33,6 @@ from repro_torch.core.optimizer_ao import AOConfig
 from repro_torch.data import make_dataset
 from repro_torch.models import (lenet_apply, lenet_init, mlp_edge_apply,
                                 mlp_edge_init, resnet_apply, resnet_init)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md §1 item {item})")
 
 
 class Registry:
@@ -128,7 +122,7 @@ def _resnet(spec: ModelSpec, dataset) -> tuple[Callable, Callable]:
 
 
 # ---------------------------------------------------------------------------
-# Datasets: the two synthetic substrates; the fleet rosters are not ported.
+# Datasets: the two synthetic substrates and the fleet-scale rosters.
 # ---------------------------------------------------------------------------
 
 def _make_synthetic(name: str):
@@ -143,8 +137,14 @@ for _name in ("synthetic-mnist", "synthetic-cifar10"):
 
 
 def _make_fleet_dataset(name: str):
+    """Fleet-scale virtual rosters (data/fleet.py): DataSpec.n_clients IS
+    the population (1e2..1e6); clients generate lazily on first touch, so
+    building the dataset costs O(population) scalars, not samples."""
     def factory(spec: DataSpec):
-        _not_ported(f"dataset {name!r} (fleet rosters, data/fleet.py)", "5")
+        from repro_torch.data.fleet import make_fleet
+        return make_fleet(name, population=spec.n_clients,
+                          n_train=spec.n_train, n_test=spec.n_test,
+                          sigma=spec.sigma, noise=spec.noise, seed=spec.seed)
     return factory
 
 

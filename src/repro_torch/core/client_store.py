@@ -54,10 +54,10 @@ class StoreBudgetError(RuntimeError):
         super().__init__(
             f"replicated ClientStore for {population} clients needs "
             f"~{nbytes / 2**20:.1f} MiB on the device, over the "
-            f"{budget / 2**20:.1f} MiB device-memory budget. Raise the "
-            f"budget (device_mem_budget / REPRO_DEVICE_MEM_BUDGET); "
-            f'client_store="streamed" (cohort streaming) is not ported to '
-            f"repro_torch yet (ROADMAP.md §1 item 5)")
+            f"{budget / 2**20:.1f} MiB device-memory budget. Use "
+            f'client_store="streamed" (cohort streaming, RunSpec.client_store'
+            f" / FederatedTrainer(client_store=...)) or raise the budget "
+            f"(device_mem_budget / REPRO_DEVICE_MEM_BUDGET).")
 
 
 def canonical_dtype(dtype) -> np.dtype:
@@ -81,13 +81,22 @@ def to_device(a, device) -> torch.Tensor:
 
 
 def _client_counts(clients: Sequence) -> np.ndarray:
-    return np.asarray([len(c) for c in clients], np.int64)
+    """Per-client sample counts; a roster (data/fleet.FleetRoster) publishes
+    them, so its clients are not materialised."""
+    counts = getattr(clients, "counts", None)
+    if counts is None:
+        counts = [len(c) for c in clients]
+    return np.asarray(counts, np.int64)
 
 
 def estimated_store_nbytes(clients: Sequence) -> int:
     """Device bytes a replicated ClientStore for `clients` would take,
-    without building it: the per-client counts and one client's shapes and
-    dtypes."""
+    without building it: ``clients.store_nbytes()`` where the sequence
+    offers it (a roster), else the per-client counts and one client's
+    shapes and dtypes."""
+    sizer = getattr(clients, "store_nbytes", None)
+    if callable(sizer):
+        return int(sizer())
     counts = _client_counts(clients)
     n_max = int(counts.max())
     x0 = np.asarray(clients[0].x)

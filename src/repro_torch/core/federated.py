@@ -49,6 +49,15 @@ CUDA one CUDA-graph replay a round. ``"auto"`` (the default) resolves to
 32-round blocks on CUDA and to one round a dispatch on the CPU, as the JAX
 package resolves it per backend. Both modes give the same bits.
 
+Fleet-scale populations (``client_store="streamed"``, or "auto" past the
+device-memory budget): the trainer takes a lazy roster (data/fleet.py) as
+it is, reads sample counts from its ``counts``, and the blocks gather from
+per-block cohorts (core/cohort_store.py) in place of the replicated store,
+prefetched while the block before them runs. Streaming moves data only:
+a streamed run is bit for bit the replicated one. FedDyn's state stays
+population-sized; a block works on its cohort's rows of it in a fixed slab
+(`_exec_block`).
+
 ``run(callbacks=, start_round=)`` take the experiment API's lifecycle hooks
 (repro_torch.api.callbacks), fired at materialisation points only, and
 resume from a checkpoint taken after round ``start_round - 1``.
@@ -69,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pruning
+from repro_torch.core.cohort_store import CohortStore, fleet_counters_zero
 from repro_torch.core.client_store import (ClientStore, StoreBudgetError,
                                            default_device_budget,
                                            estimated_store_nbytes, to_device)
@@ -173,8 +183,6 @@ class FederatedTrainer:
             raise ValueError(f"unknown client_store {client_store!r}")
         if shards not in (None, 1):
             _not_ported("shards > 1 (multi-device sharding)", "8")
-        if client_store == "streamed":
-            _not_ported("client_store='streamed' (cohort streaming)", "5")
         self.device = resolve_device(device)
         # Per-sample-weighted loss: ragged client batches are padded with
         # zero-weight samples so they stay on the packed path
@@ -190,7 +198,10 @@ class FederatedTrainer:
                 "pass weighted_loss_fn or a loss_fn with a .weighted "
                 "companion (models.make_loss_fn attaches one)")
         self.loss_fn = loss_fn
-        self.clients = list(clients)
+        # a sequence that publishes per-client `counts` (FleetRoster) stays
+        # lazy: list()-ing a 1e5-client roster would materialise the fleet
+        self.clients = (clients if getattr(clients, "counts", None)
+                        is not None else list(clients))
         self.eta = float(eta)
         self.batch_size = int(batch_size)
         self.rng = np.random.default_rng(seed)
@@ -207,11 +218,18 @@ class FederatedTrainer:
         self.n_batch_uploads = 0
         self.n_block_dispatches = 0
         # the client-store policy: "replicated" builds the full store,
-        # "auto" does while its estimated size fits device_mem_budget
+        # "streamed" moves per-block cohorts (core/cohort_store.py), "auto"
+        # replicates while the estimated store fits device_mem_budget
         self.client_store = client_store
         self.device_mem_budget = (int(device_mem_budget) if device_mem_budget
                                   else default_device_budget())
         self._store_nbytes: int | None = None
+        # the current run's cohort store, and the device slots it leaves
+        # for the next run's (the captured graphs gather from them)
+        self._cohorts: CohortStore | None = None
+        self._cohort_slots = None
+        self.streaming = False
+        self.fleet_counters = fleet_counters_zero()
         # lifecycle hooks of the current run() (the api.Callback protocol)
         self._callbacks: tuple = ()
         # channel noise (wireless/channel.GaussianAggregateNoise protocol:
@@ -276,6 +294,10 @@ class FederatedTrainer:
         self.n_batch_uploads = 0
         self.n_block_dispatches = 0
         self._callbacks = ()
+        # zeroed IN PLACE: a run's CohortStore accumulates into this dict
+        self.fleet_counters.update(fleet_counters_zero())
+        self.streaming = False
+        self._cohorts = None
         if self._h is not None:
             self._h.zero_()
         params = tree_map(lambda t: t.detach().to(self.device), params)
@@ -326,6 +348,12 @@ class FederatedTrainer:
         return self.rng.choice(
             count, size=min(self.batch_size, count),
             replace=count < self.batch_size)
+
+    def _client_len(self, n: int) -> int:
+        """Sample count of client n without materialising it: a roster
+        publishes `counts`; a client list falls back to len()."""
+        counts = getattr(self.clients, "counts", None)
+        return int(counts[n]) if counts is not None else len(self.clients[n])
 
     def _sample_batch(self, client: ClientData):
         """Draw one mini-batch: (x, y, sample_weights) as numpy arrays.
@@ -693,22 +721,19 @@ class FederatedTrainer:
 
     def store_nbytes(self) -> int:
         """Estimated device bytes of a replicated ClientStore for this
-        trainer's clients (cached)."""
+        trainer's clients (cached; never materialises a roster)."""
         if self._store_nbytes is None:
             self._store_nbytes = estimated_store_nbytes(self.clients)
         return self._store_nbytes
 
     def store_mode(self) -> str:
-        """The resolved client-store policy. "auto" resolves to
-        "replicated" while the estimated store fits device_mem_budget; past
-        it, to "streamed", which is not ported yet."""
+        """The resolved client-store policy, "replicated" or "streamed":
+        "auto" replicates while the estimated store fits device_mem_budget
+        and streams past it."""
         if self.client_store != "auto":
             return self.client_store
-        if self.store_nbytes() <= self.device_mem_budget:
-            return "replicated"
-        _not_ported(f"client_store='auto' over the device-memory budget "
-                    f"({self.store_nbytes()} > {self.device_mem_budget} "
-                    f"bytes) resolves to cohort streaming, which", "5")
+        return ("replicated" if self.store_nbytes() <= self.device_mem_budget
+                else "streamed")
 
     def check_store_budget(self) -> None:
         """Raise StoreBudgetError when block execution would build a
@@ -734,7 +759,7 @@ class FederatedTrainer:
         loss: the per-round path handles those as before)."""
         if not selected:
             return None
-        lens = [min(self.batch_size, len(self.clients[n])) for n in selected]
+        lens = [min(self.batch_size, self._client_len(n)) for n in selected]
         if self._weighted_loss is not None:
             blen = self.batch_size       # ragged clients pad to batch_size
         elif len(set(lens)) == 1:
@@ -829,7 +854,7 @@ class FederatedTrainer:
             for j, n in enumerate(sel):
                 lams[k, j] = lam_s[n]
                 for t in range(steps):
-                    draw = self._draw_indices(len(self.clients[n]))
+                    draw = self._draw_indices(self._client_len(n))
                     m = len(draw)
                     if m < blen:         # ragged: repeat the last sample
                         idxs[k, j, t, :m] = draw         # with weight 0, as
@@ -844,16 +869,46 @@ class FederatedTrainer:
             lams[k, c_k:] = lam_s[sel[-1]]
         if ls is None:                   # the FedSGD body's [K, C, B]
             idxs, sw = idxs[:, :, 0], sw[:, :, 0]
+        h_arg = self._h if self._dyn() else None
+        slab = None
+        if self._cohorts is not None:
+            # streamed: this block's prefetched cohort stands in for the
+            # full store, and global ids remap to its device rows (the
+            # index draws above do not depend on the layout)
+            store = self._cohorts.acquire(start)
+            cids = store.remap(cids)
+            if h_arg is not None:
+                # FedDyn over a cohort: its clients' rows of h, in cohort
+                # row order and padded with the last id, go into the slots'
+                # fixed slab (the graphs capture its address), which the
+                # remapped ids index as they index the data; afterwards
+                # only the unique prefix goes back, an exact round trip
+                ids = store.ids_by_shard[0]
+                rows = len(store.counts)
+                gidx = np.concatenate(
+                    [ids, np.full(rows - len(ids), ids[-1], np.int64)])
+                full = self._cohorts.slots.h_slab(self.pack.rows, LANES)
+                slab = full[store.base:store.base + rows]
+                slab.copy_(h_arg.index_select(
+                    0, torch.as_tensor(gidx, device=self.device)))
+                h_arg = full
+        else:
+            store = self._ensure_store()
         noises = (np.stack([self._noise_packed(start + k)
                             for k in range(n_rounds)])
                   if self.channel_noise else None)
         self._w, self._v, losses, _ = self.engine.block_step(
-            self._w, self._v, self._ensure_store(), cids, idxs, lams, counts,
+            self._w, self._v, store, cids, idxs, lams, counts,
             sample_weights=sw if any_ragged else None, noises=noises,
             upload_weights=fw,
             corrupt=cfs if any(c is not None for c in cfs) else None,
             poisons=pos if any(p is not None for p in pos) else None,
-            h=self._h if self._dyn() else None)
+            h=h_arg)
+        if slab is not None:
+            n_ids = len(store.ids_by_shard[0])
+            self._h.index_copy_(
+                0, torch.as_tensor(store.ids_by_shard[0], device=self.device),
+                slab[:n_ids])
         n_oks = self.engine.last_n_ok
         asts = (self.engine.last_agg_stat if self.aggregator is not None
                 else None)
@@ -1006,6 +1061,22 @@ class FederatedTrainer:
                                        self.rounds_per_dispatch,
                                        first_round=start_round)
 
+        self.streaming = False
+        self._cohorts = None
+        if blocks and self.store_mode() == "streamed":
+            # the cohort plans are a pure function of the block partition
+            # (selections only, no RNG), so a resumed run replays the same
+            # cohort schedule; the first two cohorts prefetch from here
+            self._cohorts = CohortStore(
+                self.clients, max_clients=len(self.clients),
+                counters=self.fleet_counters, device=self.device,
+                slots=self._cohort_slots)
+            self._cohorts.schedule(
+                [(st, *self._block_cids(st, blocks[st], infos))
+                 for st in sorted(blocks)])
+            self._cohort_slots = self._cohorts.slots
+            self.streaming = True
+
         block_losses: dict[int, Any] = {}
         try:
             for s, (selected, lam_s, d, e, cum_t, cum_e,
@@ -1042,6 +1113,11 @@ class FederatedTrainer:
             materialize()
         finally:
             # a raising hook (a simulated kill after a checkpoint) must not
-            # leave callback references on the trainer
+            # leave callback references on the trainer; the cohort store's
+            # prefetch threads go with it (self.streaming stays set for the
+            # run's summary)
             self._callbacks = ()
+            if self._cohorts is not None:
+                self._cohorts.close()
+                self._cohorts = None
         return history

@@ -57,9 +57,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import LANES, ParamPack
-from repro_torch.device import exact_fp32, resolve_device
+from repro_torch.device import CAPTURE_LOCK, exact_fp32, resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.counters import LAUNCHES
+from repro_torch.kernels.counters import capturing, count_launch
 from repro_torch.tree import tree_map
 
 
@@ -179,9 +179,10 @@ class RoundEngine:
         # block lengths run by block_step (the pow2 ladder of the trainer)
         self.k_buckets_used: set[int] = set()
         # CUDA graphs of the block's round bodies, by body key (see
-        # _BlockLayout); the store they gather from is baked into them
+        # _BlockLayout); the store tensors they gather from (a ClientStore's,
+        # or a cohort store's two slots) are baked into them
         self._graphs: dict[tuple, _RoundGraph] = {}
-        self._graph_store = None
+        self._graph_src: tuple | None = None
         self._graph_h = None
         self._graph_wv: tuple[torch.Tensor, torch.Tensor] | None = None
         self._capture_stream = None
@@ -575,39 +576,46 @@ class RoundEngine:
         extra round runs and (w, v) advance once. A failed capture raises:
         on CUDA a block never runs its rounds eagerly beyond this one. The
         wrappers' launch counts of the captured body are kept with the
-        graph and added at every replay; capturing launches nothing."""
+        graph and added at every replay; capturing launches nothing.
+
+        Other threads (sweep workers) may run meanwhile: the capture is in
+        "thread_local" mode, so their allocations and syncs do not break
+        it, and the whole call holds `device.CAPTURE_LOCK`, so no other
+        thread captures or copies on a side stream at the same time (the
+        capture stream comes from torch's pool and may be another
+        engine's too). The capture's launch counts are this thread's only
+        (`counters.capturing`)."""
         from repro_torch.kernels import _build
         _build.load()                    # never nvcc inside a capture
-        t0 = time.perf_counter()
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(self.device)
-        s = self._capture_stream
-        rg = _RoundGraph(row=row.clone(),
-                         noise=None if noise is None else noise.clone(),
-                         poison=None if poison is None else poison.clone(),
-                         out=torch.empty(lay.out_width, dtype=torch.int32,
-                                         device=self.device))
-        cur = torch.cuda.current_stream(self.device)
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            self._block_round(lay, store, w, v, rg.row, rg.noise, rg.poison,
-                              cf_on, rg.out, h)
-        before = dict(LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=s):
+        with CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(self.device)
+            s = self._capture_stream
+            rg = _RoundGraph(
+                row=row.clone(),
+                noise=None if noise is None else noise.clone(),
+                poison=None if poison is None else poison.clone(),
+                out=torch.empty(lay.out_width, dtype=torch.int32,
+                                device=self.device))
+            cur = torch.cuda.current_stream(self.device)
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
                 self._block_round(lay, store, w, v, rg.row, rg.noise,
                                   rg.poison, cf_on, rg.out, h)
-        finally:
-            rg.launches = {n: LAUNCHES[n] - before[n] for n in LAUNCHES
-                           if LAUNCHES[n] != before[n]}
-            LAUNCHES.update(before)
-        cur.wait_stream(s)
-        rg.graph = graph
-        self._graphs[key] = rg
-        self.graphs_captured += 1
-        self.capture_seconds += time.perf_counter() - t0
-        return rg
+            graph = torch.cuda.CUDAGraph()
+            with capturing() as launches:
+                with torch.cuda.graph(graph, stream=s,
+                                      capture_error_mode="thread_local"):
+                    self._block_round(lay, store, w, v, rg.row, rg.noise,
+                                      rg.poison, cf_on, rg.out, h)
+            rg.launches = launches
+            cur.wait_stream(s)
+            rg.graph = graph
+            self._graphs[key] = rg
+            self.graphs_captured += 1
+            self.capture_seconds += time.perf_counter() - t0
+            return rg
 
     @torch.no_grad()
     def block_step(self, w, v, store, cids, idxs, lams, counts,
@@ -615,7 +623,9 @@ class RoundEngine:
                    corrupt=None, poisons=None, h=None):
         """K rounds from one upload of the block's operands.
 
-        store : ClientStore, the device-resident [C_all, N_max, ...] data.
+        store : ClientStore, the device-resident [C_all, N_max, ...] data,
+            or a streamed `Cohort` (core/cohort_store.py) with cids remapped
+            to its device rows.
         cids  : [K, C] int, selected client ids a round in selected order;
             a round with fewer than C clients is right-padded by repeating
             its last real id (the per-round path's padding clients).
@@ -656,7 +666,7 @@ class RoundEngine:
         if getattr(store, "sharded", False):
             raise NotImplementedError(
                 "a data-sharded cohort store is not ported to repro_torch "
-                "yet (ROADMAP.md §1 item 5)")
+                "yet (ROADMAP.md §1 item 8)")
         lams = np.asarray(lams, np.float64)
         if np.any((lams < 0.0) | (lams >= 1.0)):
             raise ValueError(f"lambda must be in [0,1), got {lams}")
@@ -731,6 +741,9 @@ class RoundEngine:
                 po = np.concatenate(
                     [po, np.zeros((n_rounds, pad, rows, lanes), np.float32)],
                     axis=1)
+        if faulted and cf is None:
+            # upload weights alone (dropouts): the factor words are clean
+            cf = np.ones((n_rounds, c_max), np.float32)
         # one upload: the operand rows, then the noise and poison stacks
         parts = [lay.pack(pad_cols(cids.astype(np.int32)), pad_cols(idxs),
                           pad_cols(ks)[:, :lay.n_k], cw, inv, sw,
@@ -761,11 +774,15 @@ class RoundEngine:
         if dyn:
             self.last_h = h
         if self.device.type == "cuda":
-            if self._graph_store is not store or self._graph_h is not h:
-                # the graphs gather from the store they were captured with
-                # and update the FedDyn state they were captured with
+            src = self._graph_src
+            if (src is None or src[0] is not store.x
+                    or src[1] is not store.y or self._graph_h is not h):
+                # the graphs gather from the tensors they were captured
+                # with and update the FedDyn state they were captured with;
+                # a cohort store's cohorts share its two slots, so a swap
+                # keeps them
                 self._graphs.clear()
-                self._graph_store, self._graph_h = store, h
+                self._graph_src, self._graph_h = (store.x, store.y), h
             if self._graph_wv is None:
                 self._graph_wv = (torch.empty_like(w), torch.empty_like(v))
             ws, vs = self._graph_wv
@@ -787,7 +804,7 @@ class RoundEngine:
                     rg.graph.replay()
                     self.graph_replays += 1
                     for name, n in rg.launches.items():
-                        LAUNCHES[name] += n
+                        count_launch(name, n)
                 out[k].copy_(rg.out)
             w2, v2 = ws.clone(), vs.clone()
         else:

@@ -25,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.counters import LAUNCHES
+from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  _check_attention_inputs,
                                                  _check_rows_aligned)
@@ -127,5 +127,5 @@ def decode_attention(q, k, v, pos, *, block_k: int = 512):
                       _build.int64s((b, hq, hkv, skv, d, chunk)),
                       _build.int64s(strides), int(q.dtype == torch.bfloat16),
                       1.0 / math.sqrt(d), _build.stream_of(q))
-    LAUNCHES["decode_attention"] += 1
+    count_launch("decode_attention")
     return o

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.counters import LAUNCHES
+from repro_torch.kernels.counters import count_launch
 
 NEG_INF = -2.0**30
 HEAD_DIMS = (64, 128, 256)
@@ -105,5 +105,5 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
                       _build.int64s(strides), int(q.dtype == torch.bfloat16),
                       int(bool(causal)), int(window), float(cap),
                       1.0 / math.sqrt(d), _build.stream_of(q))
-    LAUNCHES["flash_attention"] += 1
+    count_launch("flash_attention")
     return o

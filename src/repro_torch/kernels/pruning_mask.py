@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 # one count per kernel of the port, bumped only where the kernel launches
-from repro_torch.kernels.counters import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels.counters import (LAUNCHES, count_launch,  # noqa: F401
+                                          reset_launches)
 
 LANES = 128
 FLT_MIN = torch.finfo(torch.float32).tiny
@@ -261,7 +262,7 @@ def importance_mask_2d(w, v, prunable, threshold):
         _build.launch("importance_mask_2d", w.data_ptr(), v.data_ptr(),
                       prunable.data_ptr(), threshold.data_ptr(), n,
                       q.data_ptr(), mask.data_ptr(), _build.stream_of(w))
-    LAUNCHES["importance_mask_2d"] += 1
+    count_launch("importance_mask_2d")
     return q, mask
 
 
@@ -289,7 +290,7 @@ def importance_mask_batched(w, v, prunable, thresholds):
                       prunable.data_ptr(), thresholds.data_ptr(), n_clients,
                       w.numel(), q.data_ptr(), masks.data_ptr(),
                       _build.stream_of(w))
-    LAUNCHES["importance_mask_batched"] += 1
+    count_launch("importance_mask_batched")
     return q, masks
 
 
@@ -319,7 +320,7 @@ def fedsgd_aggregate_weighted(w, grads, cweights, inv, eta):
                       grads.data_ptr(), cweights.data_ptr(), n_clients,
                       inv.data_ptr(), eta.data_ptr(), w.numel(),
                       *(o.data_ptr() for o in outs), _build.stream_of(w))
-    LAUNCHES["fedsgd_aggregate_weighted"] += 1
+    count_launch("fedsgd_aggregate_weighted")
     return tuple(outs)
 
 
@@ -347,7 +348,7 @@ def fedsgd_aggregate(w, grads, eta):
                       n_clients, float(np.float32(1.0 / n_clients)),
                       float(np.float32(eta)), w.numel(),
                       *(o.data_ptr() for o in outs), _build.stream_of(w))
-    LAUNCHES["fedsgd_aggregate"] += 1
+    count_launch("fedsgd_aggregate")
     return tuple(outs)
 
 
@@ -368,7 +369,7 @@ def masked_update_2d(w, g, mask, eta):
         _build.launch("masked_update", w.data_ptr(), g.data_ptr(),
                       mask.data_ptr(), float(np.float32(eta)), w.numel(),
                       out.data_ptr(), _build.stream_of(w))
-    LAUNCHES["masked_update_2d"] += 1
+    count_launch("masked_update_2d")
     return out
 
 
@@ -400,7 +401,7 @@ def client_rank_sort(grads, cweights):
                       cweights.data_ptr(), n_clients, n, out.data_ptr(),
                       None if keys is None else keys.data_ptr(),
                       _build.stream_of(grads))
-    LAUNCHES["client_rank_sort"] += 1
+    count_launch("client_rank_sort")
     return out
 
 
@@ -439,5 +440,5 @@ def exponent_histogram(q, prunable):
                       prunable.data_ptr(), n,
                       _hist_state(q.device, stream).data_ptr(),
                       hist.data_ptr(), stream)
-    LAUNCHES["exponent_histogram"] += 1
+    count_launch("exponent_histogram")
     return hist

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.counters import LAUNCHES
+from repro_torch.kernels.counters import count_launch
 
 NEG = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -125,5 +125,5 @@ def ssd_chunk(x, b, c, dt, a_log):
                       _build.int64s((bsz, q, h, n, p)),
                       _build.int64s(strides), int(x.dtype == torch.bfloat16),
                       _build.stream_of(x))
-    LAUNCHES["ssd_chunk"] += 1
+    count_launch("ssd_chunk")
     return y, state, decay

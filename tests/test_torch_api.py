@@ -125,15 +125,18 @@ def test_registries_match_jax_and_name_unported_items():
         tapi.register_model("lenet", lambda s, d: None)
     ds = tapi.DATASETS.get("synthetic-mnist")(tapi.DataSpec(n_train=40,
                                                             n_test=10))
-    # resnet and the local schemes resolve (ported); the fleet datasets
-    # still name item 5
+    # resnet, the local schemes and the fleet datasets resolve (ported)
     init, apply = tapi.MODELS.get("resnet")(tapi.ModelSpec(name="resnet"), ds)
     assert apply is cnn.resnet_apply
     assert len(init(torch.Generator().manual_seed(0), device="cpu")
                ["blocks"]) == 9
     for fleet in ("synthetic-fleet", "synthetic-fleet-cifar"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tapi.DATASETS.get(fleet)(tapi.DataSpec(dataset=fleet))
+        spec = tapi.DataSpec(dataset=fleet, n_clients=7, n_train=70,
+                             n_test=10)
+        fds = tapi.DATASETS.get(fleet)(spec)
+        jfds = japi.DATASETS.get(fleet)(japi.DataSpec(**spec.to_dict()))
+        assert len(fds.roster) == 7 and fds.image_shape == jfds.image_shape
+        np.testing.assert_array_equal(fds.roster.counts, jfds.roster.counts)
     assert tapi.LOCAL_SCHEMES.get("fedavg")(tapi.SchemeSpec()) is None
     from repro.core.local import make_local_scheme as jmake
     for name, steps in (("fedavg", 2), ("fedprox", 1), ("feddyn", 3)):
@@ -438,5 +441,7 @@ def test_cli_run_validate_resume(tmp_path, capsys):
     bad = dataclasses.replace(spec, model=tapi.ModelSpec(name="wat"))
     with pytest.raises(KeyError, match="unknown model 'wat'"):
         cli.main(["validate", bad.save(str(tmp_path / "bad.json"))])
-    with pytest.raises(SystemExit, match="item 6"):
-        cli.main(["sweep", spec_path])
+    # sweep is ported (tests/test_torch_sweep.py): the spec expands
+    assert cli.main(["sweep", spec_path, "--seeds", "0,1",
+                     "--expand-only"]) == 0
+    assert "sweep matrix: 2 run(s)" in capsys.readouterr().out

@@ -149,8 +149,8 @@ def test_store_budget_and_policy(monkeypatch):
         tr.check_store_budget()
     auto = FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
                             device="cpu", rounds_per_dispatch=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        auto.store_mode()
+    assert auto.store_mode() == "streamed"     # over the budget: streams
+    auto.check_store_budget()
     monkeypatch.delenv("REPRO_DEVICE_MEM_BUDGET")
     tr = FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
                           device="cpu", rounds_per_dispatch=4)
@@ -333,6 +333,26 @@ def test_block_scenarios_match_per_round():
         assert [m.n_agg_adjusted for m in blk[1]] == \
             [m.n_agg_adjusted for m in per[1]]
         assert blk[0].n_block_dispatches >= 1
+
+
+def test_block_dropout_alone_on_a_padded_client_axis():
+    """Upload weights without factors (ClientDropout) on rounds whose
+    client axis pads to its bucket: the blocks once raised there; now bit
+    for bit the per-round run, counters equal."""
+    from repro_torch.core import ClientDropout
+    clients = _hetero_env([50, 40, 30, 45, 35])
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(6), device="cpu")
+    a = np.zeros((6, 5))
+    a[:, :3] = 1.0                        # 3 clients a round: bucket 4
+    kw = dict(fault_model=ClientDropout(rate=0.3, seed=3))
+    blk = _train(clients, params, _schedule(a, 0.2), rounds_per_dispatch=2,
+                 **kw)
+    per = _train(clients, params, _schedule(a, 0.2), rounds_per_dispatch=1,
+                 **kw)
+    _assert_same_run(blk, per)
+    assert blk[0].fault_counters == per[0].fault_counters
+    assert blk[0].fault_counters["n_dropped"] > 0
+    assert blk[0].n_block_dispatches == 3
 
 
 # -- against the JAX package's blocks ----------------------------------------------------

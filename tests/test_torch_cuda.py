@@ -1234,3 +1234,183 @@ def test_feddyn_restore_into_a_captured_trainer_then_replay(dev, tmp_path):
     assert tr.engine.graph_replays == replays + 3
     assert_bitwise(tr.pack.pack(tr.params), want_w)
     assert_bitwise(tr._h, want_h)
+
+
+# -- cohort streaming and the sweep's threads on the card ------------------------
+
+class _SlowRoster:
+    """A fleet roster whose clients take `delay` seconds each to generate:
+    a cohort's prefetch is then still packing while the block before it
+    runs (and captures its graphs)."""
+
+    def __init__(self, roster, delay):
+        self.roster, self.delay = roster, delay
+        self.counts = roster.counts
+
+    def __len__(self):
+        return len(self.roster)
+
+    def __getitem__(self, cid):
+        import time
+        time.sleep(self.delay)
+        return self.roster[cid]
+
+    def store_nbytes(self):
+        return self.roster.store_nbytes()
+
+
+def _fleet_trainer(clients, sched_a, mode, **kw):
+    n = len(clients)
+    params = cnn.mlp_edge_init(torch.Generator().manual_seed(4), device="cpu",
+                               hidden=32)
+    tr = FederatedTrainer(cnn.make_loss_fn(cnn.mlp_edge_apply), params,
+                          clients, eta=0.1, batch_size=8, seed=0,
+                          client_store=mode, **kw)
+    sched = Schedule(a=sched_a, lam=0.3 * sched_a,
+                     power=0.3 * np.ones_like(sched_a),
+                     freq=3e8 * np.ones_like(sched_a), theta=0.0, energy=0.0,
+                     delay=0.0, feasible=True)
+    ch = ChannelModel(n)
+    hist = tr.run(sched, SystemParams.table1(n), ch.uplink, ch.downlink)
+    return tr, hist
+
+
+@pytest.mark.cuda
+def test_prefetch_in_flight_while_a_new_body_is_captured(dev):
+    """Blocks of 4 rounds over a 48-client roster with a new client bucket
+    in each block (so each block captures a new round body) while the next
+    cohort is still being packed by its prefetch thread: the capture
+    holds, the streamed run equals the replicated run bit for bit, and it
+    captures exactly as many graphs, whatever the number of cohorts."""
+    from repro_torch.data import make_fleet
+    roster = make_fleet(population=48, n_train=48 * 20, n_test=16,
+                        seed=2).roster
+    rng = np.random.default_rng(1)
+    a = np.zeros((16, 48))
+    for s in range(16):
+        k = (1, 3, 6, 12)[(s // 4) % 4]
+        a[s, rng.choice(48, k, replace=False)] = 1.0
+    ts, hs = _fleet_trainer(_SlowRoster(roster, 0.01), a, "streamed",
+                            rounds_per_dispatch=4)
+    tr, hr = _fleet_trainer(roster, a, "replicated", rounds_per_dispatch=4)
+    assert ts.streaming and ts.fleet_counters["n_cohort_swaps"] == 4
+    assert [m.train_loss for m in hs] == [m.train_loss for m in hr]
+    for k in tr.params:
+        assert_bitwise(ts.params[k], tr.params[k])
+    assert ts.engine.graphs_captured == tr.engine.graphs_captured == 4
+    assert ts.engine.graph_replays == tr.engine.graph_replays == 12
+
+
+@pytest.mark.cuda
+def test_a_slot_is_not_rewritten_while_a_replay_reads_it(dev):
+    """Cohort 0 sits in slot 0; a read of slot 0 is queued behind a ~50 ms
+    delay kernel on the compute stream, then cohorts 1 and 2 are acquired
+    (2 goes to slot 0 again). The copy of cohort 2 waits for that read: the
+    read sees cohort 0's rows, and afterwards slot 0 holds cohort 2's."""
+    from repro_torch.core import CohortStore
+    from repro_torch.data import make_fleet
+    roster = make_fleet(population=30, n_train=600, n_test=8, seed=3).roster
+    plans = [(0, np.asarray([[0, 1, 2, 3]], np.int32), np.asarray([4])),
+             (1, np.asarray([[4, 5, 6, 7]], np.int32), np.asarray([4])),
+             (2, np.asarray([[8, 9, 10, 11]], np.int32), np.asarray([4]))]
+    store = CohortStore(roster, max_clients=30, device=dev)
+    store.schedule(plans)
+    c0 = store.acquire(0)
+    rows0 = torch.as_tensor(c0.remap(plans[0][1])[0], device=dev).long()
+    want0 = np.stack([roster[i].x[:10] for i in range(4)])
+    torch.cuda._sleep(int(1e8))               # the queued replay's delay
+    seen = c0.x[rows0, :10].clone()           # ... and its read of slot 0
+    store.acquire(1)
+    c2 = store.acquire(2)
+    assert c2.slot == c0.slot == 0
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(seen.cpu().numpy(), want0)
+    rows2 = torch.as_tensor(c2.remap(plans[2][1])[0], device=dev).long()
+    np.testing.assert_array_equal(
+        c2.x[rows2, :10].cpu().numpy(),
+        np.stack([roster[i].x[:10] for i in range(8, 12)]))
+    store.close()
+
+
+@pytest.mark.cuda
+def test_exact_fp32_from_two_threads_keeps_resnet_gradient_bits(dev):
+    """Two threads take ResNet-20's gradient through the engine (each
+    inside exact_fp32) while a third enters and leaves the scope in a
+    loop, under global TF32 and cuDNN benchmarking: every gradient is the
+    single-threaded one, bit for bit."""
+    import threading
+    from repro_torch.device import exact_fp32
+    from repro_torch.tree import tree_map
+    params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda t: t.to(dev), params)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32), device=dev)
+    _, g_ref = _resnet_grads(dev, on_card, x, y)
+    undo = _tf32_on()
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    stop = threading.Event()
+    bad = []
+
+    def toggler():
+        while not stop.is_set():
+            with exact_fp32():
+                pass
+
+    def grads():
+        for _ in range(6):
+            _, g = _resnet_grads(dev, on_card, x, y)
+            if not torch.equal(_bits(g), _bits(g_ref)):
+                bad.append(int((_bits(g) != _bits(g_ref)).sum()))
+
+    try:
+        ts = [threading.Thread(target=f) for f in (toggler, grads, grads)]
+        for t in ts:
+            t.start()
+        for t in ts[1:]:
+            t.join()
+        stop.set()
+        ts[0].join()
+    finally:
+        undo()
+        torch.backends.cudnn.benchmark = bench
+    assert bad == []
+
+
+@pytest.mark.cuda
+def test_launch_counts_stay_exact_under_two_sweep_workers(dev):
+    """Four blocked cells on two sweep workers: each thread captures its own
+    round bodies while the other launches, and the wrappers' counts add up
+    to one histogram, one aggregate and one mask a round over all cells,
+    as with one worker; the per-run records are byte-identical."""
+    import glob
+    import os
+    import tempfile
+    from repro_torch import api
+    base = api.ExperimentSpec(
+        data=api.DataSpec(dataset="synthetic-mnist", n_clients=6, sigma=5.0,
+                          n_train=600, n_test=60, seed=0),
+        model=api.ModelSpec(name="mlp-edge"),
+        wireless=api.WirelessSpec(e0=1e6, t0=1e6, seed=0),
+        scheme=api.SchemeSpec(name="random_k", rounds=12, eta=0.1, batch=8,
+                              ao={"k": 3, "lam": 0.3, "seed": 1}),
+        run=api.RunSpec(seed=0, eval_every=4, stop_on_budget=False))
+    sw = api.SweepSpec(base=base, seeds=[0, 1, 2, 3])
+    out = {}
+    for workers in (1, 2):
+        d = tempfile.mkdtemp()
+        pm.reset_launches()
+        res = api.run_sweep(sw, sink=api.JsonlDirSink(d), workers=workers)
+        assert res.errors == []
+        out[workers] = (dict(pm.LAUNCHES), {
+            os.path.basename(p): open(p, "rb").read()
+            for p in glob.glob(os.path.join(d, "0*.jsonl"))})
+    n_rounds = 4 * 12
+    for workers, (counts, _) in out.items():
+        assert counts["exponent_histogram"] == n_rounds, workers
+        assert counts["fedsgd_aggregate_weighted"] == n_rounds, workers
+        assert counts["importance_mask_2d"] + \
+            counts["importance_mask_batched"] == n_rounds, workers
+    assert out[1][1] == out[2][1] and len(out[1][1]) == 4

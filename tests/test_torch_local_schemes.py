@@ -469,9 +469,30 @@ def test_resnet_fedprox_spec_validates_in_both_clis(tmp_path, capsys):
 
 
 def test_feddyn_over_a_streamed_store_names_item_5():
+    """FedDyn over a streamed store (ROADMAP.md §1 item 5, ported): the
+    state slab round trip gives the replicated store's bits, h included
+    (tests/test_torch_fleet.py holds it through the experiment API)."""
     clients, _, (params, loss) = _toy_problem()
-    with pytest.raises(NotImplementedError, match=r"item 5\)"):
-        FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
-                         device="cpu", client_store="streamed",
-                         local_scheme=tlocal.make_local_scheme(
-                             "feddyn", steps=2, alpha=0.1))
+    a = np.zeros((6, 4))
+    for s, sel in enumerate(([0, 1], [2, 3], [1, 2], [0, 3], [0, 2],
+                             [1, 3])):
+        a[s, sel] = 1.0                  # a new cohort every block
+    sched = _schedule(a, 0.3)
+    out = {}
+    for mode in ("streamed", "replicated"):
+        tr = FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
+                              device="cpu", client_store=mode,
+                              rounds_per_dispatch=2,
+                              local_scheme=tlocal.make_local_scheme(
+                                  "feddyn", steps=2, alpha=0.1))
+        n = len(clients)
+        ch = ChannelModel(n)
+        hist = tr.run(sched, SystemParams.table1(n), ch.uplink, ch.downlink)
+        out[mode] = (tr, hist)
+    (ts, hs), (tr_, hr) = out["streamed"], out["replicated"]
+    assert ts.streaming and not tr_.streaming
+    assert [m.train_loss for m in hs] == [m.train_loss for m in hr]
+    assert np.array_equal(_bits(ts._h), _bits(tr_._h))
+    assert float(ts._h.abs().sum()) > 0
+    assert all(np.array_equal(_bits(a), _bits(b)) for a, b in
+               zip(leaves(ts.params), leaves(tr_.params)))
