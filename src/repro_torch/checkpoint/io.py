@@ -8,7 +8,10 @@ checkpoint written by either package loads in the other. A tree here is
 nested dicts, lists and tuples with torch tensors or numpy arrays as
 leaves, walked as JAX flattens it (repro_torch/tree.py); tensors are
 stored from the host and restored onto the device and dtype of the
-template leaf.
+template leaf. A bf16 leaf is stored as the JAX package stores one
+(numpy writes its ml_dtypes array as 2-byte "<V2" records of the bits),
+byte for byte, and such records read back as bf16 bits; the JAX package's
+own ``load_checkpoint`` cannot cast them back (ROADMAP section 3).
 
 Crash safety: both files of a step are written via mkstemp + os.replace, so
 a step is either fully present or absent — never half-written under its
@@ -42,14 +45,62 @@ class CheckpointCorruptError(RuntimeError):
     the previous intact step; an explicitly requested step re-raises."""
 
 
-def _host(leaf) -> np.ndarray:
+# A bf16 leaf's npy header, as numpy writes an ml_dtypes bfloat16 array
+# (the JAX package's bf16 leaves): records of 2 bytes, little-endian.
+BF16_DESCR = "<V2"
+
+
+class _Bf16Bits:
+    """A bf16 leaf on the host as its uint16 bit patterns (numpy has no
+    bfloat16), written as `BF16_DESCR` records."""
+
+    def __init__(self, t: torch.Tensor):
+        self.bits = t.detach().contiguous().view(torch.int16).cpu().numpy() \
+            .view(np.uint16)
+
+
+def _host(leaf):
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:
+            return _Bf16Bits(leaf)
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
-def _path_dict(tree: PyTree) -> dict[str, np.ndarray]:
+def _path_dict(tree: PyTree) -> dict:
     return {key: _host(leaf) for key, leaf in flatten_with_path(tree)}
+
+
+def _savez(f, arrays: dict) -> None:
+    """np.savez(f, **arrays), member for member (the same zip and npy
+    bytes), with a `_Bf16Bits` leaf written as the JAX package's file
+    holds a bf16 leaf: a header naming `BF16_DESCR`, then the bits."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zipf:
+        for key, val in arrays.items():
+            with zipf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if isinstance(val, _Bf16Bits):
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": BF16_DESCR, "fortran_order": False,
+                        "shape": val.bits.shape})
+                    fid.write(val.bits.tobytes("C"))
+                else:
+                    np.lib.format.write_array(fid, np.asanyarray(val))
+
+
+def _restore(arr: np.ndarray, leaf):
+    """A stored array as `leaf`'s type (and device): 2-byte records are a
+    bf16 leaf's bits."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(np.array(arr.view(np.int16), copy=True)).view(
+            torch.bfloat16)
+        if isinstance(leaf, torch.Tensor):
+            return t.to(device=leaf.device, dtype=leaf.dtype)
+        return t.float().numpy().astype(np.asarray(leaf).dtype)
+    if isinstance(leaf, torch.Tensor):
+        return torch.from_numpy(np.array(arr, copy=True)).to(
+            device=leaf.device, dtype=leaf.dtype)
+    return arr.astype(np.asarray(leaf).dtype)
 
 
 def atomic_write_text(path: str, text: str) -> None:
@@ -91,7 +142,7 @@ def save_checkpoint(
     os.close(fd)
     try:
         with open(tmp, "wb") as f:
-            np.savez(f, **{k.replace("/", "⁄"): v for k, v in arrays.items()})
+            _savez(f, {k.replace("/", "⁄"): v for k, v in arrays.items()})
         os.replace(tmp, path if path.endswith(".npz") else path + ".npz")
     finally:
         if os.path.exists(tmp):
@@ -168,11 +219,7 @@ def load_checkpoint(path: str, like: PyTree) -> tuple[PyTree, dict]:
         if arr.shape != shape:
             raise ValueError(f"shape mismatch for {key}: "
                              f"ckpt {arr.shape} vs model {shape}")
-        if isinstance(leaf, torch.Tensor):
-            leaves.append(torch.from_numpy(np.array(arr, copy=True)).to(
-                device=leaf.device, dtype=leaf.dtype))
-        else:
-            leaves.append(arr.astype(np.asarray(leaf).dtype))
+        leaves.append(_restore(arr, leaf))
     return unflatten(like, leaves), meta
 
 

@@ -20,7 +20,8 @@ LAUNCHES = {"importance_mask_2d": 0, "importance_mask_batched": 0,
             "fedsgd_aggregate_weighted": 0, "exponent_histogram": 0,
             "fedsgd_aggregate": 0, "client_rank_sort": 0,
             "masked_update_2d": 0, "flash_attention": 0,
-            "decode_attention": 0, "ssd_chunk": 0}
+            "flash_attention_bwd": 0, "decode_attention": 0,
+            "ssd_chunk": 0}
 
 _LOCK = threading.Lock()
 _local = threading.local()

@@ -71,6 +71,13 @@
 // the model layout [B, S, H, D] and the kernel layout [B, H, S, D] are
 // both read without a copy. The bf16 kernel needs 16-byte aligned rows
 // (the wrapper checks).
+//
+// Optionally (lse != nullptr, the training path's forward) both kernels
+// also write each row's log-sum-exp, lse = m + log(max(l, 1e-20)) in fp32
+// ([B, Hq, Sq] contiguous), as src/repro/models/flash_vjp.py's forward
+// returns it for its backward (csrc/flash_attention_bwd.cu). It is written
+// after the output and touches none of its arithmetic, so o is the same
+// with or without it.
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -89,6 +96,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, Hq, Sq] row log-sum-exp, or nullptr
   int hq, hkv, sq, skv;
   long long qs[3], ks[3], vs[3], os[3];  // strides of (b, h, s)
   int causal, window;
@@ -221,6 +229,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < DL; ++e)
         ob[s * a.os[2] + lane + 32 * e] = from_f<T>(acc[r][e] / denom);
+      if (a.lse != nullptr && lane == 0)  // m and l are the warp's, lane-uniform
+        a.lse[(static_cast<long long>(b) * a.hq + h) * a.sq + s] =
+            m[r] + logf(denom);
     }
   }
 }
@@ -472,6 +483,14 @@ __global__ void __launch_bounds__(kThreads * NWG, 1)
     l1 += __shfl_xor_sync(kFullMask, l1, off);
   }
   const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
+  // m is in the log2 domain (scores x log2 e): lse = m ln 2 + log(l), each
+  // row written by the first lane of its quad
+  if (a.lse != nullptr && (lane & 3) == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = a.lse + (static_cast<long long>(b) * a.hq + h) * a.sq;
+    if (qpos0 < a.sq) lb[qpos0] = m0 * kLn2 + logf(fmaxf(l0, 1e-20f));
+    if (qpos1 < a.sq) lb[qpos1] = m1 * kLn2 + logf(fmaxf(l1, 1e-20f));
+  }
 #pragma unroll
   for (int j = 0; j < NP; ++j)
 #pragma unroll
@@ -529,13 +548,15 @@ int launch_bf16(const FlashArgs& a, int batch, int d, cudaStream_t stream) {
 
 extern "C" {
 
-// dims: b, hq, hkv, sq, skv, d; strides: q, k, v, o as (b, h, s) each.
+// dims: b, hq, hkv, sq, skv, d; strides: q, k, v, o as (b, h, s) each;
+// lse: [B, Hq, Sq] fp32 or nullptr.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    const long long* dims, const long long* strides,
+                    void* lse, const long long* dims, const long long* strides,
                     int is_bf16, int causal, int window, float cap,
                     float scale, void* stream) {
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o;
+  a.lse = static_cast<float*>(lse);
   a.hq = static_cast<int>(dims[1]);
   a.hkv = static_cast<int>(dims[2]);
   a.sq = static_cast<int>(dims[3]);

@@ -11,7 +11,14 @@ model layout [B,S,H,D] as transposed views). D in {64, 128, 256}, fp32 or
 bf16. Source: ``csrc/flash_attention.cu``, which states its bound and
 design. The storage type picks the kernel: bf16 runs both products on the
 tensor cores (``wgmma``, P rounded to bf16 before P V; rows must be
-16-byte aligned), fp32 the exact CUDA-core kernel.
+16-byte aligned), fp32 the exact CUDA-core kernel. With ``lse=True`` both
+also return each row's log-sum-exp m + log(max(l, 1e-20)) as [B,Hq,Sq]
+fp32, the forward of the training path (models/flash_vjp.py), whose
+backward is ``kernels/flash_attention_bwd.py``; o is the same either way.
+That path's plain version is `flash_vjp_plain_fwd`, the line-for-line
+translation of ``repro/models/flash_vjp.py::_fwd_scan`` blocked by
+(bq, bk) in the model layout, which the wrapper's ``lse=True`` takes on
+the CPU (`flash_attention_lse_plain`).
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
 it launches the kernel or raises, and adds one to LAUNCHES.
@@ -52,6 +59,82 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, cap=0.0):
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def _blocks(x: torch.Tensor, n: int, c: int) -> list:
+    """[B, S, ...] -> n blocks [B, c, ...] along S."""
+    return [x[:, i * c:(i + 1) * c] for i in range(n)]
+
+
+def _mask(q_start, k_start, bq, bk, causal, window, device):
+    qpos = q_start + torch.arange(bq, device=device)[:, None]
+    kpos = k_start + torch.arange(bk, device=device)[None, :]
+    m = torch.ones((bq, bk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def flash_vjp_plain_fwd(q, k, v, causal, window, cap, bq, bk):
+    """q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] -> o [B,Sq,Hq,D] (q's type) and
+    lse [B,hkv,g,Sq] (fp32): the online softmax of the JAX package's
+    `_fwd_scan`, block by block; the blocks must divide the lengths."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    nq, nk = sq // bq, skv // bk
+    qs = _blocks(q.reshape(b, sq, hkv, g, d), nq, bq)
+    ks, vs = _blocks(k, nk, bk), _blocks(v, nk, bk)
+    dev = q.device
+    os_, lses = [], []
+    for qi, qc in enumerate(qs):
+        m = torch.full((b, hkv, g, bq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, bq, d), dtype=torch.float32,
+                          device=dev)
+        for ki, (kc, vc) in enumerate(zip(ks, vs)):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qc.float(),
+                             kc.float()) * scale
+            if cap:
+                s = cap * torch.tanh(s / cap)
+            msk = _mask(qi * bq, ki * bk, bq, bk, causal, window, dev)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vc.float())
+            m = m_new
+        os_.append(acc / torch.clamp(l[..., None], min=1e-20))
+        lses.append(m + torch.log(torch.clamp(l, min=1e-20)))
+    # [nq, B, hkv, g, bq, d] -> [B, nq, bq, hkv, g, d]
+    o = torch.stack(os_, 0).permute(1, 0, 4, 2, 3, 5)
+    o = o.reshape(b, sq, hq, d).to(q.dtype)
+    # [nq, B, hkv, g, bq] -> [B, hkv, g, nq, bq]
+    lse = torch.stack(lses, 0).permute(1, 2, 3, 0, 4).reshape(b, hkv, g, sq)
+    return o, lse
+
+
+def plain_block(n: int, block: int = 512) -> int:
+    """The plain scans' block along a length n: `block` where it divides
+    n, else all of n."""
+    return block if n % block == 0 else n
+
+
+def flash_attention_lse_plain(q, k, v, *, causal=True, window=0, cap=0.0):
+    """The plain version of ``flash_attention(..., lse=True)``:
+    flash_vjp_plain_fwd in the kernel layout, (o [B,Hq,Sq,D], lse
+    [B,Hq,Sq])."""
+    b, hq, sq, _ = q.shape
+    o, lse = flash_vjp_plain_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal, window, cap,
+                                 plain_block(sq), plain_block(k.shape[2]))
+    return o.transpose(1, 2), lse.reshape(b, hq, sq)
+
+
 def _check_attention_inputs(q, k, v) -> None:
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be CUDA tensors on one device")
@@ -79,11 +162,12 @@ def _check_rows_aligned(**tensors) -> None:
             raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
-    """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's type."""
+def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, lse=False):
+    """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's type; with
+    lse=True, (o, lse [B,Hq,Sq] fp32)."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     cap=cap)
+        plain = flash_attention_lse_plain if lse else flash_attention_plain
+        return plain(q, k, v, causal=causal, window=window, cap=cap)
     from repro_torch.kernels import _build
     _check_attention_inputs(q, k, v)
     b, hq, sq, d = q.shape
@@ -96,14 +180,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0):
     # q's own strides: a transposed view of a [B,S,H,D] tensor gives an
     # output whose transpose back is contiguous
     o = torch.empty_like(q)
+    row_lse = torch.empty((b, hq, sq), dtype=torch.float32,
+                          device=q.device) if lse else None
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3]]
     with torch.cuda.device(q.device):
         _build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(),
+                      None if row_lse is None else row_lse.data_ptr(),
                       _build.int64s((b, hq, hkv, sq, skv, d)),
                       _build.int64s(strides), int(q.dtype == torch.bfloat16),
                       int(bool(causal)), int(window), float(cap),
                       1.0 / math.sqrt(d), _build.stream_of(q))
     count_launch("flash_attention")
-    return o
+    return (o, row_lse) if lse else o

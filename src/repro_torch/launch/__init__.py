@@ -1,1 +1,2 @@
-"""Command-line launchers of the port (serving)."""
+"""Command-line launchers and step functions of the port (serving and
+LM training)."""

@@ -10,8 +10,10 @@ Execution paths of `attend` (selected by `impl`):
                pairs only;
   * "cuda":    the hand-written flash-attention kernel
                (``kernels/flash_attention.py``), the counterpart of the JAX
-               package's "pallas"; its plain PyTorch version on CPU tensors.
-"flash_vjp" (the training path's custom backward) is not ported yet.
+               package's "pallas"; its plain PyTorch version on CPU tensors;
+  * "flash_vjp": the training path (``models/flash_vjp.py``): attention
+               whose backward recomputes p from (q, k, v, o, lse); on CUDA
+               tensors kernel 8 with lse and the hand-written backward.
 
 All functions take q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] with Hq a multiple of
 Hkv (GQA) and return [B,Sq,Hq,D]. Cache positions (`pos`) are Python ints.
@@ -296,9 +298,10 @@ def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     cap=cap)
     if impl == "flash_vjp":
-        raise NotImplementedError(
-            "attn_impl='flash_vjp' (the training path's custom backward) is "
-            "not ported yet: ROADMAP.md section 1, item 7.1 (training)")
+        from repro_torch.models.flash_vjp import chunked_attention_vjp
+        return chunked_attention_vjp(q, k, v, causal=causal, window=window,
+                                     cap=cap, q_chunk=q_chunk,
+                                     kv_chunk=kv_chunk)
     if impl == "chunked_skip" and causal and not window \
             and q.shape[1] == k.shape[1]:
         return chunked_attention_causal_skip(q, k, v, cap=cap,

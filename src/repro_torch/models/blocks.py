@@ -33,13 +33,16 @@ class Runtime:
     """Execution knobs (not architecture): attention impl and chunking.
 
     attn_impl: "naive" | "chunked" | "chunked_skip" | "cuda" (the
-    flash-attention kernel; the JAX package's "pallas") | "flash_vjp" (not
-    ported). The JAX Runtime's training knobs (loss_chunk, remat) come
-    with training (ROADMAP.md section 1, item 7.1)."""
+    flash-attention kernel; the JAX package's "pallas") | "flash_vjp" (the
+    training path: models/flash_vjp.py, on the card kernel 8 forward and
+    the hand-written backward). loss_chunk: the sequence chunk of
+    transformer.loss_fn; remat: activation checkpointing of every layer."""
 
     attn_impl: str = "chunked"
     q_chunk: int = 512
     kv_chunk: int = 512
+    loss_chunk: int = 512       # vocab CE sequence chunking
+    remat: bool = False         # activation checkpointing over layers
     swa_only: bool = False      # gemma2's long-context variant
 
 

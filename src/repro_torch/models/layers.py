@@ -22,6 +22,8 @@ from repro_torch.device import resolve_device
 # -- init ---------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    if device.type == "meta":       # shapes only (transformer.param_count)
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * scale).to(device=device, dtype=dtype)

@@ -1,32 +1,37 @@
 """The language model: embed -> layer stack -> norm -> LM head (the port of
-``repro/models/transformer.py`` for serving).
+``repro/models/transformer.py``).
 
 Public API:
     init_params(gen, cfg, device=None)            -> params dict
+    param_count(cfg)                              -> number of parameters
     init_cache(cfg, batch, max_seq, device=None)  -> serving cache dict
     forward(params, tokens, cfg, rt)              -> logits [B,S,V]
+    loss_fn(params, tokens, labels, cfg, rt)      -> scalar CE (chunked)
     prefill(params, tokens, cache, cfg, rt)       -> (last-token logits, cache)
     decode_step(params, token, cache, pos, cfg, rt) -> (logits [B,V], cache)
 
 Stacked layer weights keep their [L, ...] shape and a Python loop over
-layers takes the place of ``lax.scan``. Caches are written in place
-(models/blocks.py). Ported families: dense (plain and gemma2's
-local/global alternation) and ssm; the others raise NotImplementedError
-naming their ROADMAP item. Training (`loss_fn`) is not ported yet. The
-JAX package's `constrain_batch_model` is a no-op on one device and is
-dropped (sharding is ROADMAP item 8). Entry points run on CUDA unless
-given device="cpu".
+layers takes the place of ``lax.scan``; with ``rt.remat`` each layer (a
+local/global pair for gemma2) runs under ``torch.utils.checkpoint``, as
+the JAX package wraps its scan bodies in ``jax.checkpoint``. Caches are
+written in place (models/blocks.py). Ported families: dense (plain and
+gemma2's local/global alternation) and ssm; the others raise
+NotImplementedError naming their ROADMAP item. The JAX package's
+`constrain_batch_model` is a no-op on one device and is dropped (sharding
+is ROADMAP item 8). Entry points run on CUDA unless given device="cpu".
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.blocks import Runtime
 from repro_torch.models.layers import embed_init, rms_norm, softcap
+from repro_torch.tree import flatten_with_path
 
 # family -> its ROADMAP.md section 1 item
 _NOT_PORTED = {"moe": "7.3, MoE", "hybrid": "7.2, hybrid",
@@ -131,22 +136,51 @@ def init_cache(cfg, batch: int, max_seq: int, *, swa_only: bool = False,
             for k, v in per.items()}
 
 
+def param_count(cfg) -> int:
+    """Number of parameters, from the shapes alone (a tree on the meta
+    device: nothing is allocated or drawn)."""
+    _check_family(cfg)
+    meta = init_params(torch.Generator(), cfg, device="meta")
+    return sum(leaf.numel() for _, leaf in flatten_with_path(meta))
+
+
 # -- the layer stack ----------------------------------------------------------
 
+def _maybe_remat(fn, rt):
+    """fn(x) -> x under activation checkpointing when rt.remat: only the
+    layer's input is kept, its inside is recomputed in the backward."""
+    if not rt.remat:
+        return fn
+    return lambda x: checkpoint(fn, x, use_reentrant=False)
+
+
 def _run_stack(x, params, cfg, rt, *, cache=None, pos=None):
-    """Run every layer; returns (hidden, cache)."""
+    """Run every layer; returns (hidden, cache). Without a cache (training
+    and `forward`) each layer body goes through `_maybe_remat`."""
     blocks = params["blocks"]
     if cfg.family == "dense" and cfg.local_global:
         for i in range(cfg.num_layers // 2):
+            if cache is None:
+                def pair(h, i=i):
+                    for kind, name in ((0, "local"), (1, "global")):
+                        h, _ = B.dense_block(h, _layer(blocks[name], i), cfg,
+                                             rt, kind=kind)
+                    return h
+                x = _maybe_remat(pair, rt)(x)
+                continue
             for kind, name in ((0, "local"), (1, "global")):
-                c = None if cache is None else _layer(cache[name], i)
                 x, _ = B.dense_block(x, _layer(blocks[name], i), cfg, rt,
-                                     kind=kind, cache=c, pos=pos)
+                                     kind=kind, cache=_layer(cache[name], i),
+                                     pos=pos)
         return x, cache
     block_fn = B.dense_block if cfg.family == "dense" else B.ssm_block
     for i in range(cfg.num_layers):
-        c = None if cache is None else _layer(cache, i)
-        x, _ = block_fn(x, _layer(blocks, i), cfg, rt, cache=c, pos=pos)
+        if cache is None:
+            x = _maybe_remat(lambda h, i=i: block_fn(
+                h, _layer(blocks, i), cfg, rt)[0], rt)(x)
+        else:
+            x, _ = block_fn(x, _layer(blocks, i), cfg, rt,
+                            cache=_layer(cache, i), pos=pos)
     return x, cache
 
 
@@ -159,10 +193,13 @@ def _embed_tokens(params, tokens, cfg):
     return x
 
 
+def _head(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits(params, h, cfg):
     """h @ head in the model's type, then fp32 and the final softcap."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap((h @ head).float(), cfg.final_softcap)
+    return softcap((h @ _head(params, cfg)).float(), cfg.final_softcap)
 
 
 def forward(params, tokens, cfg, rt: Runtime = Runtime()):
@@ -171,6 +208,37 @@ def forward(params, tokens, cfg, rt: Runtime = Runtime()):
     x, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg, rt)
     return _logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps),
                    cfg)
+
+
+def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
+            extra: dict | None = None, *, aux_weight: float = 0.01):
+    """Mean next-token CE over B x S, computed in sequence chunks of
+    rt.loss_chunk (all of S when it does not divide S), each chunk's
+    logits recomputed in the backward (a checkpoint), so the [B,S,V]
+    logits are never held. `extra` and `aux_weight` are the JAX
+    signature's: the ported families take no extra input and have no
+    auxiliary loss (aux = 0)."""
+    _check_family(cfg)
+    x, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg, rt)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = _head(params, cfg)
+    bsz, s, _ = h.shape
+    c = min(rt.loss_chunk, s)
+    if s % c:
+        c = s      # fallback: no chunking on ragged seqs (smoke sizes)
+
+    def chunk_ce(hh, ll):
+        logits = softcap((hh @ head).float(), cfg.final_softcap)
+        gold = torch.gather(logits, -1, ll[..., None].long())[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(chunk_ce, h[:, sl], labels[:, sl],
+                                   use_reentrant=False)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return total / (bsz * s) + aux_weight * aux
 
 
 def prefill(params, tokens, cache, cfg, rt: Runtime = Runtime()):

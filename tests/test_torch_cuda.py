@@ -34,7 +34,11 @@ that take two warpgroups a block, and decode positions at the split-KV
 kernel's chunk edges, all at 0 or past the cache, over caches split in 8
 or more chunks; two decode calls in a row agree bit for bit (the ticket
 counters reset); and the serving engine runs a reduced model through the
-flash kernel.
+flash kernel. The training path's attention backward is held to its plain
+version at the same head dims, with windows, caps, GQA and ragged tiles
+(a rerun bit for bit); kernel 8 asked for the rows' log-sum-exp gives the
+same o bit for bit; and a reduced model's loss gradient through both
+kernels matches the naive path's.
 """
 import numpy as np
 import pytest
@@ -144,8 +148,8 @@ def test_kernels_match_plain_versions(dev, n_clients):
                            "fedsgd_aggregate_weighted": 1,
                            "exponent_histogram": 1, "fedsgd_aggregate": 0,
                            "client_rank_sort": 0, "masked_update_2d": 0,
-                           "flash_attention": 0, "decode_attention": 0,
-                           "ssd_chunk": 0}
+                           "flash_attention": 0, "flash_attention_bwd": 0,
+                           "decode_attention": 0, "ssd_chunk": 0}
 
 
 def _rank_stack(dev, n_clients, rows=1024, seed=0):
@@ -728,6 +732,126 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), **kw)
     _assert_close(kl.transpose(1, 2), plain, dtype)
+
+
+BWD_CASES = [
+    (1, 256, 32, 8, 64, True, 0, 0.0),        # granite's heads
+    (2, 384, 8, 2, 128, False, 0, 0.0),       # D 128, GQA 4, no mask
+    (1, 512, 4, 2, 64, True, 100, 0.0),       # window: skipped tiles
+    (1, 256, 16, 8, 256, True, 0, 50.0),      # gemma2 global layer
+    (1, 384, 16, 8, 256, True, 128, 50.0),    # gemma2 local layer
+    (1, 200, 8, 2, 64, True, 0, 0.0),         # ragged query / key tiles
+    (2, 200, 4, 2, 64, False, 0, 0.0),
+    (1, 320, 4, 1, 64, True, 40, 0.0),        # window edge inside a tile
+    (1, 256, 16, 4, 128, True, 0, 0.0),
+    (2, 256, 4, 4, 64, True, 0, 30.0),        # g = 1 with a cap
+]
+
+
+def _bwd_inputs(dev, dtype, b, s, hq, hkv, d, causal, window, cap):
+    """q, k, v, dO in the model layout [B,S,H,D] as kernel-layout views,
+    and the forward kernel's (o, lse) on them."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(7 * d + s)
+    q, k, v, do = (_normal(rng, (b, s, h, d), dev, dtype).transpose(1, 2)
+                   for h in (hq, hkv, hkv, hq))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                cap=cap, lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, s, hq, hkv,
+                                                  d, causal, window, cap):
+    """dq, dk, dv of the backward kernel against its plain version (the
+    blocked scan of flash_vjp) on the same (q, k, v, o, dO, lse), the
+    forward's o and lse from kernel 8 (its lse against the plain scan's
+    too), within the kernel tolerances."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    kw = dict(causal=causal, window=window, cap=cap)
+    q, k, v, o, do, lse = _bwd_inputs(dev, dtype, b, s, hq, hkv, d, **kw)
+    _, lse_plain = fa.flash_attention_lse_plain(q, k, v, **kw)
+    _assert_close(lse, lse_plain, dtype)
+    pm.reset_launches()
+    grads = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert pm.LAUNCHES["flash_attention_bwd"] == 1
+    torch.cuda.synchronize()
+    for got, want, like in zip(grads, fab.flash_attention_bwd_plain(
+            q, k, v, o, do, lse, **kw), (q, k, v)):
+        assert got.stride() == like.stride()     # the model layout kept
+        assert bool(torch.isfinite(got).all())
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_rerun_is_bitwise(dev, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    kw = dict(causal=True, window=40, cap=30.0)
+    q, k, v, o, do, lse = _bwd_inputs(dev, dtype, 2, 320, 8, 2, 64, **kw)
+    first = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    second = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    for a, b in zip(first, second):
+        assert_bitwise(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,d,window,cap", [
+    (1024, 32, 8, 64, 0, 0.0), (384, 16, 8, 256, 128, 50.0),
+    (200, 8, 2, 128, 0, 0.0)])
+def test_flash_attention_lse_leaves_o_unchanged(dev, dtype, s, hq, hkv, d,
+                                                window, cap):
+    """Kernel 8 asked for lse gives o bit for bit as without it (the
+    serving path passes none)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(s)
+    q, k, v = (_normal(rng, (1, s, h, d), dev, dtype).transpose(1, 2)
+               for h in (hq, hkv, hkv))
+    kw = dict(causal=True, window=window, cap=cap)
+    o, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    assert_bitwise(o, fa.flash_attention(q, k, v, **kw))
+    assert lse.shape == (1, hq, s) and lse.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b"])
+def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
+    """loss_fn's gradient on a reduced model in fp32 under the train
+    runtime (flash_vjp: kernel 8 with lse, the backward kernel; remat)
+    against the naive path's autograd on the card, and each kernel
+    launched as the layers and remat predict."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    from repro_torch.tree import leaves, unflatten
+    cfg = get_config(arch).reduced()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 257)),
+                           device=dev)
+
+    def grads(rt):
+        req = [w.detach().requires_grad_() for w in leaves(params)]
+        loss = T.loss_fn(unflatten(params, req), toks[:, :-1], toks[:, 1:],
+                         cfg, rt)
+        return torch.autograd.grad(loss, req)
+
+    pm.reset_launches()
+    got = grads(Runtime(attn_impl="flash_vjp", q_chunk=64, kv_chunk=64,
+                        loss_chunk=64, remat=True))
+    assert pm.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert pm.LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+    want = grads(Runtime(attn_impl="naive"))
+    num = sum(float((a - b).double().square().sum()) for a, b in
+              zip(got, want))
+    den = sum(float(b.double().square().sum()) for b in want)
+    assert (num / den) ** 0.5 < 1e-5
 
 
 def _decode_positions(case, b, skv, hkv):

@@ -481,5 +481,6 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
         "importance_mask_2d", "importance_mask_batched",
         "fedsgd_aggregate_weighted", "exponent_histogram",
         "fedsgd_aggregate", "client_rank_sort", "masked_update_2d",
-        "flash_attention", "decode_attention", "ssd_chunk"}
+        "flash_attention", "flash_attention_bwd", "decode_attention",
+        "ssd_chunk"}
     assert set(pm.LAUNCHES.values()) == {0}

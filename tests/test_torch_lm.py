@@ -132,7 +132,8 @@ def _qkv(b, s, hq, hkv, d, seed=0):
     ("naive", True, 0, 0.0), ("chunked", True, 0, 0.0),
     ("chunked", False, 0, 0.0), ("chunked", True, 96, 0.0),
     ("chunked_skip", True, 0, 20.0), ("cuda", True, 0, 0.0),
-    ("cuda", True, 64, 30.0)])
+    ("cuda", True, 64, 30.0), ("flash_vjp", True, 0, 0.0),
+    ("flash_vjp", True, 64, 30.0), ("flash_vjp", False, 0, 0.0)])
 def test_attend_paths_match_jax(impl, causal, window, cap):
     """S = 256 > 128, so every impl takes its own path (the kernel path's
     plain version on the CPU, JAX's Pallas kernel in interpret mode)."""
@@ -148,19 +149,23 @@ def test_attend_paths_match_jax(impl, causal, window, cap):
 
 def test_attend_sends_short_sequences_to_the_naive_path(monkeypatch):
     """JAX's rule: Sq <= max(q_chunk, 128) // 4 is naive whatever impl
-    asks (128 at the default q_chunk 512)."""
+    asks (128 at the default q_chunk 512), the training path's flash_vjp
+    included."""
     from repro_torch.kernels import ops
+    from repro_torch.models import flash_vjp
     called = []
     monkeypatch.setattr(ops, "flash_attention",
-                        lambda *a, **k: called.append(1))
+                        lambda *a, **k: called.append("cuda"))
+    monkeypatch.setattr(flash_vjp, "chunked_attention_vjp",
+                        lambda *a, **k: called.append("flash_vjp"))
     (_, tq), (_, tk), (_, tv) = _qkv(1, 128, 4, 2, 64)
     attn.attend(tq, tk, tv, impl="cuda")
+    attn.attend(tq, tk, tv, impl="flash_vjp")
     assert not called
     (_, tq), (_, tk), (_, tv) = _qkv(1, 256, 4, 2, 64)
     attn.attend(tq, tk, tv, impl="cuda")
-    assert called
-    with pytest.raises(NotImplementedError, match=r"item 7\.1 "):
-        attn.attend(tq, tk, tv, impl="flash_vjp")
+    attn.attend(tq, tk, tv, impl="flash_vjp")
+    assert called == ["cuda", "flash_vjp"]
     with pytest.raises(ValueError, match="unknown attention impl"):
         attn.attend(tq, tk, tv, impl="pallas")
 
