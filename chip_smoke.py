@@ -9,9 +9,11 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
 
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
      kernel build (timed), and the HGMMA (tensor-core) instructions of
-     each flash-attention and SSD-chunk function in the built library's
-     SASS: the run fails if a bf16 (wgmma) instantiation has none, or if
-     either wgmma kernel is missing; ptxas's registers, spills and stack
+     each flash-attention (forward and backward) and SSD-chunk function in
+     the built library's SASS: the run fails if a bf16 (wgmma)
+     instantiation has none, or if one of the four wgmma kernels (kernel
+     8, the backward's dk/dv and dq, the SSD chunk) is missing; ptxas's
+     registers, spills and stack
      frames of the LM kernels and of the round's mask, histogram,
      aggregate and masked-update kernels (every instantiation);
   2. every kernel against its plain PyTorch version at the main paths'
@@ -150,8 +152,12 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      remat); ms a step, tokens/s, peak memory; a depth-2 fp32 granite's
      flash_vjp gradient within 1e-3 relative L2 of the naive path's, a
      planted fault (dO one position late) above it; both kernels on layer
-     0's real inputs against the blocked plain scans (bf16 2e-2), timed
-     beside their bounds and SDPA (forward; forward and backward);
+     0's real inputs against the blocked plain scans (bf16 2e-2; the
+     backward's dq, dk, dv at their own scale, a planted fault above),
+     timed beside their bounds and SDPA (forward; forward and backward;
+     backward alone); the backward at gemma2-9b's head dim 256 (its
+     CUDA-core kernels) on random bf16 inputs, checked and timed the same
+     way;
  15. mamba2-130m trained at full size the same way: finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
@@ -288,7 +294,8 @@ def kernel_device_ms(fn, symbols, reps: int = 50, per_call: int = 1):
     kernel in torch.profiler's device trace whose name holds one of
     `symbols` (each kernel a wrapper may launch), over the `reps` calls of
     fn (one wrapper call each, launching `per_call` kernels). Returns (ms,
-    the kernel names that matched, the number of such kernel events). ms
+    {each kernel name that matched: its mean device µs an event}, the
+    number of such kernel events). ms
     is None when the trace shows none of them, and the top device events
     are printed then. A trace with fewer events than reps x per_call has
     lost some: that is printed, and ms is the mean per event (per_call
@@ -317,7 +324,7 @@ def kernel_device_ms(fn, symbols, reps: int = 50, per_call: int = 1):
     hits = [(key, n, us) for key, n, us in events
             if any(sym in key for sym in symbols)]
     n_events = sum(n for _, n, _ in hits)
-    names = sorted({key[:120] for key, _, _ in hits})
+    names = {key[:120]: us / n for key, n, us in sorted(hits) if n}
     total_ms = sum(us for _, _, us in hits) / 1e3
     if n_events < reps * per_call:
         top = sorted(events, key=lambda e: -e[2])[:8]
@@ -378,8 +385,9 @@ def ptxas_report(prefixes) -> dict:
 
 
 def sass_hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in each flash_attention and ssd_chunk
-    function of the built kernel library, from `cuobjdump --dump-sass`."""
+    """HGMMA (wgmma) instructions in each flash_attention, flash_bwd
+    (attention backward) and ssd_chunk function of the built kernel
+    library, from `cuobjdump --dump-sass`."""
     tool = shutil.which("cuobjdump") or str(
         pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
         / "bin" / "cuobjdump")
@@ -392,8 +400,8 @@ def sass_hgmma_counts() -> dict:
         head = re.search(r"Function : (\S+)", line)
         if head:
             mangled = head.group(1)
-            kern = re.search(r"(?<=\d)((?:flash_attention|ssd_chunk)\w*?"
-                             r"kernel)[IE]", mangled)
+            kern = re.search(r"(?<=\d)((?:flash_attention|flash_bwd|"
+                             r"ssd_chunk)\w*?kernel)[IE]", mangled)
             name = None
             if kern:
                 targs = re.findall(r"Li(\d+)E", mangled)
@@ -3011,6 +3019,13 @@ def train_kernel_rows(captured, card, smi):
                                              enable_gqa=True)
         return torch.autograd.grad(out, req, kt[4])
 
+    # SDPA's backward alone, like with like: one forward with its graph
+    # kept, then the gradient taken again and again from it
+    sdpa_out = F.scaled_dot_product_attention(*req, is_causal=True,
+                                              enable_gqa=True)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, req, kt[4], retain_graph=True), reps=50)
+    del sdpa_out
     bwd = measure(
         "flash_attention_bwd", ok_b,
         max(_abs_err(g.transpose(1, 2), w) for g, w in zip(got, want)),
@@ -3025,8 +3040,61 @@ def train_kernel_rows(captured, card, smi):
         scaled_limit=BF16_TOL,
         peak_abs_dq_dk_dv=[float(w.float().abs().max()) for w in want],
         library="scaled_dot_product_attention forward + backward",
-        nvidia_smi=smi)
+        library_bwd_ms=sdpa_bwd_ms, nvidia_smi=smi)
+    syms = bwd["device_symbols"]
+    if syms and not all(any(kern in x for x in syms) for kern in (
+            "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")):
+        problems.append(f"flash_attention_bwd on layer 0's training inputs: "
+                        f"bf16 device time from {syms}, not the wgmma "
+                        f"kernels")
     return problems, fwd, bwd
+
+
+# gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
+# 256, causal, softcap 50 (its window, 4096, binds nowhere at 4096 tokens)
+GEMMA2_BWD = dict(b=1, s=4096, hq=16, hkv=8, d=256, cap=50.0)
+
+
+def d256_bwd_row(dev, card, smi):
+    """The attention backward at head dim 256, which stays on the CUDA-core
+    kernels in bf16 (csrc/flash_attention_bwd.cu), on random bf16 inputs
+    (numpy seed 0) at gemma2-9b's shape with kernel 8's o and lse: dq, dk,
+    dv each within 2e-2 of its own peak against the blocked plain scan,
+    dO one position late above that, timed beside its bound. No library
+    call computes the softcapped function, so library_ms is null."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    c = GEMMA2_BWD
+    b, s, hq, hkv, d = c["b"], c["s"], c["hq"], c["hkv"], c["d"]
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
+        np.float32)).to(dev, torch.bfloat16).transpose(1, 2)
+        for h in (hq, hkv, hkv, hq))
+    kw = dict(causal=True, window=0, cap=c["cap"])
+    o, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    want = fab.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    got = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    late = fab.flash_attention_bwd(q, k, v, o, do.roll(1, dims=2), lse, **kw)
+    sound = [scaled_err(x, w) for x, w in zip(got, want)]
+    fault = [scaled_err(x, w) for x, w in zip(late, want)]
+    del late
+    ok = max(sound) <= BF16_TOL < min(fault)
+    problems = [] if ok else [
+        f"flash_attention_bwd at D 256: dq, dk, dv at {sound} of their "
+        f"scale, the planted fault at {fault}, limit {BF16_TOL}"]
+    row = measure(
+        "flash_attention_bwd", ok,
+        max(_abs_err(x, w) for x, w in zip(got, want)),
+        lambda: fab.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+        lambda: fab.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
+        LM_SYMBOLS["flash_attention_bwd"],
+        2 * ((4 * hq + 4 * hkv) * b * s * d) + 4 * b * hq * s,
+        10 * d * b * hq * causal_pairs(s), card, per_call=3,
+        shape=f"gemma2-9b head dim 256 [{b}, {hq}/{hkv}, {s}, {d}], cap "
+        f"{c['cap']}, random inputs", scaled_err_dq_dk_dv=sound,
+        planted_fault_scaled_err=fault, scaled_limit=BF16_TOL,
+        nvidia_smi=smi)
+    return problems, row
 
 
 def granite_train_phase(dev, card, smi):
@@ -3111,6 +3179,9 @@ def granite_train_phase(dev, card, smi):
     problems += k_problems
     captured.clear()
     torch.cuda.empty_cache()
+    d_problems, bwd_row["d256"] = d256_bwd_row(dev, card, smi)
+    problems += d_problems
+    torch.cuda.empty_cache()
     return problems, launches, (fwd_row, bwd_row)
 
 
@@ -3191,14 +3262,16 @@ def main() -> int:
     walls["build"] = time.perf_counter() - t
     print(f"kernels built in {walls['build']:.2f} s "
           f"({_build.library_path().name})")
-    # the bf16 flash and SSD kernels must run on the tensor cores: HGMMA in
-    # the SASS of every wgmma instantiation
+    # the bf16 flash (forward, backward) and SSD kernels must run on the
+    # tensor cores: HGMMA in the SASS of every wgmma instantiation
     hgmma = sass_hgmma_counts()
     print(json.dumps({"sass_hgmma": hgmma}))
     print(json.dumps({"ptxas_lm": ptxas_report(LM_PTXAS)}))
     print(json.dumps({"ptxas_round": ptxas_report(ROUND_PTXAS)}))
     wgmma_fns = [k for k in hgmma if "wgmma" in k]
     missing = [kern for kern in ("flash_attention_wgmma_kernel",
+                                 "flash_bwd_dkdv_wgmma_kernel",
+                                 "flash_bwd_dq_wgmma_kernel",
                                  "ssd_chunk_wgmma_kernel")
                if not any(k.startswith(kern) for k in wgmma_fns)]
     if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
@@ -3425,7 +3498,12 @@ def main() -> int:
                          "train_lse": {k: train_fwd[k] for k in (
                              "ms", "plain_ms", "device_ms", "bound_ms",
                              "library_ms", "max_abs_err", "shape")}}
-                        if kname == "flash_attention" else {})})
+                        if kname == "flash_attention" else {}),
+                     **({"library_bwd_ms": res["library_bwd_ms"],
+                         "d256": {k: res["d256"][k] for k in (
+                             "ok", "ms", "plain_ms", "device_ms", "bound_ms",
+                             "max_abs_err", "scaled_err_dq_dk_dv", "shape")}}
+                        if kname == "flash_attention_bwd" else {})})
     print(json.dumps({"kernels": rows}))
     if problems:
         print("chip_smoke FAILED: " + "; ".join(problems), file=sys.stderr)

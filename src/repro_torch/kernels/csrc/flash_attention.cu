@@ -263,28 +263,6 @@ int launch_d(const FlashArgs& a, int batch, int d, cudaStream_t stream) {
 constexpr int kWBQ = 64;   // query rows a block: the M of one wgmma
 constexpr int kWBK = 64;   // keys a tile
 constexpr int kStages = 2; // K / V ring depth (a third measured no faster)
-constexpr float kLog2e = 1.4426950408889634f;
-
-// rows [0, nvalid) of a [ROWS, D] tile at g (row stride rs elements) into
-// the swizzled layout at s, by NT threads (tid of them); rows past nvalid
-// are zero, so no NaN from stale shared memory reaches a product.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(uint32_t s, const __nv_bfloat16* g,
-                                          long long rs, int nvalid, int tid) {
-  constexpr int CPR = D / 8;
-#pragma unroll 4
-  for (int i = tid; i < ROWS * CPR; i += NT) {
-    const int r = i / CPR, c = i - r * CPR;
-    const bool ok = r < nvalid;
-    cp_async16(s + swz(r, c, ROWS), g + (ok ? r : 0) * rs + c * 8, ok);
-  }
-}
-
-// tanh(y) = 1 - 2 / (1 + e^(2y)), saturating to +-1; absolute error a few
-// fp32 ulps, far below bf16's rounding of the output
-__device__ __forceinline__ float tanh_fast(float y) {
-  return 1.0f - __fdividef(2.0f, 1.0f + ex2(2.0f * kLog2e * y));
-}
 
 template <int D, int NWG>
 constexpr size_t wgmma_smem_bytes() {

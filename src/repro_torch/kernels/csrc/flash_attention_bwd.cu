@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of the forward
 // in flash_attention.cu from (q, k, v, o, dO, lse), for GQA, a causal mask,
 // a sliding window (kpos > qpos - window) and a softcap cap * tanh(s / cap);
-// fp32 or bf16 storage, fp32 arithmetic.
+// fp32 or bf16 storage, fp32 accumulation.
 //
 // No Pallas kernel to replace: this is the port of the FlashAttention-2
 // backward that the JAX package writes in jnp, `_bwd_scan` in
@@ -16,40 +16,89 @@
 //   dq += ds k scale ;  dk += ds q scale    (ds = 0 where masked)
 //
 // Three launches, no atomics, so a rerun gives the same bits:
-//   1. `flash_bwd_delta_kernel`: D, one warp a row (fp32, [B, Hq, Sq]);
-//   2. `flash_bwd_dkdv_kernel<T, D>`: one block per (key tile, kv head,
-//      batch); it loops over the g query heads of its kv head and, for
-//      each, over the query tiles that can see a key of its tile (the
-//      causal / window band; tiles wholly outside are never loaded), so
-//      GQA's sum over query heads is a register sum in a fixed order;
-//   3. `flash_bwd_dq_kernel<T, D>`: one block per (query tile, query head,
-//      batch), looping over the key tiles of its band.
-// Both recompute s and p from the tiles (nothing of size S x S is stored).
+//   1. D = rowsum(dO o) into an fp32 [B, Hq, Sq] scratch;
+//   2. dk, dv: one block per (key tile, kv head, batch), looping over the g
+//      query heads of its kv head and, for each, over the query tiles that
+//      can see a key of its tile (the causal / window band; tiles wholly
+//      outside are never loaded), so GQA's sum over query heads is a
+//      register sum in a fixed order;
+//   3. dq: one block per (query tile, query head, batch), looping over the
+//      key tiles of its band.
+// Both recompute s and p from the tiles (nothing of size S x S is stored),
+// so the kernels do 14 D FLOPs a live pair and query head against the
+// function's 10 D (s and dp in both passes): the price of no atomics.
 //
 // Bound: operations. The function needs 10 D FLOPs a live (q, k) pair and
-// query head (s, dp, dv, dq, dk: 2 D each, FlashAttention-2's count); this
-// kernel does 14 D (s and dp in both passes). Bytes are q, k, v, o, dO, lse
-// once and dq, dk, dv once. For granite's train_4k layer (B 4, 32 / 8
-// heads, D 64, 4096 tokens, causal) that is ~6.9e11 FLOPs against ~0.34
-// GB: operations bound by far, at the tensor cores' rate (989 TFLOP/s
-// bf16: 0.695 ms). This first kernel runs them on the
-// CUDA cores in fp32 (FMAs from shared memory, 67 TFLOP/s at most), the
-// simple and exact design; a wgmma / TMA redesign is queued (ROADMAP
-// section 2) with the times this one reads in PERF.md.
+// query head (s, dp, dv, dq, dk: 2 D each, FlashAttention-2's count). Bytes
+// are q, k, v, o, dO, lse once and dq, dk, dv once. For granite's train_4k
+// layer (B 4, 32 / 8 heads, D 64, 4096 tokens, causal) that is ~6.9e11
+// FLOPs against ~0.34 GB: operations bound by far, at the tensor cores'
+// rate (989 TFLOP/s bf16: 0.695 ms).
 //
-// Tiles: 64 query rows; 64 / 32 / 16 keys at D 64 / 128 / 256, so that the
-// dk and dv accumulators (keys x D each) are 64 fp32 registers a thread
-// at every D. Tiles sit in shared memory as fp32 with rows padded by one
-// word (a key per lane and a row per warp read different banks). Scoring
-// maps lanes to keys and warps to rows: a thread holds 2 keys x 16 rows at
-// D 64, 1 x 16 at D 128, 1 x 8 at D 256 (two half-warps on two row
-// groups). Shared memory: 98 / 113 / 169 KB a block.
+// Kernels, picked by storage type and head dim (no switch, no fallback):
+//
+// * bf16 at D 64 and 128 (granite, qwen2.5-3b, yi-9b): the five products on
+//   the tensor cores, `flash_bwd_dkdv_wgmma_kernel<D, warpgroups>` and
+//   `flash_bwd_dq_wgmma_kernel<D, warpgroups>`, after
+//   `flash_bwd_delta_bf16_kernel<D>` (16-byte loads, D / 8 lanes a row).
+//   Every product is an m64n64k16 wgmma with fp32 accumulation (csrc/
+//   wgmma.cuh), on 128-byte-swizzled bf16 tiles in shared memory that
+//   cp.async fills (kernel 8's loader):
+//   - dk, dv: a warpgroup owns 64 keys (the M of one wgmma), whose K and
+//     V tiles stay in shared memory; a block has two warpgroups (128 keys
+//     sharing each streamed Q / dO tile, as kernel 8's two heads share
+//     K / V) where the grid keeps 256 blocks, else one. Q, dO and their
+//     lse and D rows stream through a ring of two stages, the next tile's
+//     load in flight during this one's products. A tile: S^T = K Q^T and
+//     dP^T = V dO^T (`wgmma_ss`, both operands K-major), P^T = 2^(S^T
+//     scale log2 e - lse log2 e) on the fragment, lse and D taken by the
+//     fragment's column (query); P^T rounded to bf16 in registers is the A
+//     operand of dV += P^T dO, whose B is the dO tile read MN-major
+//     (`wgmma_rs`), issued before dS^T = P^T (dP^T - D) is formed, so it
+//     runs under that arithmetic; then dK += dS^T Q the same way. At the
+//     end dk x scale and dv are written in bf16.
+//   - dq: one or two warpgroups a block by the same rule (two query heads
+//     of one kv head sharing each K / V tile), 64 query rows each; Q, dO
+//     and the rows' lse and D stay put, K and V stream through the ring:
+//     S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K with K read
+//     MN-major.
+//   P and dS are rounded to bf16 before their products, as FlashAttention
+//   -2/3 do; the plain version keeps them in fp32. Against it that costs
+//   ~2^-9 relative per term, inside the 2e-2 of each output's peak that
+//   the gates hold (tests/test_torch_flash_bwd_rounding.py emulates the
+//   roundings on the CPU against the JAX scan: 2.3-2.7e-3). Only the
+//   diagonal, window-edge and ragged tiles are masked; a warpgroup skips
+//   the products of a tile none of whose pairs it can see (a warpgroup-
+//   uniform branch). Heavy tiles first: key block 0 (every query under a
+//   causal mask) and the last query tiles lead the grids.
+//   Shared memory: dk/dv 66 / 130 KB at D 64 / 128 with two warpgroups
+//   (50 / 98 KB with one), dq 65 / 129 KB (49 / 97 KB). Registers (ptxas,
+//   no spill at all): dk/dv 230 / 255 at D 64 / 128 (dk and dv D / 2 fp32
+//   each a thread, S^T and dP^T 32 each, P^T and dS^T 16 packed words
+//   each), dq 128 / 208; the D 64 dq kernel is held to 128 so that two
+//   blocks share an SM, which made it faster on granite's layer. Granite's
+//   train layer (B 4, 4096 tokens): 2.907 ms a call, 23.6 % of the bound,
+//   from 56.57 ms on the CUDA cores (PERF.md section 6).
+// * fp32, and bf16 at D 256 (gemma2): the CUDA-core kernels of the first
+//   port, `flash_bwd_dkdv_kernel<T, D>` and `flash_bwd_dq_kernel<T, D>`,
+//   with `flash_bwd_delta_kernel<T>` (fp32) or the bf16 delta above. fp32
+//   stays exact (FMAs from shared memory), which the depth-2 fp32 gradient
+//   gate of chip_smoke.py and the fp32 card tests read at 1e-3 / 2e-5. At D
+//   256 the wgmma design's dk and dv would need 256 fp32 accumulators a
+//   thread; splitting D across warpgroups is queued (ROADMAP section 2;
+//   49.91 ms a call at gemma2-9b's [1, 16/8, 4096, 256], PERF.md).
+//   Tiles: 64 query rows; 64 / 32 / 16 keys at D 64 / 128 / 256 (dk and dv
+//   64 fp32 registers a thread at every D), staged as fp32 with rows padded
+//   by one word; lanes on keys, warps on rows. Shared memory 98 / 113 /
+//   169 KB a block.
 //
 // Inputs are addressed by strides (elements; the last dim contiguous), so
 // the model layout [B, S, H, D] is read and written in place; lse and D
-// are [B, Hq, Sq] fp32 contiguous.
+// are [B, Hq, Sq] fp32 contiguous. bf16 rows must start on 16 bytes (the
+// wrapper checks).
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -110,7 +159,38 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) a.delta[row] = acc;
 }
 
-// -- shared by passes 2 and 3 -------------------------------------------------
+// bf16: 16-byte loads, D / 8 lanes a row (a warp takes 256 / D rows)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_delta_bf16_kernel(const BwdArgs a) {
+  constexpr int L = D / 8;     // lanes a row, 8 bf16 each
+  constexpr int RW = 32 / L;   // rows a warp
+  const int lane = threadIdx.x & 31;
+  const long long row = (static_cast<long long>(blockIdx.x) * kWarps +
+                         threadIdx.x / 32) * RW + lane / L;
+  const bool in = row < static_cast<long long>(a.batch) * a.hq * a.sq;
+  float acc = 0.0f;
+  if (in) {
+    const int s = static_cast<int>(row % a.sq);
+    const long long bh = row / a.sq;
+    const int h = static_cast<int>(bh % a.hq), b = static_cast<int>(bh / a.hq);
+    const int c = (lane % L) * 8;
+    float x[8], y[8];
+    load8(static_cast<const __nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[1] +
+              s * a.os[2] + c, x);
+    load8(static_cast<const __nv_bfloat16*>(a.dout) + b * a.gs[0] +
+              h * a.gs[1] + s * a.gs[2] + c, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(x[e], y[e], acc);
+  }
+  // every lane takes part in the shuffles, in or out
+#pragma unroll
+  for (int off = L / 2; off; off >>= 1)
+    acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (in && lane % L == 0) a.delta[row] = acc;
+}
+
+// -- CUDA cores (fp32; bf16 at D 256): shared by passes 2 and 3 ---------------
 
 // rows [0, kBQ) of q and dO from row q0 into padded fp32 tiles, lse and D
 // beside them (zeros past Sq)
@@ -380,20 +460,446 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- bf16 at D 64 and 128: the five products on wgmma ---------------------------
+
+constexpr int kWB = 64;          // queries or keys a tile: one wgmma's M
+constexpr int kWStages = 2;      // ring depth of the streamed tiles
+
+template <int D, int NWG>
+constexpr size_t dkdv_wgmma_smem_bytes() {
+  // 1 KB of slack for the swizzle's 1024-byte alignment; K and V of each
+  // warpgroup, then the ring of (Q, dO) tiles, then its (lse, D) rows
+  return 1024 + 2 * (2 * NWG * kWB * D + kWStages * 2 * kWB * D) +
+         kWStages * 2 * kWB * sizeof(float);
+}
+
+template <int D, int NWG>
+constexpr size_t dq_wgmma_smem_bytes() {
+  return 1024 + 2 * (2 * NWG * kWB * D + kWStages * 2 * kWB * D);
+}
+
+// S (+)= A B^T over D for two K-major [64, D] tiles at sa and sb (D / 16
+// wgmmas of k16, 32 bytes along the swizzled row each)
+template <int D>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t sa,
+                                           uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk & 3) << 5;
+    wgmma_ss(d, desc_b128(sa + (kk >> 2) * kWB * 128 + off, 16, 1024),
+             desc_b128(sb + (kk >> 2) * kWB * 128 + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[j] += A B over 64 rows of B, A the four register fragments of a
+// 64 x 64 accumulator (its columns as K), B a [64, D] tile at sb read
+// MN-major: D / 64 panels of 64 columns, 16 rows a k-step
+template <int NP>
+__device__ __forceinline__ void product_rs(float (&acc)[NP][32],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < kWB / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      wgmma_rs(acc[j], a[kk],
+               desc_b128(sb + j * kWB * 128 + kk * 16 * 128, kWB * 128,
+                         1024));
+}
+
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[kk][e])::"memory");
+}
+
+// Element i of a thread's m64n64 fragment sits at row 16 warp + lane / 4 +
+// 8 ((i / 2) % 2) and column col_of(i) (wgmma.cuh).
+__device__ __forceinline__ int col_of(int i, int lane) {
+  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// The scores of a fragment s (raw q.k) turned in place into p, times the
+// softcap's derivative 1 - tanh^2 where capped (what ds needs), with p
+// itself rounded to bf16 pairs into pa when kPack. lse2(i) is element i's
+// row log-sum-exp x log2 e; visible(i) whether its pair is seen (asked
+// only in a masked tile). The cap and mask branches are uniform and sit
+// outside the element loop: inside, every element would pay for both.
+template <bool kCap, bool kMask, bool kPack, typename Lse, typename Vis>
+__device__ __forceinline__ void probs_of(float (&s)[32], uint32_t (&pa)[4][4],
+                                         const BwdArgs& a, Lse lse2,
+                                         Vis visible) {
+  const float scale_log2 = a.scale * kLog2e;
+  const float inner = kCap ? a.scale / a.cap : 0.0f;
+  const float outer = a.cap * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    float p[2], f[2] = {1.0f, 1.0f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (kCap) {
+        const float t = tanh_fast(s[i + e] * inner);
+        p[e] = ex2(outer * t - lse2(i + e));
+        f[e] = 1.0f - t * t;
+      } else {
+        p[e] = ex2(s[i + e] * scale_log2 - lse2(i + e));
+      }
+      if (kMask && !visible(i + e)) p[e] = 0.0f;
+      s[i + e] = p[e] * f[e];
+    }
+    // element pairs (i, i + 1) in fragment order: pa[i / 8][(i % 8) / 2]
+    if (kPack) pa[i >> 3][(i & 7) >> 1] = pack_bf16(p[0], p[1]);
+  }
+}
+
+template <bool kPack, typename Lse, typename Vis>
+__device__ __forceinline__ void probs(float (&s)[32], uint32_t (&pa)[4][4],
+                                      const BwdArgs& a, bool masked,
+                                      Lse lse2, Vis visible) {
+  if (a.cap != 0.0f) {
+    if (masked) probs_of<true, true, kPack>(s, pa, a, lse2, visible);
+    else probs_of<true, false, kPack>(s, pa, a, lse2, visible);
+  } else {
+    if (masked) probs_of<false, true, kPack>(s, pa, a, lse2, visible);
+    else probs_of<false, false, kPack>(s, pa, a, lse2, visible);
+  }
+}
+
+// ds = s (dp - D) rounded to bf16 pairs (s as probs left it: 0 where
+// masked); dd(i) is the element's D
+template <typename Dd>
+__device__ __forceinline__ void dscores(const float (&s)[32],
+                                        const float (&dp)[32],
+                                        uint32_t (&da)[4][4], Dd dd) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    da[i >> 3][(i & 7) >> 1] = pack_bf16(s[i] * (dp[i] - dd(i)),
+                                         s[i + 1] * (dp[i + 1] - dd(i + 1)));
+}
+
+// a thread's rows (row0, row0 + 8) of a [64, D] accumulator (NP panels)
+// times `mul`, in bf16, to the same rows of out (row stride rs), those
+// below `limit`
+template <int NP>
+__device__ __forceinline__ void store_rows(const float (&acc)[NP][32],
+                                           __nv_bfloat16* out, long long rs,
+                                           int row0, int limit, float mul,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = row0 + ((i & 2) ? 8 : 0);
+      if (r < limit)
+        *reinterpret_cast<__nv_bfloat162*>(out + r * rs + 64 * j +
+                                           col_of(i, lane)) =
+            __floats2bfloat162_rn(acc[j][i] * mul, acc[j][i + 1] * mul);
+    }
+}
+
+// Pass 2: dk and dv of 64 NWG keys (64 a warpgroup) of one kv head.
+template <int D, int NWG>
+__global__ void __launch_bounds__(kThreads * NWG, 1)
+    flash_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
+  constexpr int NT = kThreads * NWG;
+  constexpr int NP = D / 64;
+  constexpr uint32_t T_BYTES = kWB * D * 2;     // one [64, D] bf16 tile
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int wg = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t s_k = base + wg * T_BYTES;            // this warpgroup's
+  const uint32_t s_v = base + (NWG + wg) * T_BYTES;
+  const uint32_t s_ring = base + 2 * NWG * T_BYTES;    // stage: Q, dO
+  const uint32_t s_rows = s_ring + kWStages * 2 * T_BYTES;  // stage: lse, D
+  const float* rows = reinterpret_cast<const float*>(smem_raw +
+                                                     (s_rows - raw));
+
+  // key block 0 sees every query tile under a causal mask: heavy first
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int kb0 = blockIdx.z * NWG * kWB;         // the block's first key
+  const int kw0 = kb0 + wg * kWB;                 // this warpgroup's
+  const int g = a.hq / a.hkv;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  const int kw = kw0 < a.skv ? kw0 : 0;           // a row that exists
+  load_tile<D, kWB, kThreads>(s_k, kb + kw * a.ks[2], a.ks[2], a.skv - kw0,
+                              tid);
+  load_tile<D, kWB, kThreads>(s_v, vb + kw * a.vs[2], a.vs[2], a.skv - kw0,
+                              tid);
+
+  // the query rows that see a key of this block: from its first key under
+  // a causal mask, to its last key + window - 1 under a window
+  const int k_last = min(kb0 + NWG * kWB, a.skv) - 1;
+  const int q_begin = a.causal ? (kb0 / kWB) * kWB : 0;
+  const int q_end = a.window ? min(a.sq, k_last + a.window) : a.sq;
+  const int nq = q_end > q_begin ? (q_end - q_begin + kWB - 1) / kWB : 0;
+  const int n_tiles = g * nq;   // query head outer, query tile inner
+
+  // tile j into ring stage j % kWStages, one commit group each (empty past
+  // the end, so that the count of groups stays uniform); the first group
+  // also holds K and V
+  auto load_q = [&](int j) {
+    if (j < n_tiles) {
+      const int h = hk * g + j / nq, q0 = q_begin + (j % nq) * kWB;
+      const uint32_t st = s_ring + (j % kWStages) * 2 * T_BYTES;
+      load_tile<D, kWB, NT>(st, static_cast<const bf16*>(a.q) + b * a.qs[0] +
+                                    h * a.qs[1] + q0 * a.qs[2],
+                            a.qs[2], a.sq - q0, threadIdx.x);
+      load_tile<D, kWB, NT>(st + T_BYTES,
+                            static_cast<const bf16*>(a.dout) + b * a.gs[0] +
+                                h * a.gs[1] + q0 * a.gs[2],
+                            a.gs[2], a.sq - q0, threadIdx.x);
+      if (threadIdx.x < 2 * kWB) {          // lse (0-63), then D (64-127)
+        const int r = threadIdx.x % kWB;
+        const bool ok = q0 + r < a.sq;
+        const float* src = (threadIdx.x < kWB ? a.lse : a.delta) +
+                           (static_cast<long long>(b) * a.hq + h) * a.sq +
+                           (ok ? q0 + r : 0);
+        cp_async4(s_rows + ((j % kWStages) * 2 * kWB + threadIdx.x) * 4, src,
+                  ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kWStages - 1; ++j) load_q(j);
+
+  // this thread's two keys (fragment rows)
+  const int kp0 = kw0 + 16 * warp + (lane >> 2), kp1 = kp0 + 8;
+  float dk[NP][32], dv[NP][32], s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[j][i] = dv[j][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // tile t has landed, every thread is done with tile t - 1 (whose stage
+    // the next load overwrites), and wgmma (the async proxy) sees it
+    cp_async_wait<kWStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    load_q(t + kWStages - 1);
+    const int q0 = q_begin + (t % nq) * kWB;
+    const int q_hi = min(q0 + kWB, a.sq) - 1;
+    // skip a tile none of whose pairs this warpgroup sees
+    if (kw0 >= a.skv || (a.causal && q_hi < kw0) ||
+        (a.window && q0 >= kw0 + kWB - 1 + a.window))
+      continue;
+    const uint32_t s_q = s_ring + (t % kWStages) * 2 * T_BYTES;
+    const uint32_t s_g = s_q + T_BYTES;
+    const float* lse_t = rows + (t % kWStages) * 2 * kWB;
+    const float* d_t = lse_t + kWB;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys x queries, two groups
+    wgmma_fence();
+    product_ss<D>(s, s_k, s_q);
+    wgmma_commit();
+    product_ss<D>(dp, s_v, s_g);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // masks only where the tile crosses the diagonal, the window's edge or
+    // an end of the queries or keys
+    const bool masked = kw0 + kWB > a.skv || q0 + kWB > a.sq ||
+                        (a.causal && q0 < kw0 + kWB - 1) ||
+                        (a.window && q0 + kWB - 1 - a.window >= kw0);
+    probs<true>(s, pa, a, masked,
+                [&](int i) { return lse_t[col_of(i, lane)] * kLog2e; },
+                [&](int i) {
+                  const int kp = (i & 2) ? kp1 : kp0;
+                  const int qp = q0 + col_of(i, lane);
+                  return kp < a.skv && qp < a.sq && (!a.causal || kp <= qp) &&
+                         (!a.window || kp > qp - a.window);
+                });
+    // dV += P^T dO runs while dS^T is formed
+    wgmma_fence();
+    product_rs<NP>(dv, pa, s_g);
+    wgmma_commit();
+    wgmma_wait<1>();     // dP^T (the older group) has landed
+    fence_regs(dp);
+    dscores(s, dp, da, [&](int i) { return d_t[col_of(i, lane)]; });
+    wgmma_fence();
+    product_rs<NP>(dk, da, s_q);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      fence_regs(dv[j]);
+      fence_regs(dk[j]);
+    }
+    fence_frags(pa);
+    fence_frags(da);
+  }
+  cp_async_wait<0>();
+
+  const int r0 = 16 * warp + (lane >> 2);
+  store_rows<NP>(dk, static_cast<bf16*>(a.dk) + b * a.dks[0] + hk * a.dks[1] +
+                         kw0 * a.dks[2],
+                 a.dks[2], r0, a.skv - kw0, a.scale, lane);
+  store_rows<NP>(dv, static_cast<bf16*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1] +
+                         kw0 * a.dvs[2],
+                 a.dvs[2], r0, a.skv - kw0, 1.0f, lane);
+}
+
+// Pass 3: dq of 64 query rows of NWG query heads of one kv head. At D 64
+// the kernel is held to 128 registers (no spill) so that two blocks share
+// an SM (see the header).
+template <int D, int NWG>
+__global__ void __launch_bounds__(kThreads * NWG, D == 64 ? 2 : 1)
+    flash_bwd_dq_wgmma_kernel(const BwdArgs a) {
+  constexpr int NT = kThreads * NWG;
+  constexpr int NP = D / 64;
+  constexpr uint32_t T_BYTES = kWB * D * 2;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int wg = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const uint32_t s_q = base + wg * T_BYTES;           // this warpgroup's
+  const uint32_t s_g = base + (NWG + wg) * T_BYTES;
+  const uint32_t s_kv = base + 2 * NWG * T_BYTES;     // stage: K, then V
+
+  // the last query tiles see the most keys under a causal mask: first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWB;
+  const int h = blockIdx.x * NWG + wg, b = blockIdx.y;
+  const int hk = h / (a.hq / a.hkv);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  load_tile<D, kWB, kThreads>(s_q, static_cast<const bf16*>(a.q) +
+                                       b * a.qs[0] + h * a.qs[1] +
+                                       q0 * a.qs[2],
+                              a.qs[2], a.sq - q0, tid);
+  load_tile<D, kWB, kThreads>(s_g, static_cast<const bf16*>(a.dout) +
+                                       b * a.gs[0] + h * a.gs[1] +
+                                       q0 * a.gs[2],
+                              a.gs[2], a.sq - q0, tid);
+
+  // the band of keys any row of this block can see
+  const int q_last = min(q0 + kWB, a.sq) - 1;
+  const int k_end = a.causal ? min(a.skv, q_last + 1) : a.skv;
+  const int k_begin = a.window ? (max(0, q0 - a.window + 1) / kWB) * kWB : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kWB - 1) / kWB : 0;
+
+  auto load_kv = [&](int j) {
+    if (j < n_tiles) {
+      const uint32_t st = s_kv + (j % kWStages) * 2 * T_BYTES;
+      const int kn = k_begin + j * kWB;
+      load_tile<D, kWB, NT>(st, kb + kn * a.ks[2], a.ks[2], a.skv - kn,
+                            threadIdx.x);
+      load_tile<D, kWB, NT>(st + T_BYTES, vb + kn * a.vs[2], a.vs[2],
+                            a.skv - kn, threadIdx.x);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < kWStages - 1; ++j) load_kv(j);
+
+  // this thread's two query rows, their lse (x log2 e) and D
+  const int r0 = 16 * warp + (lane >> 2);
+  const int qp0 = q0 + r0, qp1 = qp0 + 8;
+  const long long row = (static_cast<long long>(b) * a.hq + h) * a.sq;
+  const float l0 = qp0 < a.sq ? a.lse[row + qp0] * kLog2e : 0.0f;
+  const float l1 = qp1 < a.sq ? a.lse[row + qp1] * kLog2e : 0.0f;
+  const float d0 = qp0 < a.sq ? a.delta[row + qp0] : 0.0f;
+  const float d1 = qp1 < a.sq ? a.delta[row + qp1] : 0.0f;
+
+  float dq[NP][32], s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[j][i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * kWB;
+    cp_async_wait<kWStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    load_kv(t + kWStages - 1);
+    const uint32_t s_k = s_kv + (t % kWStages) * 2 * T_BYTES;
+    const uint32_t s_v = s_k + T_BYTES;
+
+    // S = Q K^T and dP = dO V^T: queries x keys
+    wgmma_fence();
+    product_ss<D>(s, s_q, s_k);
+    wgmma_commit();
+    product_ss<D>(dp, s_g, s_v);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    const bool masked = k0 + kWB > a.skv ||
+                        (a.causal && k0 + kWB - 1 > q0) ||
+                        (a.window && k0 <= q0 + kWB - 1 - a.window);
+    probs<false>(s, pa, a, masked, [&](int i) { return (i & 2) ? l1 : l0; },
+                 [&](int i) {
+                   const int kp = k0 + col_of(i, lane);
+                   const int qp = (i & 2) ? qp1 : qp0;
+                   return kp < a.skv && (!a.causal || kp <= qp) &&
+                          (!a.window || kp > qp - a.window);
+                 });
+    wgmma_wait<0>();
+    fence_regs(dp);
+    dscores(s, dp, da, [&](int i) { return (i & 2) ? d1 : d0; });
+    // dQ += dS K, K read MN-major
+    wgmma_fence();
+    product_rs<NP>(dq, da, s_k);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NP; ++j) fence_regs(dq[j]);
+    fence_frags(da);
+  }
+  cp_async_wait<0>();
+
+  store_rows<NP>(dq, static_cast<bf16*>(a.dq) + b * a.dqs[0] + h * a.dqs[1] +
+                         q0 * a.dqs[2],
+                 a.dqs[2], r0, a.sq - q0, a.scale, lane);
+}
+
+// -- launches ---------------------------------------------------------------
+
+int launch_delta(const BwdArgs& a, int d, bool bf16, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(a.batch) * a.hq * a.sq;
+  if (!bf16) {
+    flash_bwd_delta_kernel<float><<<static_cast<unsigned>(
+        (rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(a, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long per_block = static_cast<long long>(kWarps) * 256 / d;
+  const unsigned grid = static_cast<unsigned>((rows + per_block - 1) /
+                                              per_block);
+  switch (d) {
+    case 64: flash_bwd_delta_bf16_kernel<64><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 128: flash_bwd_delta_bf16_kernel<128><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    case 256: flash_bwd_delta_bf16_kernel<256><<<grid, kThreads, 0, stream>>>(a);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// passes 2 and 3 on the CUDA cores
 template <typename T, int D>
-int launch(const BwdArgs& a, cudaStream_t stream) {
+int launch_cores(const BwdArgs& a, cudaStream_t stream) {
   static bool dkdv_ok = false, dq_ok = false;
   constexpr int BK = block_k<D>();
   cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T, D>,
                                dkdv_smem_bytes<D>(), dkdv_ok);
   if (err == cudaSuccess)
     err = allow_smem(flash_bwd_dq_kernel<T, D>, dq_smem_bytes<D>(), dq_ok);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(a.batch) * a.hq * a.sq;
-  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + kWarps - 1) /
-                                                    kWarps),
-                              kThreads, 0, stream>>>(a, D);
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid_kv((a.skv + BK - 1) / BK, a.hkv, a.batch);
   flash_bwd_dkdv_kernel<T, D>
@@ -405,13 +911,65 @@ int launch(const BwdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const BwdArgs& a, int d, cudaStream_t stream) {
+// Two warpgroups a block (two query heads sharing each K / V tile in dq,
+// two key tiles sharing each Q / dO tile in dk / dv) where the grid keeps
+// 256 blocks (kernel 8's rule), else one, for more blocks.
+template <int D, int NWG>
+int launch_dkdv_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  static bool ok = false;
+  const size_t bytes = dkdv_wgmma_smem_bytes<D, NWG>();
+  const cudaError_t err = allow_smem(flash_bwd_dkdv_wgmma_kernel<D, NWG>,
+                                     bytes, ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.hkv, a.batch, (a.skv + NWG * kWB - 1) / (NWG * kWB));
+  flash_bwd_dkdv_wgmma_kernel<D, NWG>
+      <<<grid, kThreads * NWG, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int NWG>
+int launch_dq_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  static bool ok = false;
+  const size_t bytes = dq_wgmma_smem_bytes<D, NWG>();
+  const cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D, NWG>,
+                                     bytes, ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.hq / NWG, a.batch, (a.sq + kWB - 1) / kWB);
+  flash_bwd_dq_wgmma_kernel<D, NWG><<<grid, kThreads * NWG, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// passes 2 and 3 on the tensor cores
+template <int D>
+int launch_wgmma(const BwdArgs& a, cudaStream_t stream) {
+  constexpr long long kMinBlocks = 256;
+  const long long nk2 = (a.skv + 2 * kWB - 1) / (2 * kWB);
+  const int err = nk2 * a.hkv * a.batch >= kMinBlocks
+                      ? launch_dkdv_wgmma<D, 2>(a, stream)
+                      : launch_dkdv_wgmma<D, 1>(a, stream);
+  if (err) return err;
+  const long long nq = (a.sq + kWB - 1) / kWB;
+  if ((a.hq / a.hkv) % 2 == 0 && nq * (a.hq / 2) * a.batch >= kMinBlocks)
+    return launch_dq_wgmma<D, 2>(a, stream);
+  return launch_dq_wgmma<D, 1>(a, stream);
+}
+
+int launch_all(const BwdArgs& a, int d, bool bf16, cudaStream_t stream) {
+  if (d != 64 && d != 128 && d != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_delta(a, d, bf16, stream);
+  if (err) return err;
+  if (bf16) {
+    switch (d) {
+      case 64: return launch_wgmma<64>(a, stream);
+      case 128: return launch_wgmma<128>(a, stream);
+      default: return launch_cores<__nv_bfloat16, 256>(a, stream);
+    }
+  }
   switch (d) {
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 64: return launch_cores<float, 64>(a, stream);
+    case 128: return launch_cores<float, 128>(a, stream);
+    default: return launch_cores<float, 256>(a, stream);
   }
 }
 
@@ -441,9 +999,8 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
   a.causal = causal; a.window = window; a.cap = cap; a.scale = scale;
-  const int d = static_cast<int>(dims[5]);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_d<__nv_bfloat16>(a, d, s) : launch_d<float>(a, d, s);
+  return launch_all(a, static_cast<int>(dims[5]), is_bf16 != 0,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -210,7 +210,6 @@ int launch(const SsdArgs& a, int batch, cudaStream_t stream) {
 // -- bf16: wgmma on the tensor cores -----------------------------------------
 
 constexpr int kWG = 128;  // threads a warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int round64(int v) { return (v + 63) / 64 * 64; }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core kernels
-// (flash attention, the SSD chunk): cp.async into 128-byte-swizzled shared
-// tiles, wgmma shared-memory descriptors, the m64n64k16 bf16 products with
-// fp32 accumulation, their fences, and a few conversions.
+// (flash attention forward and backward, the SSD chunk): cp.async into
+// 128-byte-swizzled shared tiles, wgmma shared-memory descriptors, the
+// m64n64k16 bf16 products with fp32 accumulation, their fences, and a few
+// conversions.
 //
 // Shared tiles are stored as [cols / 64 panels][rows][64 bf16]: 16-byte
 // chunk c of row r at chunk c ^ (r % 8) of its 128-byte row, the swizzle
@@ -33,6 +34,13 @@ __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
   return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
+// 4 bytes global -> shared, asynchronous; zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 // 16 bytes global -> shared, asynchronous; zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
@@ -74,6 +82,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still in flight (groups
+// complete in order: N = 1 waits for all but the youngest)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Pin registers after a wait: their reads may not move above it.
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
@@ -138,11 +152,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows [0, nvalid) of a [ROWS, D] tile at g (row stride rs elements) into
+// the swizzled layout at s, by NT threads (tid of them); rows past nvalid
+// are zero, so no NaN from stale shared memory reaches a product.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(uint32_t s, const __nv_bfloat16* g,
+                                          long long rs, int nvalid, int tid) {
+  constexpr int CPR = D / 8;
+#pragma unroll 4
+  for (int i = tid; i < ROWS * CPR; i += NT) {
+    const int r = i / CPR, c = i - r * CPR;
+    const bool ok = r < nvalid;
+    cp_async16(s + swz(r, c, ROWS), g + (ok ? r : 0) * rs + c * 8, ok);
+  }
+}
+
 // 2^x in one MUFU instruction (results below 2^-126 flush to 0)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh(y) = 1 - 2 / (1 + e^(2y)), saturating to +-1; absolute error a few
+// fp32 ulps, far below bf16's rounding of the output
+__device__ __forceinline__ float tanh_fast(float y) {
+  return 1.0f - __fdividef(2.0f, 1.0f + ex2(2.0f * kLog2e * y));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

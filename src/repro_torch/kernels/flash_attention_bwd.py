@@ -11,16 +11,19 @@ scores), NEG_INF = -2^30 as the forward. Kernel layout q, o, dO
 [B,Hq,Sq,D], k/v [B,Hkv,Skv,D], any strides with a contiguous last dim
 (the model layout [B,S,H,D] as transposed views); lse [B,Hq,Sq] fp32. D in
 {64, 128, 256}, fp32 or bf16; outputs in the inputs' type, strided as q,
-k, v. Source: ``csrc/flash_attention_bwd.cu`` (three launches: D =
-rowsum(dO o), then dk/dv, then dq; no atomics, so a rerun is bit for bit),
-which states its bound and design.
+k, v. Source: ``csrc/flash_attention_bwd.cu``, which states its bound and
+design: three launches (D = rowsum(dO o), then dk/dv, then dq; no
+atomics, so a rerun is bit for bit). Storage type and head dim pick the
+kernels: bf16 at D 64 and 128 runs the five products on the tensor cores
+(``wgmma``; P and dS rounded to bf16 before their products), fp32 and bf16
+at D 256 the CUDA-core kernels. bf16 rows must start on 16 bytes.
 
 The plain version is `flash_vjp_plain_bwd`, the line-for-line translation
 of ``_bwd_scan`` blocked by (bq, bk) in the model layout; the wrapper takes
 it on the CPU (`flash_attention_bwd_plain`, the kernel layout).
 
 A wrapper given CPU tensors returns the plain version; given CUDA tensors
-it launches the kernel or raises, and adds one to LAUNCHES (one for the
+it launches the kernels or raises, and adds one to LAUNCHES (one for the
 call's three launches).
 """
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 from repro_torch.kernels.counters import count_launch
 from repro_torch.kernels.flash_attention import (NEG_INF, _blocks,
                                                  _check_attention_inputs,
-                                                 _mask, plain_block)
+                                                 _check_rows_aligned, _mask,
+                                                 plain_block)
 
 
 def flash_vjp_plain_bwd(res, do, causal, window, cap, bq, bk):
@@ -128,6 +132,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=0,
                          f"q's device, got {tuple(lse.shape)} {lse.dtype}")
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv)
     strides = [st for t in (q, k, v, o, do, dq, dk, dv)
                for st in t.stride()[:3]]
     with torch.cuda.device(q.device):

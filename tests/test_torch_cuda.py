@@ -745,6 +745,12 @@ BWD_CASES = [
     (1, 320, 4, 1, 64, True, 40, 0.0),        # window edge inside a tile
     (1, 256, 16, 4, 128, True, 0, 0.0),
     (2, 256, 4, 4, 64, True, 0, 30.0),        # g = 1 with a cap
+    # D 128, g = 3 (one query head a dq block), window, cap, and a last key
+    # block whose second warpgroup holds no key
+    (1, 320, 6, 2, 128, True, 64, 30.0),
+    # granite's heads over 1,024 tokens: many ring stages, 4 query heads a
+    # kv tile, two warpgroups a block in both passes
+    (2, 2048, 32, 8, 64, True, 0, 0.0),
 ]
 
 
@@ -786,13 +792,91 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, s, hq, hkv,
         _assert_close(got, want, dtype)
 
 
+def _scaled_err(got, want) -> float:
+    """max |got - want| over max |want|: the error at the output's own
+    scale."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,cap", [
+    (4, 1024, 32, 8, 64, True, 0, 0.0),       # granite's heads
+    (2, 2048, 16, 8, 128, True, 0, 0.0),      # D 128, two warpgroups
+    (2, 384, 8, 2, 128, True, 128, 50.0),     # D 128, window, cap
+    (1, 200, 8, 2, 64, False, 0, 0.0),        # ragged, no mask
+])
+def test_flash_attention_bwd_bf16_at_each_outputs_scale(dev, b, s, hq, hkv,
+                                                        d, causal, window,
+                                                        cap):
+    """The bf16 (wgmma) backward's dq, dk and dv each within 2e-2 of its
+    own peak against the plain version, as phase 14 of chip_smoke.py holds
+    them; the kernel fed dO one position late (a planted fault) must break
+    that limit in each of the three."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    kw = dict(causal=causal, window=window, cap=cap)
+    q, k, v, o, do, lse = _bwd_inputs(dev, torch.bfloat16, b, s, hq, hkv, d,
+                                      **kw)
+    want = fab.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+    got = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    late = fab.flash_attention_bwd(q, k, v, o, do.roll(1, dims=2), lse, **kw)
+    torch.cuda.synchronize()
+    sound = [_scaled_err(x, w) for x, w in zip(got, want)]
+    fault = [_scaled_err(x, w) for x, w in zip(late, want)]
+    assert max(sound) <= 2e-2 < min(fault), (sound, fault)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_rejects_unaligned_bf16_rows(dev):
+    """The bf16 backward loads 16 bytes a thread: rows of 68 bf16 (136
+    bytes) are refused, 72 (144 bytes) taken; no fallback."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    lse = torch.zeros((1, 2, 128), dtype=torch.float32, device=dev)
+    for width, ok in ((68, False), (72, True)):
+        x = torch.zeros((1, 2, 128, width), dtype=torch.bfloat16,
+                        device=dev)[..., :64]
+        if ok:
+            fab.flash_attention_bwd(x, x, x, x, x, lse)
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fab.flash_attention_bwd(x, x, x, x, x, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_bf16_runs_the_wgmma_kernels(dev, d):
+    """A torch.profiler trace of bf16 backward calls at D 64 and 128 holds
+    the tensor-core kernels (dk/dv and dq on wgmma) beside the delta pass,
+    no CUDA-core backward kernel and nothing else. (The profiler may drop
+    events, so each kernel is asked to show at least once in 10 calls.)"""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import flash_attention_bwd as fab
+    kw = dict(causal=True, window=0, cap=0.0)
+    args = _bwd_inputs(dev, torch.bfloat16, 1, 512, 8, 2, d, **kw)
+    fab.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fab.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+    names = [ev.key for ev in prof.key_averages()
+             if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    assert names, "the trace shows no device kernel"
+    assert all("flash_bwd_" in n for n in names), names
+    for kern in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
+        assert any(kern in n for n in names), (kern, names)
+    assert not any("flash_bwd_dkdv_kernel" in n or "flash_bwd_dq_kernel" in n
+                   for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_rerun_is_bitwise(dev, dtype):
+def test_flash_attention_bwd_rerun_is_bitwise(dev, dtype, d):
     """No atomics: two calls on the same inputs give the same bits."""
     from repro_torch.kernels import flash_attention_bwd as fab
     kw = dict(causal=True, window=40, cap=30.0)
-    q, k, v, o, do, lse = _bwd_inputs(dev, dtype, 2, 320, 8, 2, 64, **kw)
+    q, k, v, o, do, lse = _bwd_inputs(dev, dtype, 2, 320, 8, 2, d, **kw)
     first = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     second = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     for a, b in zip(first, second):
