@@ -10,7 +10,8 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
      kernel build (timed), and the HGMMA (tensor-core) instructions of
      each flash-attention (forward and backward) and SSD-chunk function in
-     the built library's SASS: the run fails if a bf16 (wgmma)
+     the built library's SASS (cuobjdump runs beside the later phases and
+     is read before the result line): the run fails if a bf16 (wgmma)
      instantiation has none, or if one of the four wgmma kernels (kernel
      8, the backward's dk/dv and dq, the SSD chunk) is missing; ptxas's
      registers, spills and stack
@@ -72,8 +73,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      bit for bit, v as values, equal histories, no batch uploaded by the
      blocks, graph replays (with the eager round each capture follows)
      equal to the block rounds, each round kernel once a round on both
-     packed paths; a profiled 8-round window of each packed path (ms a
-     round, device busy, idle share, the host's CUDA calls a round); kill
+     packed paths; a timed 4-round window of each packed path, its first
+     round profiled (device busy, idle share, the host's CUDA calls a
+     round); kill
      after round 20's checkpoint and `resume_from_checkpoint`, bit for bit
      the uninterrupted blocked run;
   8. the paper's CIFAR-10 path through the experiment API, spec C
@@ -81,14 +83,15 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      ResNet-20 at 272,250 coordinates packed [2304, 128], `proposed` at
      E0 = 4 J, T0 = 40 s, eta 0.1, batch 32): first ResNet-20's gradient
      against an fp64 one (within 1e-3 relative L2 under the engine's
-     scope; TF32, the planted fault, outside it); FedSGD over 60 rounds (its
-     schedule spends 47 J, so the budget stop is off) and FedProx (E = 2,
-     mu 0.01), FedDyn (E = 2, alpha 0.01) and FedAvg at E = 3 over 20, each
-     three ways as in phase 7; parameters and FedDyn's state bit for bit,
-     v as values, equal histories, the last round's train loss below round
-     0's; steady 8-round windows of FedSGD and FedDyn, blocked and per
-     round; kill after round 10's checkpoint of the blocked FedDyn run and
-     resume, bit for bit with h;
+     scope; TF32, the planted fault, outside it); FedSGD over 50 rounds (its
+     schedule spends past the budget, so the budget stop is off), FedProx
+     (E = 2, mu 0.01) and FedAvg at E = 3 over 10 and FedDyn (E = 2, alpha
+     0.01) over 12, each three ways as in phase 7; parameters and FedDyn's
+     state bit for bit, v as values, equal histories, the last round's
+     train loss below round 0's; steady 4-round windows of FedSGD and
+     FedDyn, blocked and per round (one round of each profiled); kill
+     after round 10's checkpoint of the blocked FedDyn run and resume, bit
+     for bit with h;
   9. fleet streaming through the experiment API (random_k: 8 clients a
      round at lambda 0.5, so kernels 2-4 prune; batch 4, 8-round blocks,
      unbounded budgets, evaluation off): (a) LeNet over a 1,000-client
@@ -100,9 +103,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      line as `fleet_launches`); kill after round 32's checkpoint of a
      streamed run and resume, bit for bit; (b) FedDyn (E = 2, alpha 0.01)
      over 32 rounds of the same roster, streamed == replicated bit for bit,
-     h included; (c) ResNet-20 at full width over a 100,000-client
+     h included; (c) ResNet-20 at full width over a 50,000-client
      synthetic-fleet-cifar roster (2 samples a client on average), 32
-     rounds, client_store "auto": its ~3.7 GB replicated estimate is over
+     rounds, client_store "auto": its ~1.8 GB replicated estimate is over
      the 1 GiB budget, so it must stream; env build s, ms a round, H2D
      bytes, peak cohort bytes (per sample within 4x of (a)'s), prefetch
      stall and captures printed;
@@ -121,12 +124,13 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
      over every kernel the wrapper launches per call;
- 12. granite-3-2b at full width in bf16, its depth cut from 40 to 20
+ 12. granite-3-2b at full width in bf16, its depth cut from 40 to 10
      layers (random weights, seed 0), served by the continuous-batching
      engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
-     slots; flash launches == 20 x 16, engine tokens == a sequential
-     generation over the same padded prefill; the prefill's last-token
+     slots; flash launches == 10 x 16, engine tokens == a sequential
+     generation over the same padded prefill (the first request of each
+     bucket and one in a reused slot); the prefill's last-token
      logits in fp32 on the same weights within 1e-3 (relative L2) of the
      naive path's, with a planted fault (keys one position late) above
      that limit, and every flash launch of the bf16 prefill within 2e-2
@@ -139,6 +143,15 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
+     then (16.) hymba-1.5b at full width and depth (32 layers; 25/5 heads
+     of 64, window 1,024 beside the SSM mixer) and (17.) mixtral-8x22b at
+     full width, 4 of its 56 layers (48/8 heads of 128, 8 experts of top
+     2), served as granite is: flash launches == layers x 16, engine ==
+     sequential (mixtral's over the same padded prefill: padding shares
+     expert capacity), every admitted hymba slot's SSM state and conv
+     window zero when its prefill starts (hymba prefills the exact,
+     ragged length through kernel 8), the fp32 logits
+     check (mixtral's on a copy of its first two layers);
  14. granite-3-2b trained at full width and depth in bf16 (random
      weights, seed 0) with masked FedSGD under the train_4k runtime
      (flash_vjp: kernel 8 with the rows' log-sum-exp forward, the
@@ -161,7 +174,12 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  15. mamba2-130m trained at full size the same way: finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
- 16. one JSON line listing the kernels (the ten TPU kernels' ports and
+     then (18.) hymba-1.5b at full width and depth and (19.) mixtral-8x22b
+     at full width on one layer (its deepest that trains on one card; 4
+     microbatches) trained with phase 14's checks, the kernel rows on
+     layer 0's inputs of the last microbatch (hymba's SDPA given the same
+     band as a boolean mask), the gradient check on a depth-2 copy;
+ 20. one JSON line listing the kernels (the ten TPU kernels' ports and
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
      phase 9's streamed run), then the result line.
@@ -182,6 +200,9 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+T_START = time.perf_counter()      # before torch and the port are imported
 
 # deterministic cuBLAS, and one card (the first visible): both must be set
 # before torch initialises CUDA
@@ -260,11 +281,12 @@ def max_abs_err(outs_a, outs_b) -> float:
     return err
 
 
-def time_ms(fn, reps: int = 200) -> float:
+def time_ms(fn, reps: int = 200, warmup: int = 10) -> float:
     """Mean time of one call on the device's clock: CUDA events around
-    `reps` back-to-back calls. For a kernel shorter than its launch this is
-    the wrapper's per-call cost, the rate at which the round can issue it."""
-    for _ in range(10):
+    `reps` back-to-back calls after `warmup` untimed ones. For a kernel
+    shorter than its launch this is the wrapper's per-call cost, the rate
+    at which the round can issue it."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -412,6 +434,22 @@ def sass_hgmma_counts() -> dict:
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
     return counts
+
+
+def hgmma_problems(hgmma) -> list:
+    """Prints sass_hgmma_counts()'s result; a problem when a bf16 wgmma
+    kernel is missing or has no HGMMA instruction."""
+    print(json.dumps({"sass_hgmma": hgmma}))
+    wgmma_fns = [k for k in hgmma if "wgmma" in k]
+    missing = [kern for kern in ("flash_attention_wgmma_kernel",
+                                 "flash_bwd_dkdv_wgmma_kernel",
+                                 "flash_bwd_dq_wgmma_kernel",
+                                 "ssd_chunk_wgmma_kernel")
+               if not any(k.startswith(kern) for k in wgmma_fns)]
+    if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
+        return [f"a bf16 wgmma kernel is missing ({missing}) or has no "
+                f"HGMMA instruction ({hgmma})"]
+    return []
 
 
 def slice_env(dev):
@@ -1234,7 +1272,11 @@ QUICK_SPECS = {"A": dict(scheme="proposed_exact", e0=250.0, t0=150.0,
                          eval_every=10),
                "B": dict(scheme="proposed", e0=25.0, t0=15.0,
                          eval_every=40)}
-QUICK_WINDOW = 8          # rounds of each profiled window
+QUICK_WINDOW = 4          # rounds of each timed window (once 8)
+# rounds of it under each profiler (CUDA, then CPU): the traces' host-side
+# processing grows with their events, ~12,000 a per-round FedDyn round;
+# over 8 rounds it took 111 of spec C's 240 s on an H100's host (PERF.md)
+QUICK_PROFILED = 1
 CKPT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 
 
@@ -1273,12 +1315,13 @@ class Grab(Callback):
 
 def quick_window(dev, env, spec, run_kw) -> dict:
     """Rounds 1..QUICK_WINDOW of the spec's schedule on a fresh trainer of
-    one path, driven four times: first (the blocked path captures the
-    window's graphs there) and again, timed on the host clock; then under
-    torch.profiler (CUDA): wall and device-busy ms a round, the idle share
-    (against the profiled and the unprofiled wall), the device's kernels a
-    round; then under the CPU profiler: the kernel launches, graph launches
-    and copies the host issues a round."""
+    one path, driven twice: first (the blocked path captures the window's
+    graphs there) and again, timed on the host clock; then its first
+    QUICK_PROFILED rounds under torch.profiler (CUDA): wall and
+    device-busy ms a round, the idle share (against the profiled and the
+    unprofiled wall), the device's kernels a round; then under the CPU
+    profiler: the kernel launches, graph launches and copies the host
+    issues a round."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import Experiment
     run = Experiment(dataclasses.replace(
@@ -1292,10 +1335,17 @@ def quick_window(dev, env, spec, run_kw) -> dict:
                               freq=sched.freq[1:1 + QUICK_WINDOW])
     tr, ch = run.trainer, env.ch
 
-    def drive():
-        tr.run(win, env.sp, ch.uplink, ch.downlink)
+    def drive(w=win):
+        tr.run(w, env.sp, ch.uplink, ch.downlink)
 
-    n = QUICK_WINDOW
+    n, n_prof = QUICK_WINDOW, QUICK_PROFILED
+    prof_win = dataclasses.replace(win, a=win.a[:n_prof],
+                                   lam=win.lam[:n_prof],
+                                   power=win.power[:n_prof],
+                                   freq=win.freq[:n_prof])
+
+    def drive_profiled():
+        drive(prof_win)
     walls = []
     for _ in range(2):                # the first captures the graphs
         torch.cuda.synchronize()
@@ -1307,14 +1357,15 @@ def quick_window(dev, env, spec, run_kw) -> dict:
               "steady_ms_per_round": walls[1],
               "capture_s": (tr.engine.capture_seconds
                             if tr.engine is not None else 0.0)}
-    out = device_idle(drive)
+    t_prof = time.perf_counter()
+    out = device_idle(drive_profiled)
     if "wall_ms" not in out:
         return {**steady, **out}
-    out = {**steady,
-           "profiled_wall_ms_per_round": out["wall_ms"] / n,
-           "device_busy_ms_per_round": out["device_busy_ms"] / n,
+    out = {**steady, "profiled_rounds": n_prof,
+           "profiled_wall_ms_per_round": out["wall_ms"] / n_prof,
+           "device_busy_ms_per_round": out["device_busy_ms"] / n_prof,
            "device_idle_share": out["device_idle_share"],
-           "device_kernels_per_round": out["kernel_launches"] / n,
+           "device_kernels_per_round": out["kernel_launches"] / n_prof,
            "top_kernels": out["top_kernels"]}
     # idle against the unprofiled wall: CUPTI's tracing of a graph's
     # kernels stretches the profiled one
@@ -1324,16 +1375,17 @@ def quick_window(dev, env, spec, run_kw) -> dict:
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            drive()
+            drive_profiled()
             torch.cuda.synchronize()
         api = {ev.key: ev.count for ev in prof.key_averages()
                if ev.key.startswith("cuda")}
         out["host_calls_per_round"] = {
-            k: api.get(k, 0) / n for k in (
+            k: api.get(k, 0) / n_prof for k in (
                 "cudaLaunchKernel", "cudaLaunchKernelExC",
                 "cudaGraphLaunch", "cudaMemcpyAsync")}
     except (AssertionError, RuntimeError) as err:
         out["host_calls_per_round"] = f"not measured: {err}"
+    out["profiling_s"] = time.perf_counter() - t_prof   # both traces
     return out
 
 
@@ -1519,14 +1571,17 @@ def quickstart_phase(dev, card):
 # sigma = 1, ResNet-20, `proposed` at E0 = 4 J, T0 = 40 s, eta 0.1, batch 32
 CIFAR = dict(n_clients=10, sigma=1.0, n_train=4000, n_test=800, e0=4.0,
              t0=40.0, eta=0.1, batch=32, eval_every=10)
-# (label, local scheme, E, its kwargs, rounds). The 60-round FedSGD
-# schedule spends 47 J of the 4 J budget (infeasible), so the budget stop
-# would end it after round 5: it runs all 60 rounds; the 20-round
-# schedules are feasible and keep the stop
-CIFAR_RUNS = (("fedsgd", "fedavg", 1, {}, 60),
-              ("fedprox", "fedprox", 2, {"mu": 0.01}, 20),
-              ("feddyn", "feddyn", 2, {"alpha": 0.01}, 20),
-              ("fedavg_e3", "fedavg", 3, {}, 20))
+# (label, local scheme, E, its kwargs, rounds). The FedSGD schedule
+# spends more than the 4 J budget (47 J over 60 rounds), so the budget stop
+# would end it early: it runs all its rounds; the others are feasible and
+# keep the stop. Rounds cut beside the hybrid and MoE phases:
+# FedSGD 60 -> 50 (at 40 its schedule takes one client a round, not 4),
+# FedProx and FedAvg at E = 3 20 -> 10, FedDyn 20 -> 12 (its kill after
+# round 10 and resume)
+CIFAR_RUNS = (("fedsgd", "fedavg", 1, {}, 50),
+              ("fedprox", "fedprox", 2, {"mu": 0.01}, 10),
+              ("feddyn", "feddyn", 2, {"alpha": 0.01}, 12),
+              ("fedavg_e3", "fedavg", 3, {}, 10))
 
 
 def cifar_spec(label: str, **run):
@@ -1614,8 +1669,8 @@ def resnet_grad_accuracy(dev) -> dict:
 def cifar_phase(dev, card):
     """First ResNet-20's gradient against fp64 (`resnet_grad_accuracy`:
     within 1e-3 relative L2, TF32 outside it). Then spec C through
-    repro_torch.api: FedSGD over 60 rounds and FedProx (E = 2), FedDyn (E =
-    2) and FedAvg at E = 3 over 20, each three ways ("auto": 32-round
+    repro_torch.api: FedSGD over 50 rounds, FedProx (E = 2) and FedAvg at
+    E = 3 over 10 and FedDyn (E = 2) over 12, each three ways ("auto": 32-round
     blocks on CUDA graphs, one round a dispatch, the reference backend).
     Parameters and FedDyn's state bit for bit across the three, v as
     values, equal histories; the train loss of the last round below round
@@ -1624,18 +1679,25 @@ def cifar_phase(dev, card):
     batch; kernels 2, 3 and 4 launch once a round on both packed runs
     (the masks: kernel 2 or, where a round's clients have different
     lambdas, kernel 1). Then the
-    steady 8-round windows of FedSGD and FedDyn, blocked and per round,
+    steady 4-round windows of FedSGD and FedDyn, blocked and per round,
     and kill after round 10's checkpoint of the blocked FedDyn run and
     `resume_from_checkpoint`: bit for bit, h included. Returns (problems,
     launches of each packed run)."""
     from repro_torch.api import (Experiment, build_environment,
                                  resume_from_checkpoint)
     problems, launches_by_run = [], {}
+    # the phase's wall by part, host clock (where its time goes)
+    parts = {}
+    t = time.perf_counter()
     acc = resnet_grad_accuracy(dev)
+    parts["grad_accuracy"] = time.perf_counter() - t
     print(json.dumps({"resnet20_grad_rel_l2_vs_fp64": acc, "card": card}))
     if not acc["cuda_scoped"] < 1e-3 < acc["cuda_tf32_unscoped"]:
         problems.append(f"ResNet-20's gradient against fp64: {acc}")
+    t = time.perf_counter()
     env = build_environment(cifar_spec("fedsgd"), device=dev)
+    parts["environment"] = time.perf_counter() - t
+    parts["builds"] = parts["runs"] = parts["checks"] = 0.0
     keys = ("round", "train_loss", "selected", "delay", "energy",
             "cumulative_delay", "cumulative_energy", "test_loss",
             "test_accuracy")
@@ -1646,9 +1708,12 @@ def cifar_phase(dev, card):
         for path, run_kw in (("blocked", {}),
                              ("per_round", dict(rounds_per_dispatch=1)),
                              ("reference", dict(backend="reference"))):
+            t = time.perf_counter()
             run = Experiment(dataclasses.replace(
                 spec, run=dataclasses.replace(spec.run, **run_kw))
                              ).build(env=env)
+            build_s = time.perf_counter() - t
+            parts["builds"] += build_s
             counter = BlockCounter()
             pm.reset_launches()
             torch.cuda.synchronize()
@@ -1656,11 +1721,13 @@ def cifar_phase(dev, card):
             res = run.run(callbacks=[counter])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t
+            parts["runs"] += wall_s
             launches = dict(pm.LAUNCHES)
             tr = run.trainer
             n = len(res.history)
             losses = [m.train_loss for m in res.history]
-            row = {"rounds": n, "wall_s_with_eval": wall_s,
+            row = {"rounds": n, "build_s": build_s,
+                   "wall_s_with_eval": wall_s,
                    "ms_per_round_with_eval": 1e3 * wall_s / n,
                    "card": card,
                    "final_accuracy": res.summary["final_accuracy"],
@@ -1691,6 +1758,7 @@ def cifar_phase(dev, card):
                                     f"!= rounds {live}")
             runs[path] = (run, res)
             print(json.dumps({"cifar10": label, "path": path, **row}))
+        t = time.perf_counter()
         (rb, hb) = runs["blocked"]
         blocked[label] = (spec, rb, hb)
         row_b = dict(graphs=rb.trainer.engine.graphs_captured,
@@ -1723,14 +1791,18 @@ def cifar_phase(dev, card):
             h = rb.trainer._h
             if h is None or not float(h.abs().sum()) > 0:
                 problems.append("spec C feddyn: h never moved")
+        parts["checks"] += time.perf_counter() - t
     windows = {}
     for label in ("fedsgd", "feddyn"):
+        t = time.perf_counter()
         spec = blocked[label][0]
         windows[label] = {path: quick_window(dev, env, spec, kw) for path, kw
                           in (("blocked", {}),
                               ("per_round", dict(rounds_per_dispatch=1)))}
+        parts[f"window_{label}"] = time.perf_counter() - t
         print(json.dumps({"cifar10_window": label, "card": card,
                           "rounds": QUICK_WINDOW, **windows[label]}))
+    t = time.perf_counter()
 
     # kill the blocked FedDyn run after round 10's checkpoint, resume from
     # the checkpoint's own spec: parameters and h bit for bit
@@ -1769,6 +1841,8 @@ def cifar_phase(dev, card):
             or bits or hbits or len(resumed.history) != len(res_d.history):
         problems.append("spec C feddyn: kill and resume is not bit for bit")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    parts["kill_and_resume"] = time.perf_counter() - t
+    print(json.dumps({"cifar10_phase_parts_s": parts, "card": card}))
     return problems, launches_by_run, windows
 
 
@@ -1779,11 +1853,12 @@ def cifar_phase(dev, card):
 FLEET = dict(k=8, lam=0.5, seed=1, batch=4, rpd=8, n_test=800)
 # (a) and (b): LeNet over 1,000 clients (the JAX benchmark's parity cap,
 # benchmarks/fleet_scaling.py PARITY_MAX_POP), 24 samples a client on
-# average; (c): ResNet-20 over 100,000 clients, 2 a client
+# average; (c): ResNet-20 over 50,000 clients, 2 a client (100,000 until
+# the hybrid and MoE phases: its host-side environment build took 20 s)
 FLEET_PARITY = dict(dataset="synthetic-fleet", model="lenet",
                     population=1_000, per_client=24, rounds=64)
 FLEET_SCALE = dict(dataset="synthetic-fleet-cifar", model="resnet",
-                   population=100_000, per_client=2, rounds=32)
+                   population=50_000, per_client=2, rounds=32)
 FLEET_FEDDYN_ROUNDS = 32
 PEAK_FLAT_FACTOR = 4.0    # benchmarks/fleet_scaling.py's flatness bound
 
@@ -1861,7 +1936,7 @@ def fleet_phase(dev, card):
     after round 32's checkpoint of a streamed run and resume, bit for bit.
     (b) FedDyn (E = 2, alpha 0.01) over 32 rounds of the same roster,
     streamed == replicated bit for bit, h included. (c) ResNet-20 over a
-    100,000-client synthetic-fleet-cifar roster, 32 rounds, "auto": its
+    50,000-client synthetic-fleet-cifar roster, 32 rounds, "auto": its
     replicated estimate is over the 1 GiB budget, so it streams; its peak
     cohort bytes per sample within 4x of (a)'s. Returns (problems, the
     streamed (a) run's launches)."""
@@ -1992,7 +2067,7 @@ def fleet_phase(dev, card):
     del dyn, ds_, dr
     torch.cuda.empty_cache()
 
-    # (c) ResNet-20 over 100,000 clients: "auto" streams
+    # (c) ResNet-20 over 50,000 clients: "auto" streams
     t = time.perf_counter()
     spec = fleet_spec(FLEET_SCALE, "auto")
     env_c = build_environment(spec, device=dev)
@@ -2142,10 +2217,27 @@ BF16_TOL = 2e-2
 # one fp32 prefill; fp32 rounding carried through the layers stays orders
 # below it, a kernel that reads the causal band one key off lands above it.
 # layers: the served model's depth, cut from 40 to 20 (full width kept) so
-# that the script, with the training phases, stays within half its limit
-GRANITE = dict(n_requests=16, new_tokens=32, max_batch=8, max_seq=2048,
-               buckets=(256, 512, 1024), len_lo=130, len_hi=1000,
-               n_sequential=3, logits_rel_l2=1e-3, layers=20)
+# that the script, with the training phases, stays within half its limit,
+# and to 10 beside the hybrid and MoE phases. n_sequential: how many prefill
+# lengths have their first request held to sequential generation (None:
+# every one)
+GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
+               max_batch=8, max_seq=2048, buckets=(256, 512, 1024),
+               len_lo=130, len_hi=1000, n_sequential=None,
+               logits_rel_l2=1e-3, layers=10)
+# hymba-1.5b at full width and depth on granite's traffic: the hybrid
+# family prefills the exact prompt length (no padding into its SSM state),
+# so its 16 lengths are all distinct; the first of them and a request in a
+# reused slot are held to sequential generation
+HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=None, n_sequential=1)
+# mixtral-8x22b at full width, 4 of its 56 layers (5.0 GB of bf16 a layer;
+# the training phase's memory after it); padded buckets, so its padding
+# tokens share expert capacity with the prompt's, and the sequential
+# generation is fed the same padded prefill. Its fp32 logits check runs on
+# a copy of the first two layers (a 4-layer fp32 copy would not fit beside
+# it; at one layer the planted fault cannot show: the last query sees
+# every key, and attention does not see their order)
+MIXTRAL = dict(GRANITE, arch="mixtral-8x22b", layers=4, logit_layers=2)
 MAMBA = dict(n_requests=8, new_tokens=32, max_batch=4, max_seq=2048,
              len_lo=100, len_hi=600, entry_len=512, chunk=128)
 
@@ -2183,7 +2275,12 @@ def measure(name, ok, err, call, plain_call, symbols, nbytes, nflops, card,
     symbols they were; `per_call` kernels a call), and the bound from the
     bytes (3.35 TB/s) and the live FLOPs at the bf16 tensor-core peak."""
     bw, _, bf16 = peaks(card)
-    ms, plain = time_ms(call, reps=50), time_ms(plain_call, reps=20)
+    ms = time_ms(call, reps=50)
+    # a plain version slower than 20 ms a call (the blocked scans of the
+    # training rows) is timed on 3 calls after one warm-up, not 20 after 10
+    plain = time_ms(plain_call, reps=1, warmup=1)
+    plain = time_ms(plain_call, reps=20) if plain < 20.0 else \
+        time_ms(plain_call, reps=3, warmup=0)
     lib = time_ms(library_call, reps=50) if library_call is not None \
         else None
     dev_ms, dev_symbols, dev_events = kernel_device_ms(
@@ -2387,22 +2484,32 @@ def device_idle(fn) -> dict:
                             for k, c, us in evs[:6]]}
 
 
-def granite_phase(dev, card):
-    """granite-3-2b at full width in bf16, GRANITE["layers"] deep (40 in
-    the config), random weights from a
-    torch.Generator seeded with 0 on the card, served by the engine with
-    the flash kernel: 16 greedy requests of 32 new tokens, prompts of
-    130-1000 tokens (numpy seed 0), so every bucket is above 128. Returns
-    (problems, engine, the flash launches of the engine run, the final
-    occupant of each slot)."""
+def serve_phase(dev, card, smi, c):
+    """One LM served at full width in bf16, c["layers"] deep (None: its
+    config's depth), random weights from a torch.Generator seeded with 0
+    on the card, by the engine with the flash kernel: c["n_requests"]
+    greedy requests of c["new_tokens"] tokens on c["max_batch"] slots
+    (slots reused), prompts of c["len_lo"]-c["len_hi"] tokens (numpy seed
+    0), every prefill above 128 tokens, so each goes through kernel 8. The
+    exact-length families (ssm, hybrid) prefill the prompt as it is; the
+    others pad to c["buckets"]. Checks: flash launches exact, engine ==
+    sequential generation over the same (padded) prefill for the first
+    request of each prefill length (of the first c["n_sequential"]) and
+    for the first request in a reused slot, every admitted slot's SSM
+    state and conv window zero when its prefill starts, and
+    `prefill_logits_check`. Returns (problems,
+    engine, the flash launches of the engine run, the final occupant of
+    each slot)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.counters import LAUNCHES, reset_launches
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
     from repro_torch.serving import ServingEngine
-    c = GRANITE
-    cfg = dataclasses.replace(get_config("granite-3-2b"),
-                              num_layers=c["layers"])
+    from repro_torch.serving.engine import _state_leaves
+    arch = c["arch"]
+    cfg = get_config(arch)
+    if c["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=c["layers"])
     rt = Runtime(attn_impl="cuda")
     t = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -2411,33 +2518,64 @@ def granite_phase(dev, card):
     n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
     init_s = time.perf_counter() - t
     rng = np.random.default_rng(0)
+    exact = cfg.family in ("ssm", "hybrid")
     lens = rng.integers(c["len_lo"], c["len_hi"] + 1, size=c["n_requests"])
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in lens]
     eng = ServingEngine(params, cfg, max_batch=c["max_batch"],
-                        max_seq=c["max_seq"], prompt_buckets=c["buckets"],
+                        max_seq=c["max_seq"],
+                        prompt_buckets=c["buckets"],
                         rt=rt, device=dev)
     for pr in prompts:
         eng.submit(pr, max_new_tokens=c["new_tokens"])
+    # the recurrent state of each admitted slot as its prefill starts
+    state_at_prefill, real_prefill = [], T.prefill
+
+    def watched(p, tokens, cache, *args):
+        leaves = list(_state_leaves(cache))
+        if leaves:
+            state_at_prefill.append(max(float(x.abs().max())
+                                        for x in leaves))
+        return real_prefill(p, tokens, cache, *args)
+
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    t_pre, t_dec, steps = drive_engine(eng)
+    T.prefill = watched
+    try:
+        t_pre, t_dec, steps = drive_engine(eng)
+    finally:
+        T.prefill = real_prefill
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     peak = _peak_gib()
     done = list(eng.finished)
     problems = []
     if len(done) != c["n_requests"]:
-        problems.append(f"granite: {len(done)} of {c['n_requests']} finished")
+        problems.append(f"{arch}: {len(done)} of {c['n_requests']} finished")
     want = cfg.num_layers * c["n_requests"]
     if launches["flash_attention"] != want:
-        problems.append(f"granite: flash_attention launched "
+        problems.append(f"{arch}: flash_attention launched "
                         f"{launches['flash_attention']} times, expected "
                         f"{want}")
     padded = sum(len(eng.prefill_tokens(pr)) for pr in prompts)
     generated = sum(len(st.generated) for st in done)
+    slots_seen, reused = set(), []
+    for st in sorted(done, key=lambda st: st.request.uid):
+        if st.slot in slots_seen:
+            reused.append(st.request.uid)
+        slots_seen.add(st.slot)
+    state_row = {}
+    if exact:
+        left = [max(float(x.abs().max()) for x in _state_leaves(row))
+                for row in eng.rows]
+        state_row = {"state_max_abs_at_prefill": max(state_at_prefill),
+                     "state_max_abs_left_in_slots": min(left)}
+        if len(state_at_prefill) != c["n_requests"] or \
+                max(state_at_prefill) != 0.0 or not min(left) > 0:
+            problems.append(f"{arch}: a slot's SSM state was not zero at "
+                            f"its prefill ({state_row})")
     print(json.dumps({
-        "serving": "granite-3-2b", "layers": cfg.num_layers,
+        "serving": arch, "card": smi, "layers": cfg.num_layers,
         "params": n_params,
         "init_s": init_s, "requests_finished": len(done),
         "prompt_tokens": int(lens.sum()), "prefill_tokens_padded": padded,
@@ -2445,34 +2583,46 @@ def granite_phase(dev, card):
         "generated_tokens": generated, "decode_s": t_dec,
         "decode_tokens_per_s": generated / t_dec, "engine_steps": steps,
         "ms_per_engine_step": 1e3 * t_dec / max(steps, 1),
-        "peak_gib": peak, "launches": launches}))
+        "peak_gib": peak, "requests_in_reused_slots": reused, **state_row,
+        "launches": launches}))
 
     # engine == sequential generation over the same padded prefill, for
-    # the first request of each bucket (and more, up to n_sequential)
+    # the first request of each prefill length (of the first n_sequential)
+    # and the first request in a reused slot
     by_uid = {st.request.uid: st.generated for st in done}
     firsts = {}
     for uid, pr in enumerate(prompts):
         firsts.setdefault(len(eng.prefill_tokens(pr)), uid)
-    check = sorted(firsts.values())
-    check += [u for u in range(len(prompts)) if u not in check]
-    check = sorted(check[:max(c["n_sequential"], len(firsts))])
+    check = sorted(firsts.values())[:c["n_sequential"]]
+    check = sorted(set(check) | set(reused[:1]))
     for uid in check:
         seq = _sequential(params, cfg, rt, eng, prompts[uid],
                           c["new_tokens"], dev)
         if by_uid.get(uid) != seq:
-            problems.append(f"granite: request {uid} engine tokens "
+            problems.append(f"{arch}: request {uid} engine tokens "
                             f"{by_uid.get(uid)} != sequential {seq}")
-    print(json.dumps({"granite_engine_vs_sequential": check,
+    print(json.dumps({"engine_vs_sequential": arch, "requests": check,
                       "equal": not any("sequential" in p for p in problems)}))
 
+    lp, lcfg = params, cfg
+    if c.get("logit_layers"):            # a copy cut in depth: views
+        lcfg = dataclasses.replace(cfg, num_layers=c["logit_layers"])
+        lp = dict(params, blocks=_first_layers(params["blocks"],
+                                               c["logit_layers"]))
     logit_problems, logit_row = prefill_logits_check(
-        params, cfg, eng, prompts[int(np.argmax(lens))], dev)
+        lp, lcfg, eng, prompts[int(np.argmax(lens))], dev, c)
     problems += logit_problems
-    print(json.dumps(logit_row))
+    print(json.dumps({**logit_row, "card": smi}))
     occupants = {}
     for st in done:                      # finish order: the last one stays
         occupants[st.slot] = st.pos
     return problems, eng, launches, occupants
+
+
+def _first_layers(tree, n):
+    """The first n layers of a stacked layer tree (views)."""
+    return {k: _first_layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
 
 
 def _to_float(tree):
@@ -2485,21 +2635,23 @@ def _rel_l2(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
 
 
-def prefill_logits_check(params, cfg, eng, prompt, dev):
+def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     """The served prefill's last-token logits, kernel path against the
-    naive path, for the longest prompt. The gate is in fp32 on the same
-    weights: in bf16 the two plain paths (chunked, naive) already drift
-    apart by about the bf16 tolerance over 40 layers, which would swamp a
-    kernel fault. A planted fault (the kernel fed keys and values one
-    position late: a one-token look-ahead) is read the same way and must
-    land above the limit. The bf16 prefill itself is checked layer by
-    layer: each flash launch against the plain version on the same q, k, v
-    (bf16 2e-2). Returns (problems, row)."""
+    naive path, for the longest prompt, on `params` (the served model, or
+    a copy of its first layers where its fp32 copy would not fit beside
+    it). The gate is in fp32 on the same weights: in bf16 the two plain
+    paths (chunked, naive) already drift apart by about the bf16
+    tolerance over 40 layers, which would swamp a kernel fault. A planted
+    fault (the kernel fed keys and values one position late: a one-token
+    look-ahead) is read the same way and must land above the limit. A
+    ragged exact-length prompt runs the chunked path as one chunk. The
+    bf16 prefill itself is checked layer by layer: each flash launch
+    against the plain version on the same q, k, v (bf16 2e-2). Returns
+    (problems, row)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
-    c = GRANITE
     toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()[None]
     sound = kops.flash_attention
 
@@ -2507,7 +2659,12 @@ def prefill_logits_check(params, cfg, eng, prompt, dev):
         kops.flash_attention = flash
         try:
             cache = T.init_cache(pcfg, 1, c["max_seq"], device=dev)
-            return T.prefill(p, toks, cache, pcfg, Runtime(attn_impl=impl))[0]
+            # chunks that divide the prompt (the chunked path's rule); a
+            # ragged exact-length prompt runs as one chunk
+            chunk = math.gcd(512, toks.shape[1])
+            chunk = chunk if chunk >= 128 else toks.shape[1]
+            return T.prefill(p, toks, cache, pcfg, Runtime(
+                attn_impl=impl, q_chunk=chunk, kv_chunk=chunk))[0]
         finally:
             kops.flash_attention = sound
 
@@ -2533,7 +2690,8 @@ def prefill_logits_check(params, cfg, eng, prompt, dev):
     torch.cuda.empty_cache()
     sound_rel = _rel_l2(f32["cuda"], f32["naive"])
     fault_rel = _rel_l2(f32["fault"], f32["naive"])
-    row = {"granite_prefill_logits": f"{toks.shape[1]} tokens",
+    row = {"prefill_logits": f"{c['arch']} {cfg.num_layers} layers, "
+                             f"{toks.shape[1]} tokens",
            "fp32_rel_l2_cuda_vs_naive": sound_rel,
            "fp32_rel_l2_planted_fault_vs_naive": fault_rel,
            "fp32_tolerance_rel_l2": c["logits_rel_l2"],
@@ -2549,11 +2707,12 @@ def prefill_logits_check(params, cfg, eng, prompt, dev):
     problems = []
     if not (sound_rel <= c["logits_rel_l2"] < fault_rel
             and all(bool(torch.isfinite(x).all()) for x in f32.values())):
-        problems.append(f"granite: fp32 prefill logits cuda vs naive rel L2 "
+        problems.append(f"{c['arch']}: fp32 prefill logits cuda vs naive "
+                        f"rel L2 "
                         f"{sound_rel}, planted fault {fault_rel}, limit "
                         f"{c['logits_rel_l2']}")
     if len(layers) != cfg.num_layers or not all(ok for ok, _ in layers):
-        problems.append(f"granite: bf16 prefill flash launches vs plain: "
+        problems.append(f"{c['arch']}: bf16 prefill flash launches vs plain: "
                         f"{sum(ok for ok, _ in layers)} of {len(layers)} "
                         f"within 2e-2, expected {cfg.num_layers}")
     return problems, row
@@ -2887,12 +3046,33 @@ def run_train_steps(params, masks, cfg, rt, dev, seq, batch, n_steps, eta,
     return params, before, last, losses, secs, step, ckpt
 
 
+def _sq_dist(a, b=None, chunk=1 << 26) -> float:
+    """sum((a - b)^2) (b None: sum(a^2)) in fp64, a slice at a time (a leaf
+    of mixtral's fp32 experts is 6.4 GB: its fp64 copy would not fit beside
+    the trees); b may lie in host memory."""
+    a = a.reshape(-1)
+    b = None if b is None else b.reshape(-1)
+    total = 0.0
+    for i in range(0, a.numel(), chunk):
+        d = a[i:i + chunk].double()
+        if b is not None:
+            d = d - b[i:i + chunk].to(a.device).double()
+        total += float(d.square().sum())
+    return total
+
+
 def flash_grad_check(dev, cfg, rt):
-    """A depth-2 full-width granite in fp32, batch 1 at train_4k's length:
-    the flash_vjp gradient (kernel 8 with lse and the backward kernel, fp32
-    CUDA-core instantiations) against the naive path's autograd gradient,
-    relative L2 over the whole tree within grad_rel_l2; a planted fault
-    (the backward kernel fed dO one position late) must read above it."""
+    """A depth-2 copy of the trained model at full width in fp32, batch 1
+    at train_4k's length: the flash_vjp gradient (kernel 8 with lse and the
+    backward kernel, fp32 CUDA-core instantiations) against the naive
+    path's autograd gradient (its layers rematerialised as the flash
+    path's are: one layer's fp32 scores live at a time, where mixtral's
+    two held together left its peak within a few GiB of the card's 80),
+    relative L2 over the whole tree within
+    grad_rel_l2; a planted fault (the backward kernel fed dO one position
+    late) must read above it. One gradient tree at a time sits on the card
+    beside the parameters (mixtral's is 21.7 GB), and the distances are
+    taken a slice at a time."""
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.launch.train import synthetic_batch
@@ -2913,44 +3093,46 @@ def flash_grad_check(dev, cfg, rt):
     def late(res, do, *args):
         return sound(res, do.roll(1, dims=1), *args)
 
-    grads = {}
-    for label, bwd, rtx in (("flash_vjp", sound, rt),
-                            ("planted_fault", late, rt),
-                            ("naive", sound, Runtime(
-                                attn_impl="naive",
-                                loss_chunk=rt.loss_chunk))):
+    def grad(bwd, rtx):
         fv._kernel_bwd = bwd
         try:
-            loss, g = value_and_grad(lambda p, rtx=rtx: T.loss_fn(
+            return value_and_grad(lambda p: T.loss_fn(
                 p, batch["tokens"], batch["labels"], cfg2, rtx), params)
-            grads[label] = loss, leaves(g)
         finally:
             fv._kernel_bwd = sound
 
-    def rel(label):
-        num = sum(float((a.double() - b.double()).square().sum()) for a, b
-                  in zip(grads[label][1], grads["naive"][1]))
-        den = sum(float(b.double().square().sum())
-                  for b in grads["naive"][1])
-        return (num / den) ** 0.5
-
-    sound_rel, fault_rel = rel("flash_vjp"), rel("planted_fault")
-    row = {"train_grad_check": f"granite-3-2b depth {c['grad_depth']} fp32, "
+    naive_loss, g = grad(sound, Runtime(attn_impl="naive",
+                                        loss_chunk=rt.loss_chunk, remat=True))
+    # the naive gradient waits in pinned host memory: two fp32 trees of
+    # mixtral's beside its parameters do not fit on the card
+    naive = [torch.empty(x.shape, dtype=x.dtype,
+                         pin_memory=dev.type == "cuda").copy_(x)
+             for x in leaves(g)]
+    del g
+    den = sum(_sq_dist(b) for b in naive)
+    rel, losses = {}, {"naive": float(naive_loss)}
+    for label, bwd in (("flash_vjp", sound), ("planted_fault", late)):
+        loss, g = grad(bwd, rt)
+        num = sum(_sq_dist(a, b) for a, b in zip(leaves(g), naive))
+        rel[label], losses[label] = (num / den) ** 0.5, float(loss)
+        del g
+    sound_rel, fault_rel = rel["flash_vjp"], rel["planted_fault"]
+    row = {"train_grad_check": f"{cfg.name} depth {c['grad_depth']} fp32, "
            f"batch {c['grad_batch']} x {seq}",
            "rel_l2_flash_vjp_vs_naive": sound_rel,
            "rel_l2_planted_fault_vs_naive": fault_rel,
            "limit": c["grad_rel_l2"],
-           "loss_flash_vjp": float(grads["flash_vjp"][0]),
-           "loss_naive": float(grads["naive"][0])}
+           "loss_flash_vjp": losses["flash_vjp"],
+           "loss_naive": losses["naive"]}
     problems = []
     if not sound_rel <= c["grad_rel_l2"] < fault_rel:
-        problems.append(f"granite train: gradient rel L2 {sound_rel}, "
+        problems.append(f"{cfg.name} train: gradient rel L2 {sound_rel}, "
                         f"planted fault {fault_rel}, limit "
                         f"{c['grad_rel_l2']}")
     return problems, row
 
 
-def train_kernel_rows(captured, card, smi):
+def train_kernel_rows(captured, card, smi, name):
     """Kernel 8 with lse and the backward kernel on layer 0's real bf16
     inputs of the training run, each against its plain version (the
     blocked flash_vjp_plain_fwd / _bwd, the JAX scans' translation; a
@@ -2958,7 +3140,8 @@ def train_kernel_rows(captured, card, smi):
     beside its bound (live FLOPs at the bf16 tensor-core peak: 4 D a pair
     and head forward, 10 D backward) and SDPA (forward; forward and
     backward). The forward is held within bf16 2e-2 (o of order 1, lse of
-    order log S). dq, dk and dv of a mean loss over 16k tokens lie far
+    order log S). A window shorter than the sequence (hymba's) gives SDPA
+    the same band as a boolean mask. dq, dk and dv of a mean loss lie far
     below that absolute term (their peaks are printed), so each is held at
     its own scale, max |kernel - plain| <= 2e-2 max |plain|; the kernel
     fed dO one position late (a planted fault) must break that limit in
@@ -2976,6 +3159,12 @@ def train_kernel_rows(captured, card, smi):
     lse_k = lse.reshape(b, hq, s)
     kw = dict(causal=causal, window=window, cap=cap)
     pairs = b * hq * causal_pairs(s, window)
+    sdpa_kw = dict(is_causal=True, enable_gqa=True)
+    if window and window < s:           # the same band, as a boolean mask
+        pos = torch.arange(s, device=q.device)
+        sdpa_kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                       & (pos[None, :] > pos[:, None] - window),
+                       enable_gqa=True)
 
     o2, lse2 = fa.flash_attention(*kt[:3], lse=True, **kw)
     po, plse = fa.flash_vjp_plain_fwd(q, k, v, causal, window, cap, blk, blk)
@@ -2983,8 +3172,8 @@ def train_kernel_rows(captured, card, smi):
         b, hq, s)) and bits_equal(o2.transpose(1, 2).view(torch.int16),
                                   o.view(torch.int16))
     if not ok_f:
-        problems.append("flash_attention (lse) on layer 0's training inputs: "
-                        "differs from the plain scan or from the step's o")
+        problems.append(f"{name}: flash_attention (lse) on layer 0's training "
+                        "inputs differs from the plain scan or the step's o")
     fwd = measure(
         "flash_attention", ok_f, max(_abs_err(o2.transpose(1, 2), po),
                                      _abs_err(lse2, plse.reshape(b, hq, s))),
@@ -2994,8 +3183,9 @@ def train_kernel_rows(captured, card, smi):
         LM_SYMBOLS["flash_attention"],
         2 * (2 * hq + 2 * hkv) * b * s * d + 4 * b * hq * s, 4 * d * pairs,
         card, library_call=lambda: F.scaled_dot_product_attention(
-            *kt[:3], is_causal=True, enable_gqa=True),
-        shape=f"granite train layer 0 [{b}, {hq}/{hkv}, {s}, {d}] with lse",
+            *kt[:3], **sdpa_kw),
+        shape=f"{name} train layer 0 [{b}, {hq}/{hkv}, {s}, {d}], window "
+              f"{window}, with lse",
         nvidia_smi=smi)
 
     got = fab.flash_attention_bwd(*kt, lse_k, **kw)
@@ -3008,21 +3198,20 @@ def train_kernel_rows(captured, card, smi):
     del late
     ok_b = max(sound_err) <= BF16_TOL < min(fault_err)
     if not ok_b:
-        problems.append(f"flash_attention_bwd on layer 0's training inputs: "
-                        f"dq, dk, dv at {sound_err} of their scale against "
+        problems.append(f"{name}: flash_attention_bwd on layer 0's training "
+                        f"inputs: dq, dk, dv at {sound_err} of their scale "
+                        f"against "
                         f"the plain scan, the planted fault at {fault_err}, "
                         f"limit {BF16_TOL}")
     req = [t.detach().requires_grad_() for t in kt[:3]]
 
     def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(*req, is_causal=True,
-                                             enable_gqa=True)
+        out = F.scaled_dot_product_attention(*req, **sdpa_kw)
         return torch.autograd.grad(out, req, kt[4])
 
     # SDPA's backward alone, like with like: one forward with its graph
     # kept, then the gradient taken again and again from it
-    sdpa_out = F.scaled_dot_product_attention(*req, is_causal=True,
-                                              enable_gqa=True)
+    sdpa_out = F.scaled_dot_product_attention(*req, **sdpa_kw)
     sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
         sdpa_out, req, kt[4], retain_graph=True), reps=50)
     del sdpa_out
@@ -3035,7 +3224,8 @@ def train_kernel_rows(captured, card, smi):
         LM_SYMBOLS["flash_attention_bwd"],
         2 * ((4 * hq + 4 * hkv) * b * s * d) + 4 * b * hq * s,
         10 * d * pairs, card, library_call=sdpa_fwd_bwd, per_call=3,
-        shape=f"granite train layer 0 [{b}, {hq}/{hkv}, {s}, {d}]",
+        shape=f"{name} train layer 0 [{b}, {hq}/{hkv}, {s}, {d}], window "
+              f"{window}",
         scaled_err_dq_dk_dv=sound_err, planted_fault_scaled_err=fault_err,
         scaled_limit=BF16_TOL,
         peak_abs_dq_dk_dv=[float(w.float().abs().max()) for w in want],
@@ -3044,10 +3234,15 @@ def train_kernel_rows(captured, card, smi):
     syms = bwd["device_symbols"]
     if syms and not all(any(kern in x for x in syms) for kern in (
             "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")):
-        problems.append(f"flash_attention_bwd on layer 0's training inputs: "
-                        f"bf16 device time from {syms}, not the wgmma "
-                        f"kernels")
+        problems.append(f"{name}: flash_attention_bwd on layer 0's training "
+                        f"inputs: bf16 device time from {syms}, not the "
+                        f"wgmma kernels")
     return problems, fwd, bwd
+
+
+# mixtral-8x22b trains at full width on this many of its 56 layers: the
+# deepest whole number whose peak stays under ~70 GiB on one card
+MIXTRAL_TRAIN_LAYERS = 1
 
 
 # gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
@@ -3097,27 +3292,34 @@ def d256_bwd_row(dev, card, smi):
     return problems, row
 
 
-def granite_train_phase(dev, card, smi):
-    """granite-3-2b at full width and depth in bf16 (random weights, seed
-    0 on the card) trained with masked FedSGD under specialize's train_4k
-    runtime (flash_vjp, chunks 512, loss_chunk 256, remat): masks at lambda
-    0.3 from one warm-up gradient, 3 steps at eta 1e-2 on packed batches of
-    4 x 4096 tokens; finite losses, pruned coordinates unchanged bit for
-    bit, the last step rerun from its state bit for bit, the launches of
-    both attention kernels exact; then the gradient check and the kernel
-    rows on layer 0's real inputs. `card` is torch's device name (the
+def lm_train_phase(dev, card, smi, arch, layers=None):
+    """An LM at full width in bf16 (random weights, seed 0 on the card),
+    at its config's depth or `layers` deep, trained with masked FedSGD
+    under specialize's train_4k runtime (flash_vjp, chunks 512, loss_chunk
+    256, remat) and its train_microbatches: masks at lambda 0.3 from one
+    warm-up gradient, 3 steps at eta 1e-2 on packed batches of 4 x 4096
+    tokens; finite losses, pruned coordinates unchanged bit for bit, the
+    last step rerun from its state bit for bit, the launches of both
+    attention kernels exact (kernel 8 twice a layer a gradient, remat; the
+    backward once; a gradient for the warm-up and for each microbatch of
+    each step); then the gradient check and the kernel rows on layer 0's
+    real inputs of the last microbatch. `card` is torch's device name (the
     peaks' key), `smi` nvidia-smi's name and power limit, printed beside
-    every number. Returns (problems, launches, rows)."""
+    every number. Returns (problems, launches, (forward row, backward
+    row))."""
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.kernels.counters import LAUNCHES, reset_launches
-    from repro_torch.launch.steps import specialize
+    from repro_torch.launch.steps import specialize, train_microbatches
     from repro_torch.models import flash_vjp as fv
     from repro_torch.models import transformer as T
     c = TRAIN
     shape = INPUT_SHAPES[c["shape"]]
-    cfg, rt = specialize(get_config("granite-3-2b"), shape)
-    seq, batch = shape.seq_len, c["batch"]
+    base = get_config(arch)
+    if layers:
+        base = dataclasses.replace(base, num_layers=layers)
+    cfg, rt = specialize(base, shape)
+    seq, batch, mb = shape.seq_len, c["batch"], train_microbatches(cfg)
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
     captured = {}
@@ -3134,36 +3336,38 @@ def granite_train_phase(dev, card, smi):
     try:
         masks, mask_row, mask_problems = train_masks(
             params, cfg, rt, dev, c["lam"], seq, batch)
+        final, before, last, losses, secs, step, _ = run_train_steps(
+            params, masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"])
     finally:
         fv._kernel_bwd = sound
     problems += mask_problems
-    final, before, last, losses, secs, step, _ = run_train_steps(
-        params, masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"])
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     peak = _peak_gib()
-    grads = 1 + c["steps"]
+    grads = 1 + c["steps"] * mb
     want = {"flash_attention": 2 * cfg.num_layers * grads,   # remat: twice
             "flash_attention_bwd": cfg.num_layers * grads}
     for kname, n in want.items():
         if launches[kname] != n:
-            problems.append(f"granite train: {kname} launched "
+            problems.append(f"{arch} train: {kname} launched "
                             f"{launches[kname]} times, expected {n}")
     if not all(np.isfinite(losses)):
-        problems.append(f"granite train: losses {losses}")
+        problems.append(f"{arch} train: losses {losses}")
     moved = _pruned_moved(final, params, masks)
     if moved:
-        problems.append(f"granite train: {moved} pruned coordinates moved")
+        problems.append(f"{arch} train: {moved} pruned coordinates moved")
     _, again = step(before, masks, last)
     rerun_equal = _trees_equal(again, final)
     if not rerun_equal:
-        problems.append("granite train: the last step rerun differs")
+        problems.append(f"{arch} train: the last step rerun differs")
     del again, before
     tokens = batch * seq
     print(json.dumps({
-        "train": "granite-3-2b", "card": smi, "params": T.param_count(cfg),
+        "train": arch, "card": smi, "layers": cfg.num_layers,
+        "params": T.param_count(cfg),
+        "active_params": T.active_param_count(cfg),
         "runtime": dataclasses.asdict(rt), "batch": batch, "seq": seq,
-        **mask_row, "losses": losses, "step_s": secs,
+        "microbatches": mb, **mask_row, "losses": losses, "step_s": secs,
         "ms_per_step": 1e3 * float(np.mean(secs[1:])),
         "tokens_per_s": tokens / float(np.mean(secs[1:])),
         "peak_gib": peak, "launches": {k: launches[k] for k in want},
@@ -3175,12 +3379,9 @@ def granite_train_phase(dev, card, smi):
     problems += g_problems
     torch.cuda.empty_cache()
     k_problems, fwd_row, bwd_row = train_kernel_rows(captured["args"], card,
-                                                     smi)
+                                                     smi, arch)
     problems += k_problems
     captured.clear()
-    torch.cuda.empty_cache()
-    d_problems, bwd_row["d256"] = d256_bwd_row(dev, card, smi)
-    problems += d_problems
     torch.cuda.empty_cache()
     return problems, launches, (fwd_row, bwd_row)
 
@@ -3230,6 +3431,18 @@ def mamba_train_phase(dev, smi):
     return problems
 
 
+def _short(arch: str) -> str:
+    return arch.split("-")[0]
+
+
+def _row_summary(row: dict) -> dict:
+    """A kernel row's numbers for the kernels line."""
+    return {k: row[k] for k in (
+        "ok", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+        "library_ms", "max_abs_err", "shape", "scaled_err_dq_dk_dv",
+        "library_bwd_ms") if k in row}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels", action="store_true",
@@ -3256,29 +3469,18 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
-    walls = {}
+    walls = {"imports_and_setup": time.perf_counter() - T_START}
     t = time.perf_counter()
     _build.load()
     walls["build"] = time.perf_counter() - t
     print(f"kernels built in {walls['build']:.2f} s "
           f"({_build.library_path().name})")
-    # the bf16 flash (forward, backward) and SSD kernels must run on the
-    # tensor cores: HGMMA in the SASS of every wgmma instantiation
-    hgmma = sass_hgmma_counts()
-    print(json.dumps({"sass_hgmma": hgmma}))
     print(json.dumps({"ptxas_lm": ptxas_report(LM_PTXAS)}))
     print(json.dumps({"ptxas_round": ptxas_report(ROUND_PTXAS)}))
-    wgmma_fns = [k for k in hgmma if "wgmma" in k]
-    missing = [kern for kern in ("flash_attention_wgmma_kernel",
-                                 "flash_bwd_dkdv_wgmma_kernel",
-                                 "flash_bwd_dq_wgmma_kernel",
-                                 "ssd_chunk_wgmma_kernel")
-               if not any(k.startswith(kern) for k in wgmma_fns)]
-    if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
-        print("chip_smoke FAILED: a bf16 wgmma kernel is missing "
-              f"({missing}) or has no HGMMA instruction ({hgmma})",
-              file=sys.stderr)
-        return 1
+    # the bf16 flash (forward, backward) and SSD kernels must run on the
+    # tensor cores: HGMMA in the SASS of every wgmma instantiation, read by
+    # cuobjdump beside the phases and checked before the result line
+    sass_job = ThreadPoolExecutor(max_workers=1).submit(sass_hgmma_counts)
 
     t = time.perf_counter()
     ds, clients, sp, ch, sched, params = slice_env(dev)
@@ -3287,7 +3489,10 @@ def main() -> int:
     walls["kernels"] = time.perf_counter() - t
     if args.kernels:
         print(json.dumps({"phase_wall_s": walls}))
-        return 0
+        sass = hgmma_problems(sass_job.result())
+        if sass:
+            print("chip_smoke FAILED: " + "; ".join(sass), file=sys.stderr)
+        return 1 if sass else 0
 
     # the pruned-FedSGD path, packed backend: counts from this run only
     t = time.perf_counter()
@@ -3405,7 +3610,8 @@ def main() -> int:
     problems += lm_problems
     walls["lm_kernels"] = time.perf_counter() - t
     t = time.perf_counter()
-    g_problems, eng, flash_launches, occupants = granite_phase(dev, name)
+    g_problems, eng, flash_launches, occupants = serve_phase(dev, name, card,
+                                                             GRANITE)
     problems += g_problems
     d_problems, decode_launches, decode_row = decode_entry_phase(
         dev, name, eng, occupants)
@@ -3418,19 +3624,40 @@ def main() -> int:
     m_problems, ssd_launches, ssd_row = mamba_phase(dev, name)
     problems += m_problems
     walls["mamba2_serving"] = time.perf_counter() - t
+    serve_launches = {}
+    for conf in (HYMBA, MIXTRAL):
+        t = time.perf_counter()
+        s_problems, s_eng, serve_launches[conf["arch"]], _ = serve_phase(
+            dev, name, card, conf)
+        problems += s_problems
+        del s_eng
+        torch.cuda.empty_cache()
+        walls[f"{conf['arch']}_serving"] = time.perf_counter() - t
 
     # LM training: deterministic algorithms where torch has them (the
     # embedding's index backward; CUDA cumsum, in mamba2's scan, only
     # warns), so that a step rerun gives the same bits
     torch.use_deterministic_algorithms(True, warn_only=True)
     t = time.perf_counter()
-    tr_problems, train_launches, (train_fwd, train_bwd) = \
-        granite_train_phase(dev, name, card)
+    tr_problems, train_launches, (train_fwd, train_bwd) = lm_train_phase(
+        dev, name, card, "granite-3-2b")
     problems += tr_problems
+    d_problems, train_bwd["d256"] = d256_bwd_row(dev, name, card)
+    problems += d_problems
+    torch.cuda.empty_cache()
     walls["granite_train"] = time.perf_counter() - t
     t = time.perf_counter()
     problems += mamba_train_phase(dev, card)
     walls["mamba2_train"] = time.perf_counter() - t
+    new_train = {}
+    for arch, layers in (("hymba-1.5b", None),
+                         ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS)):
+        t = time.perf_counter()
+        tr_problems, tr_launches, tr_rows = lm_train_phase(
+            dev, name, card, arch, layers)
+        problems += tr_problems
+        new_train[arch] = (tr_launches, *tr_rows)
+        walls[f"{arch}_train"] = time.perf_counter() - t
     torch.use_deterministic_algorithms(False)
     print(json.dumps({"phase_wall_s": walls}))
 
@@ -3495,16 +3722,27 @@ def main() -> int:
                      **({"entry_call": res["entry_call"]}
                         if "entry_call" in res else {}),
                      **({"train_launches": train_launches[kname],
-                         "train_lse": {k: train_fwd[k] for k in (
-                             "ms", "plain_ms", "device_ms", "bound_ms",
-                             "library_ms", "max_abs_err", "shape")}}
+                         "train_lse": _row_summary(train_fwd),
+                         **{f"{_short(a)}_serving_launches": n[kname]
+                            for a, n in serve_launches.items()},
+                         **{f"{_short(a)}_train_launches": r[0][kname]
+                            for a, r in new_train.items()},
+                         **{f"{_short(a)}_train_lse": _row_summary(r[1])
+                            for a, r in new_train.items()}}
                         if kname == "flash_attention" else {}),
+                     **({**{f"{_short(a)}_train_launches": r[0][kname]
+                            for a, r in new_train.items()},
+                         **{f"{_short(a)}_train": _row_summary(r[2])
+                            for a, r in new_train.items()}}
+                        if kname == "flash_attention_bwd" else {}),
                      **({"library_bwd_ms": res["library_bwd_ms"],
                          "d256": {k: res["d256"][k] for k in (
                              "ok", "ms", "plain_ms", "device_ms", "bound_ms",
                              "max_abs_err", "scaled_err_dq_dk_dv", "shape")}}
                         if kname == "flash_attention_bwd" else {})})
     print(json.dumps({"kernels": rows}))
+    problems += hgmma_problems(sass_job.result())
+    print(json.dumps({"script_s": time.perf_counter() - T_START}))
     if problems:
         print("chip_smoke FAILED: " + "; ".join(problems), file=sys.stderr)
         return 1

@@ -303,19 +303,13 @@ def packed_robust_aggregate(grads, cweights, *, kind, impl="auto",
 
 # -- the LM stack: attention and SSD ------------------------------------------
 
-FLASH_BLOCK = 128     # the TPU kernel's default q and kv blocks
-
-
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, impl="auto"):
     """Flash attention in model layout: q [B,S,Hq,D], k/v [B,S,Hkv,D] ->
-    [B,S,Hq,D]. The kernel reads the transposed views in place. Each
-    sequence must be a multiple of min(128, S), the TPU kernel's contract
-    at its default blocks; the CUDA kernel tiles on its own."""
+    [B,S,Hq,D]. The kernel reads the transposed views in place. Any
+    sequence length: the CUDA kernel masks its ragged last tiles, so the
+    exact-length prefills of the ssm and hybrid families reach it (the TPU
+    kernel wants a multiple of min(128, S))."""
     _check_impl(impl, q)
-    sq, skv = q.shape[1], k.shape[1]
-    bq, bk = min(FLASH_BLOCK, sq), min(FLASH_BLOCK, skv)
-    if sq % bq or skv % bk:
-        raise ValueError(f"seq ({sq},{skv}) must divide blocks ({bq},{bk})")
     o = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             cap=cap)

@@ -12,9 +12,10 @@ writes the fresh K/V or state, decode writes one position) and the same
 dict is returned, so a caller holding a view of a larger cache (the
 serving engine's slot rows) sees the update.
 
-Ported: the dense block (llama / granite / qwen / gemma2) and the SSM block
-(mamba2). The MoE, hybrid, encoder and cross-attention blocks raise
-NotImplementedError naming their ROADMAP item.
+Ported: the dense block (llama / granite / qwen / gemma2), the MoE block
+(mixtral / arctic), the SSM block (mamba2) and the hybrid block (hymba). The
+encoder and cross-attention blocks raise NotImplementedError naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gated_mlp,
                                        gated_mlp_params, rms_norm)
@@ -130,6 +132,12 @@ def layer_window(cfg, rt: Runtime, kind: int) -> int:
 
 # -- dense block (llama / yi / qwen / granite / gemma2) -----------------------
 
+def _norms(names, lead, cfg, device) -> dict:
+    """fp32 zeros [*lead, D] for each norm scale named."""
+    return {nm: torch.zeros((*lead, cfg.d_model), dtype=torch.float32,
+                            device=device) for nm in names}
+
+
 def dense_block_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
     lead = (stacked,) if stacked else ()
     p = {
@@ -139,13 +147,10 @@ def dense_block_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
                                 getattr(torch, cfg.dtype), stacked=stacked,
                                 device=device),
     }
-    dev = p["attn"]["wq"].device
     names = ["norm_attn", "norm_mlp"]
     if cfg.attn_softcap or cfg.local_global:   # gemma2-style post-norms
         names += ["postnorm_attn", "postnorm_mlp"]
-    for nm in names:
-        p[nm] = torch.zeros((*lead, cfg.d_model), dtype=torch.float32,
-                            device=dev)
+    p.update(_norms(names, lead, cfg, p["attn"]["wq"].device))
     return p
 
 
@@ -161,6 +166,37 @@ def dense_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
     if "postnorm_mlp" in p:
         h = rms_norm(h, p["postnorm_mlp"], cfg.norm_eps)
     return x + h, cache
+
+
+# -- MoE block (mixtral / arctic) ---------------------------------------------
+
+def moe_block_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
+    lead = (stacked,) if stacked else ()
+    dtype = getattr(torch, cfg.dtype)
+    p = {"attn": attn.attention_params(gen, cfg, stacked=stacked,
+                                       device=device),
+         "moe": moe_lib.moe_params(gen, cfg, stacked=stacked, device=device)}
+    if cfg.dense_residual_ff:           # arctic's parallel dense MLP
+        p["dense_mlp"] = gated_mlp_params(gen, cfg.d_model,
+                                          cfg.dense_residual_ff, dtype,
+                                          stacked=stacked, device=device)
+    p.update(_norms(("norm_attn", "norm_ffn"), lead, cfg,
+                    p["attn"]["wq"].device))
+    return p
+
+
+def moe_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
+    """Returns (y, (cache, aux)): the router's load-balance loss rides
+    with the cache, as in the JAX package."""
+    h, cache = attn_apply(rms_norm(x, p["norm_attn"], cfg.norm_eps),
+                          p["attn"], cfg, rt, window=cfg.sliding_window,
+                          cache=cache, pos=pos)
+    x = x + h
+    hin = rms_norm(x, p["norm_ffn"], cfg.norm_eps)
+    y, aux = moe_lib.moe_apply(hin, p["moe"], cfg)
+    if "dense_mlp" in p:
+        y = y + gated_mlp(hin, p["dense_mlp"])
+    return x + y, (cache, aux)
 
 
 # -- SSM block (mamba2): mixer only, no MLP -----------------------------------
@@ -179,15 +215,38 @@ def ssm_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
     return x + y, cache
 
 
+# -- hybrid block (hymba): parallel attention and SSM heads, fused by mean ----
+
+def hybrid_block_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
+    lead = (stacked,) if stacked else ()
+    p = {"attn": attn.attention_params(gen, cfg, stacked=stacked,
+                                       device=device),
+         "mixer": ssm_lib.ssm_params(gen, cfg, stacked=stacked,
+                                     device=device),
+         "mlp": gated_mlp_params(gen, cfg.d_model, cfg.d_ff,
+                                 getattr(torch, cfg.dtype), stacked=stacked,
+                                 device=device)}
+    p.update(_norms(("norm_in", "norm_mlp"), lead, cfg,
+                    p["attn"]["wq"].device))
+    return p
+
+
+def hybrid_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
+    """Attention on the ring window and the SSM mixer read one norm of x
+    and are fused as x + (ya + ys) / 2, then the gated MLP. cache:
+    {"attn": ring K/V, "ssm": {"ssm", "conv"}}, written in place."""
+    h = rms_norm(x, p["norm_in"], cfg.norm_eps)
+    ya, _ = attn_apply(h, p["attn"], cfg, rt, window=cfg.sliding_window,
+                       cache=None if cache is None else cache["attn"],
+                       pos=pos)
+    ys, _ = ssm_lib.ssm_block(h, p["mixer"], cfg,
+                              cache=None if cache is None else cache["ssm"])
+    x = x + 0.5 * (ya + ys)
+    x = x + gated_mlp(rms_norm(x, p["norm_mlp"], cfg.norm_eps), p["mlp"])
+    return x, cache
+
+
 # -- families not ported yet --------------------------------------------------
-
-def moe_block(*args, **kwargs):
-    _not_ported("the MoE block (mixtral, arctic)", "7.3, MoE")
-
-
-def hybrid_block(*args, **kwargs):
-    _not_ported("the hybrid block (hymba)", "7.2, hybrid")
-
 
 def encoder_block(*args, **kwargs):
     _not_ported("the encoder block (whisper)", "7.4, audio/vlm")

@@ -4,6 +4,7 @@
 Public API:
     init_params(gen, cfg, device=None)            -> params dict
     param_count(cfg)                              -> number of parameters
+    active_param_count(cfg)                       -> parameters a token uses
     init_cache(cfg, batch, max_seq, device=None)  -> serving cache dict
     forward(params, tokens, cfg, rt)              -> logits [B,S,V]
     loss_fn(params, tokens, labels, cfg, rt)      -> scalar CE (chunked)
@@ -15,8 +16,8 @@ layers takes the place of ``lax.scan``; with ``rt.remat`` each layer (a
 local/global pair for gemma2) runs under ``torch.utils.checkpoint``, as
 the JAX package wraps its scan bodies in ``jax.checkpoint``. Caches are
 written in place (models/blocks.py). Ported families: dense (plain and
-gemma2's local/global alternation) and ssm; the others raise
-NotImplementedError naming their ROADMAP item. The JAX package's
+gemma2's local/global alternation), moe, ssm and hybrid; audio and vlm
+raise NotImplementedError naming their ROADMAP item. The JAX package's
 `constrain_batch_model` is a no-op on one device and is dropped (sharding
 is ROADMAP item 8). Entry points run on CUDA unless given device="cpu".
 """
@@ -34,8 +35,11 @@ from repro_torch.models.layers import embed_init, rms_norm, softcap
 from repro_torch.tree import flatten_with_path
 
 # family -> its ROADMAP.md section 1 item
-_NOT_PORTED = {"moe": "7.3, MoE", "hybrid": "7.2, hybrid",
-               "audio": "7.4, audio/vlm", "vlm": "7.4, audio/vlm"}
+_NOT_PORTED = {"audio": "7.4, audio/vlm", "vlm": "7.4, audio/vlm"}
+_BLOCKS = {"dense": (B.dense_block_params, B.dense_block),
+           "moe": (B.moe_block_params, B.moe_block),
+           "ssm": (B.ssm_block_params, B.ssm_block),
+           "hybrid": (B.hybrid_block_params, B.hybrid_block)}
 
 
 def _check_family(cfg) -> None:
@@ -43,7 +47,7 @@ def _check_family(cfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
             f"ROADMAP.md section 1, item {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in _BLOCKS:
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -80,12 +84,10 @@ def init_params(gen: torch.Generator, cfg, *, device=None) -> dict:
                                           device=device),
             "global": B.dense_block_params(gen, cfg, stacked=half,
                                            device=device)}
-    elif cfg.family == "dense":
-        p["blocks"] = B.dense_block_params(gen, cfg, stacked=cfg.num_layers,
-                                           device=device)
     else:
-        p["blocks"] = B.ssm_block_params(gen, cfg, stacked=cfg.num_layers,
-                                         device=device)
+        p["blocks"] = _BLOCKS[cfg.family][0](gen, cfg,
+                                             stacked=cfg.num_layers,
+                                             device=device)
     return p
 
 
@@ -127,13 +129,18 @@ def init_cache(cfg, batch: int, max_seq: int, *, swa_only: bool = False,
                                    (half,)),
                 "global": _kv_cache(cfg, batch, glob, dtype, device, (half,),
                                     quant=kv_quant and not swa_only)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _kv_cache(cfg, batch, eff(cfg.sliding_window), dtype, device,
                          (cfg.num_layers,),
                          quant=kv_quant and not cfg.sliding_window)
     per = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
-    return {k: v.expand(cfg.num_layers, *v.shape).clone()
-            for k, v in per.items()}
+    ssm = {k: v.expand(cfg.num_layers, *v.shape).clone()
+           for k, v in per.items()}
+    if cfg.family == "ssm":
+        return ssm
+    return {"attn": _kv_cache(cfg, batch, eff(cfg.sliding_window), dtype,
+                              device, (cfg.num_layers,)),
+            "ssm": ssm}
 
 
 def param_count(cfg) -> int:
@@ -144,20 +151,39 @@ def param_count(cfg) -> int:
     return sum(leaf.numel() for _, leaf in flatten_with_path(meta))
 
 
+def active_param_count(cfg) -> int:
+    """MoE: the parameters a token touches (its top-k experts, not all);
+    the parameter count for the other families."""
+    total = param_count(cfg)
+    if not cfg.num_experts:
+        return total
+    meta = init_params(torch.Generator(), cfg, device="meta")
+    expert = sum(leaf.numel() for path, leaf in flatten_with_path(meta)
+                 if "moe" in path and any(
+                     s in path for s in ("w_gate", "w_up", "w_down")))
+    inactive = expert * (1 - cfg.experts_per_token / cfg.num_experts)
+    return int(total - inactive)
+
+
 # -- the layer stack ----------------------------------------------------------
 
 def _maybe_remat(fn, rt):
-    """fn(x) -> x under activation checkpointing when rt.remat: only the
-    layer's input is kept, its inside is recomputed in the backward."""
+    """fn(x) (the next hidden state, with a MoE layer's aux beside it)
+    under activation checkpointing when rt.remat: only the layer's input
+    is kept, its inside is recomputed in the backward."""
     if not rt.remat:
         return fn
     return lambda x: checkpoint(fn, x, use_reentrant=False)
 
 
 def _run_stack(x, params, cfg, rt, *, cache=None, pos=None):
-    """Run every layer; returns (hidden, cache). Without a cache (training
-    and `forward`) each layer body goes through `_maybe_remat`."""
+    """Run every layer; returns (hidden, cache, aux), aux the MoE layers'
+    load-balance losses summed (0 for the other families). Without a
+    cache (training and `forward`) each layer body goes through
+    `_maybe_remat`, which recomputes a MoE layer's routing in the
+    backward from the same input."""
     blocks = params["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "dense" and cfg.local_global:
         for i in range(cfg.num_layers // 2):
             if cache is None:
@@ -172,16 +198,23 @@ def _run_stack(x, params, cfg, rt, *, cache=None, pos=None):
                 x, _ = B.dense_block(x, _layer(blocks[name], i), cfg, rt,
                                      kind=kind, cache=_layer(cache[name], i),
                                      pos=pos)
-        return x, cache
-    block_fn = B.dense_block if cfg.family == "dense" else B.ssm_block
+        return x, cache, aux
+    block_fn = _BLOCKS[cfg.family][1]
+    moe = cfg.family == "moe"      # its block returns (y, (cache, aux))
+
+    def body(h, i, layer_cache=None):
+        h, out = block_fn(h, _layer(blocks, i), cfg, rt, cache=layer_cache,
+                          pos=pos)
+        return h, (out[1] if moe else aux)
+
+    auxs = []
     for i in range(cfg.num_layers):
         if cache is None:
-            x = _maybe_remat(lambda h, i=i: block_fn(
-                h, _layer(blocks, i), cfg, rt)[0], rt)(x)
+            x, a = _maybe_remat(lambda h, i=i: body(h, i), rt)(x)
         else:
-            x, _ = block_fn(x, _layer(blocks, i), cfg, rt,
-                            cache=_layer(cache, i), pos=pos)
-    return x, cache
+            x, a = body(x, i, _layer(cache, i))
+        auxs.append(a)
+    return x, cache, torch.stack(auxs).sum() if moe else aux
 
 
 def _embed_tokens(params, tokens, cfg):
@@ -205,7 +238,8 @@ def _logits(params, h, cfg):
 def forward(params, tokens, cfg, rt: Runtime = Runtime()):
     """Full-sequence logits [B, S, V] (small vocabs / tests)."""
     _check_family(cfg)
-    x, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg, rt)
+    x, _, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
+                         rt)
     return _logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps),
                    cfg)
 
@@ -215,11 +249,12 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
     """Mean next-token CE over B x S, computed in sequence chunks of
     rt.loss_chunk (all of S when it does not divide S), each chunk's
     logits recomputed in the backward (a checkpoint), so the [B,S,V]
-    logits are never held. `extra` and `aux_weight` are the JAX
-    signature's: the ported families take no extra input and have no
-    auxiliary loss (aux = 0)."""
+    logits are never held. Adds aux_weight times the MoE layers' summed
+    load-balance loss (0 for the other families). `extra` is the JAX
+    signature's: the ported families take no extra input."""
     _check_family(cfg)
-    x, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg, rt)
+    x, _, aux = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
+                           rt)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = _head(params, cfg)
     bsz, s, _ = h.shape
@@ -237,7 +272,6 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
         sl = slice(i * c, (i + 1) * c)
         total = total + checkpoint(chunk_ce, h[:, sl], labels[:, sl],
                                    use_reentrant=False)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return total / (bsz * s) + aux_weight * aux
 
 
@@ -245,8 +279,8 @@ def prefill(params, tokens, cache, cfg, rt: Runtime = Runtime()):
     """Process the prompt, fill the cache in place, return (last-token
     logits [B, V], cache)."""
     _check_family(cfg)
-    x, cache = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
-                          rt, cache=cache)
+    x, cache, _ = _run_stack(_embed_tokens(params, tokens, cfg), params,
+                             cfg, rt, cache=cache)
     h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache
 
@@ -256,7 +290,7 @@ def decode_step(params, token, cache, pos: int, cfg,
     """One serving step: token [B, 1] at position `pos` -> (logits [B, V],
     cache written in place)."""
     _check_family(cfg)
-    x, cache = _run_stack(_embed_tokens(params, token, cfg), params, cfg, rt,
-                          cache=cache, pos=pos)
+    x, cache, _ = _run_stack(_embed_tokens(params, token, cfg), params, cfg,
+                             rt, cache=cache, pos=pos)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, h, cfg)[:, 0], cache

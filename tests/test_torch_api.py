@@ -185,7 +185,7 @@ def test_build_schedule_matches_jax_bitwise():
     assert len(run.trainer.clients) == len(jrun.trainer.clients)
 
 
-def test_port_experiment_matches_jax_experiment():
+def test_port_experiment_matches_jax_experiment(request):
     """The same spec through both packages from JAX's LeNet weights."""
     def jax_lenet(spec, dataset):
         jp = jcnn.lenet_init(jax.random.key(0))
@@ -196,6 +196,9 @@ def test_port_experiment_matches_jax_experiment():
                 cnn.lenet_apply)
 
     tapi.register_model("lenet-jax-init", jax_lenet, override=True)
+    # the registry is the process's: leave it as the other tests find it
+    request.addfinalizer(
+        lambda: tapi.MODELS._items.pop("lenet-jax-init", None))
     spec = small_spec(tapi, model="lenet-jax-init", rounds_per_dispatch=4)
     spec = dataclasses.replace(
         spec, scheme=dataclasses.replace(spec.scheme, rounds=6, batch=16))

@@ -698,8 +698,7 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (1, 512, 4, 2, 64, True, 100, 0.0),       # sliding window, skipped tiles
     (1, 256, 16, 8, 256, True, 0, 50.0),      # gemma2 global layer
     (1, 384, 16, 8, 256, True, 128, 50.0),    # gemma2 local layer
-    # lengths that are no multiple of the 64-row query / key tiles: 96
-    # keeps the TPU kernel's block contract, 200 (kernel layout only) not
+    # lengths that are no multiple of the 64-row query / key tiles
     (1, 96, 8, 2, 64, True, 0, 0.0),
     (1, 200, 8, 2, 64, True, 0, 0.0),
     (2, 200, 4, 2, 64, False, 0, 0.0),        # ragged last key tile alone
@@ -708,8 +707,14 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (1, 1024, 16, 8, 256, True, 256, 50.0),   # gemma2 local at 1024 tokens
     # grids large enough for two warpgroups a block sharing K / V tiles
     (1, 1024, 32, 8, 64, True, 0, 0.0),       # granite's 1024 bucket
-    (2, 1000, 16, 4, 64, True, 0, 0.0),       # ragged, kernel layout only
+    (2, 1000, 16, 4, 64, True, 0, 0.0),       # ragged
     (2, 1024, 16, 4, 128, True, 0, 0.0),
+    (1, 1024, 25, 5, 64, True, 256, 0.0),     # hymba's heads: g = 5, window
+    # hymba's exact-length prefills: ragged, under its window and a band
+    (1, 999, 25, 5, 64, True, 1024, 0.0),
+    (1, 777, 25, 5, 64, True, 256, 0.0),
+    (1, 512, 48, 8, 128, True, 0, 0.0),       # mixtral's heads: g = 6
+    (1, 2048, 8, 2, 64, True, 128, 0.0),      # a band across many tiles
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -721,13 +726,12 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
     kw = dict(causal=causal, window=window, cap=cap)
     plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), **kw).transpose(1, 2)
-    if s % min(ops.FLASH_BLOCK, s) == 0:
-        pm.reset_launches()
-        out = ops.flash_attention(q, k, v, **kw)   # model layout, by strides
-        assert pm.LAUNCHES["flash_attention"] == 1
-        torch.cuda.synchronize()
-        _assert_close(out, plain, dtype)
-        assert out.transpose(1, 2).is_contiguous() or out.is_contiguous()
+    pm.reset_launches()
+    out = ops.flash_attention(q, k, v, **kw)       # model layout, by strides
+    assert pm.LAUNCHES["flash_attention"] == 1
+    torch.cuda.synchronize()
+    _assert_close(out, plain, dtype)
+    assert out.transpose(1, 2).is_contiguous() or out.is_contiguous()
     kl = fa.flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), **kw)
@@ -751,6 +755,9 @@ BWD_CASES = [
     # granite's heads over 1,024 tokens: many ring stages, 4 query heads a
     # kv tile, two warpgroups a block in both passes
     (2, 2048, 32, 8, 64, True, 0, 0.0),
+    (1, 1024, 25, 5, 64, True, 256, 0.0),     # hymba's heads: g = 5, window
+    (1, 512, 48, 8, 128, True, 0, 0.0),       # mixtral's heads: g = 6
+    (1, 2048, 8, 2, 64, True, 128, 0.0),      # a band across many tiles
 ]
 
 
@@ -903,7 +910,8 @@ def test_flash_attention_lse_leaves_o_unchanged(dev, dtype, s, hq, hkv, d,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b", "hymba-1.5b",
+                                  "mixtral-8x22b"])
 def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
     """loss_fn's gradient on a reduced model in fp32 under the train
     runtime (flash_vjp: kernel 8 with lse, the backward kernel; remat)
@@ -936,6 +944,49 @@ def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
               zip(got, want))
     den = sum(float(b.double().square().sum()) for b in want)
     assert (num / den) ** 0.5 < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("experts", [8, 128])
+def test_moe_apply_on_the_card_equals_the_cpu_and_reruns_bitwise(dev,
+                                                                experts):
+    """moe_apply on a reduced mixtral in fp32 with 8 experts and with
+    arctic's 128, at the default capacity factor (drops): the same experts
+    and buckets as on the CPU, y within 1e-5, and on the card the output,
+    the aux and every gradient bit for bit on a rerun (deterministic
+    algorithms on: the dispatch's gathers have a sorted backward)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                              num_experts=experts)
+    p = moe.moe_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(4, 256, cfg.d_model)).astype(np.float32))
+    y_cpu, aux_cpu = moe.moe_apply(x, p, cfg)
+    logits = x.reshape(-1, cfg.d_model) @ p["router"]
+    pd = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+    xd = x.to(dev).requires_grad_()
+    _, idx_d, _ = moe.route_topk(xd.detach().reshape(-1, cfg.d_model)
+                                 @ pd["router"].detach(), 2)
+    assert torch.equal(idx_d.cpu(), moe.route_topk(logits, 2)[1])
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for _ in range(2):
+            y, aux = moe.moe_apply(xd, pd, cfg)
+            loss = y.square().sum() + aux
+            runs.append([y, aux, *torch.autograd.grad(
+                loss, [xd] + [pd[k] for k in sorted(pd)])])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for a, b in zip(*runs):
+        assert_bitwise(a.detach(), b.detach())
+    torch.testing.assert_close(runs[0][0].detach().cpu(), y_cpu, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(runs[0][1].detach().cpu(), aux_cpu, rtol=1e-6,
+                               atol=0)
 
 
 def _decode_positions(case, b, skv, hkv):

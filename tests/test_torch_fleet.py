@@ -373,7 +373,7 @@ def test_fleet_counters_equal_jax(jax_streamed):
             (b.round, b.selected, b.energy, b.delay)
 
 
-def test_streamed_trajectory_matches_jax_from_its_init(jax_streamed):
+def test_streamed_trajectory_matches_jax_from_its_init(jax_streamed, request):
     """Layer (d): the port's streamed run from JAX's initial weights stays
     within atol 1e-4 of JAX's streamed run after 6 rounds."""
     jspec, jrun, jres = jax_streamed
@@ -386,6 +386,9 @@ def test_streamed_trajectory_matches_jax_from_its_init(jax_streamed):
                 cnn.mlp_edge_apply)
 
     tapi.register_model("mlp-edge-jax-init", jax_init, override=True)
+    # the registry is the process's: leave it as the other files find it
+    request.addfinalizer(
+        lambda: tapi.MODELS._items.pop("mlp-edge-jax-init", None))
     run, res = run_port(fleet_spec(tapi, "streamed", rounds_per_dispatch=2,
                                    model="mlp-edge-jax-init"))
     assert "fleet" in res.summary and len(res.history) == ROUNDS

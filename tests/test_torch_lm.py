@@ -2,10 +2,12 @@
 
 Layers, every path of `attend` (naive, chunked with and without a window,
 the causal skip, the kernel path's plain version), the ring and int8 KV
-caches, the dense and SSM blocks, and `forward`, `prefill` and
-`decode_step` logits on reduced granite, gemma2 (window, softcaps,
-local/global layers, embedding scale) and mamba2, all from JAX's
-parameters (repro_torch.convert) and the same numpy inputs.
+caches, the dense, MoE, SSM and hybrid blocks, and `forward`, `prefill`
+and `decode_step` logits on reduced granite, gemma2 (window, softcaps,
+local/global layers, embedding scale), mamba2, mixtral and arctic (MoE
+with capacity drops; arctic's parallel dense MLP) and hymba (ring-window
+attention beside the SSM), all from JAX's parameters (repro_torch.convert)
+and the same numpy inputs.
 
 Tolerances: the two packages run the same fp32 arithmetic, but XLA and
 torch reduce matmuls and softmax sums in different orders, so values agree
@@ -209,13 +211,29 @@ def _layer0(tree):
     return jax.tree.map(lambda a: a[0], tree)
 
 
+BLOCK_FNS = {"dense": (JB.dense_block, B.dense_block),
+             "moe": (JB.moe_block, B.moe_block),
+             "ssm": (JB.ssm_block, B.ssm_block),
+             "hybrid": (JB.hybrid_block, B.hybrid_block)}
+
+
+def _leaf_pairs(t, j, path=()):
+    """(path, port leaf, JAX leaf) over a nested cache dict."""
+    if isinstance(j, dict):
+        for k in j:
+            yield from _leaf_pairs(t[k], j[k], path + (k,))
+    else:
+        yield path, t, j
+
+
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "mixtral-8x22b",
+                                  "arctic-480b", "hymba-1.5b"])
 def test_blocks_prefill_then_decode_match_jax(arch):
     """One block of each family with a cache: prefill 256 tokens (past
-    gemma2's reduced window of 64, so its ring wraps; through the kernel
-    path), then two decode steps, outputs and every cache leaf against
-    JAX's."""
+    the reduced window of 64 of gemma2, mixtral and hymba, so their rings
+    wrap; through the kernel path), then two decode steps, outputs (and
+    the MoE block's aux) and every cache leaf against JAX's."""
     jcfg, cfg, jp, tp = _model(arch)
     rt, jrt = B.Runtime(attn_impl="cuda"), JB.Runtime(attn_impl="pallas")
     blk = jp["blocks"]["local"] if cfg.local_global else jp["blocks"]
@@ -226,27 +244,26 @@ def test_blocks_prefill_then_decode_match_jax(arch):
     jcache = _layer0(jcache["local"] if cfg.local_global else jcache)
     tcache = T.init_cache(cfg, 1, 320, device="cpu")
     tcache = T._layer(tcache["local"] if cfg.local_global else tcache, 0)
-    jfn, tfn = (JB.ssm_block, B.ssm_block) if cfg.family == "ssm" else \
-        (JB.dense_block, B.dense_block)
+    jfn, tfn = BLOCK_FNS[cfg.family]
     rng = np.random.default_rng(1)
     jx, tx = _both(rng.normal(size=(1, 258, cfg.d_model)).astype(np.float32))
-    jy, jcache = jfn(jx[:, :256], jbp, jcfg, jrt, cache=jcache)
-    ty, tcache = tfn(tx[:, :256], tbp, cfg, rt, cache=tcache)
-    _close(ty, jy)
-    for pos in (256, 257):
-        jy, jcache = jfn(jx[:, pos:pos + 1], jbp, jcfg, jrt, cache=jcache,
-                         pos=pos)
-        ty, tcache = tfn(tx[:, pos:pos + 1], tbp, cfg, rt, cache=tcache,
-                         pos=pos)
+    for sl, pos in ((slice(0, 256), None), (slice(256, 257), 256),
+                    (slice(257, 258), 257)):
+        jy, jcache = jfn(jx[:, sl], jbp, jcfg, jrt, cache=jcache, pos=pos)
+        ty, tcache = tfn(tx[:, sl], tbp, cfg, rt, cache=tcache, pos=pos)
+        if cfg.family == "moe":
+            (jcache, jaux), (tcache, taux) = jcache, tcache
+            _close(taux, jaux)
         _close(ty, jy)
-    for k in tcache:
-        _close(tcache[k], jcache[k])
+    for path, t, j in _leaf_pairs(tcache, jcache):
+        _close(t, j)
 
 
 # -- whole models -------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "mixtral-8x22b",
+                                  "arctic-480b", "hymba-1.5b"])
 def test_forward_prefill_decode_match_jax(arch):
     jcfg, cfg, jp, tp = _model(arch)
     rt, jrt = B.Runtime(attn_impl="cuda"), JB.Runtime(attn_impl="pallas")
@@ -292,18 +309,18 @@ def test_int8_cache_prefill_decode_match_jax():
         _close(tl, jl, dict(rtol=1e-3, atol=1e-3))
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "hymba-1.5b",
-                                  "whisper-small", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
 def test_families_not_ported_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
         T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 7\.[234], "):
+    with pytest.raises(NotImplementedError, match=r"item 7\.4, "):
         T.init_cache(cfg, 1, 16, device="cpu")
 
 
 def test_init_params_has_the_jax_tree_and_shapes():
-    for arch in ("granite-3-2b", "gemma2-9b", "mamba2-130m", "qwen2.5-3b"):
+    for arch in ("granite-3-2b", "gemma2-9b", "mamba2-130m", "qwen2.5-3b",
+                 "mixtral-8x22b", "arctic-480b", "hymba-1.5b"):
         jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
         shapes = jax.eval_shape(lambda: JT.init_params(jax.random.key(0),
                                                        jcfg))

@@ -159,9 +159,19 @@ def test_flash_p_rounded_to_bf16_stays_within_bf16_of_pallas(b, s, hq, hkv, d,
 
 
 def test_flash_attention_keeps_the_block_contract():
+    """The wrapper's contract: any sequence length (the CUDA kernel masks
+    its ragged last tiles, so the exact-length prefills of the ssm and
+    hybrid families reach it; the TPU kernel's multiple of min(128, S) is
+    not asked), equal to the JAX package's oracle at a ragged length under
+    a window; impl="cuda" only on the card."""
+    rng = np.random.default_rng(3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.normal(size=(1, 200, h, 64)),
+                                          "float32") for h in (4, 2, 2))
+    out = ops.flash_attention(tq, tk, tv, window=64)
+    _close(out.transpose(1, 2), ref.flash_attention_ref(
+        jq.transpose(0, 2, 1, 3), jk.transpose(0, 2, 1, 3),
+        jv.transpose(0, 2, 1, 3), window=64), "float32")
     q = torch.zeros((1, 200, 2, 64))
-    with pytest.raises(ValueError, match="must divide blocks"):
-        ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="'cuda'"):
         ops.flash_attention(q[:, :128], q[:, :128], q[:, :128], impl="cuda")
 
