@@ -119,7 +119,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      JAX package's bf16 kernel tolerance, 2e-2): flash attention at
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
-     keys (each branch must change the result), decode attention with
+     keys (each branch must change the result), at whisper's heads (12/12
+     of 64, g = 1) and llama-vision's (64/8 of 128, g = 8), decode
+     attention with
      ragged positions at granite's and gemma2's cache shapes, the SSD chunk
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
@@ -143,15 +145,25 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
-     then (16.) hymba-1.5b at full width and depth (32 layers; 25/5 heads
-     of 64, window 1,024 beside the SSM mixer) and (17.) mixtral-8x22b at
-     full width, 4 of its 56 layers (48/8 heads of 128, 8 experts of top
-     2), served as granite is: flash launches == layers x 16, engine ==
-     sequential (mixtral's over the same padded prefill: padding shares
-     expert capacity), every admitted hymba slot's SSM state and conv
-     window zero when its prefill starts (hymba prefills the exact,
-     ragged length through kernel 8), the fp32 logits
-     check (mixtral's on a copy of its first two layers);
+     then (16.) hymba-1.5b at full width, 16 of its 32 layers (25/5
+     heads of 64, window 1,024 beside the SSM mixer) and (17.)
+     mixtral-8x22b at full width, 4 of its 56 layers (48/8 heads of 128,
+     8 experts of top 2), served as granite is: flash launches == layers
+     x 16, engine == sequential (mixtral's over the same padded prefill:
+     padding shares expert capacity), every admitted hymba slot's SSM
+     state and conv window zero when its prefill starts (hymba prefills
+     the exact, ragged length through kernel 8), the fp32 logits check
+     (mixtral's on a copy of its first two layers); then (21.)
+     whisper-small at full size (12 + 12 layers, 12/12 heads of 64: kernel
+     8 at g = 1) on 8 slots, 16 requests of 32 tokens, prompts of 130-440
+     tokens padded to (256, 512), and (22.) llama-3.2-vision-90b at full
+     width on one group of 5 of its 100 layers (4 self layers of 64/8
+     heads of 128: g = 8, and a gated cross layer) on granite's traffic,
+     its gates opened to 1 before every check (at 0 the cross path adds
+     nothing); each with one memory shared by every request (an encoder
+     input [1, 1500, 768], a vision input [1, 1601, 8192], numpy seed 1),
+     served and checked as granite is (flash launches == self layers x
+     16), and another memory must move the prefill's logits;
  14. granite-3-2b trained at full width and depth in bf16 (random
      weights, seed 0) with masked FedSGD under the train_4k runtime
      (flash_vjp: kernel 8 with the rows' log-sum-exp forward, the
@@ -174,11 +186,15 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  15. mamba2-130m trained at full size the same way: finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
-     then (18.) hymba-1.5b at full width and depth and (19.) mixtral-8x22b
+     then (18.) hymba-1.5b at full width and depth, (19.) mixtral-8x22b
      at full width on one layer (its deepest that trains on one card; 4
-     microbatches) trained with phase 14's checks, the kernel rows on
-     layer 0's inputs of the last microbatch (hymba's SDPA given the same
-     band as a boolean mask), the gradient check on a depth-2 copy;
+     microbatches) and (23.) whisper-small at full size (an encoder input
+     [4, 1500, 768] beside each batch) trained with phase 14's checks,
+     the kernel rows on layer 0's inputs of the last microbatch (hymba's
+     SDPA given the same band as a boolean mask), the gradient check on a
+     depth-2 copy (whisper's encoder cut to 2 layers with it). Training
+     llama-vision is left out: one group at full width (6.5e9 parameters)
+     would take ~150 GB at mixtral's ~23 bytes a parameter;
  20. one JSON line listing the kernels (the ten TPU kernels' ports and
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
@@ -2228,8 +2244,9 @@ GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
 # hymba-1.5b at full width and depth on granite's traffic: the hybrid
 # family prefills the exact prompt length (no padding into its SSM state),
 # so its 16 lengths are all distinct; the first of them and a request in a
-# reused slot are held to sequential generation
-HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=None, n_sequential=1)
+# reused slot are held to sequential generation. Its depth is cut from 32
+# to 16 layers (full width kept) to make room for the audio and vlm phases
+HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=16, n_sequential=1)
 # mixtral-8x22b at full width, 4 of its 56 layers (5.0 GB of bf16 a layer;
 # the training phase's memory after it); padded buckets, so its padding
 # tokens share expert capacity with the prompt's, and the sequential
@@ -2238,6 +2255,21 @@ HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=None, n_sequential=1)
 # it; at one layer the planted fault cannot show: the last query sees
 # every key, and attention does not see their order)
 MIXTRAL = dict(GRANITE, arch="mixtral-8x22b", layers=4, logit_layers=2)
+# whisper-small at full size: prompts under the source's 448-position
+# decoder cap, all past the 128-token naive rule, padded to (256, 512); one
+# random encoder input (numpy seed `memory_seed`) shared by every request.
+# memory_rel_l2: another memory must move the bf16 prefill's logits by
+# more than this relative L2 (the fp32 gate's scale; a cross path that was
+# dropped moves them by exactly 0, the same bf16 ops on the same inputs)
+WHISPER = dict(GRANITE, arch="whisper-small", layers=None, len_lo=130,
+               len_hi=440, buckets=(256, 512), max_seq=512, memory_seed=1,
+               memory_rel_l2=1e-3)
+# llama-3.2-vision-90b at full width on one group (4 self layers and the
+# gated cross layer, 6.5e9 parameters with the embedding, head and
+# vision_proj), granite's traffic, its gates opened to `gate` before every
+# check
+VISION = dict(GRANITE, arch="llama-3.2-vision-90b", layers=5, memory_seed=1,
+              memory_rel_l2=1e-3, gate=1.0)
 MAMBA = dict(n_requests=8, new_tokens=32, max_batch=4, max_seq=2048,
              len_lo=100, len_hi=600, entry_len=512, chunk=128)
 
@@ -2311,10 +2343,12 @@ def causal_pairs(s: int, window: int = 0) -> int:
 def lm_kernel_phase(dev, card):
     """The three LM kernels against their plain versions on random bf16
     inputs at the served models' shapes: flash attention at granite's
-    prefill buckets and gemma2's head dim 256 with its softcap (global
-    and local layer), decode attention at granite's [8, 2048, 8, 64] and
-    gemma2's head dim with ragged positions, the SSD chunk at mamba2's.
-    Returns (problems, flash timing row at granite's 1024 bucket)."""
+    prefill buckets, gemma2's head dim 256 with its softcap (global and
+    local layer), whisper's 512 bucket (12/12 heads of 64, g = 1) and
+    llama-vision's 1024 bucket (64/8 heads of 128, g = 8), decode
+    attention at granite's [8, 2048, 8, 64] and gemma2's head dim with
+    ragged positions, the SSD chunk at mamba2's. Returns (problems, the
+    flash timing rows by shape label)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -2338,7 +2372,9 @@ def lm_kernel_phase(dev, card):
             "granite S1024": (1024, 32, 8, 64, 0, 0.0, 1.0),
             "gemma2 global S1024 cap 50": (1024, 16, 8, 256, 0, 50.0, 50.0),
             "gemma2 local S1024 window 256 cap 50":
-                (1024, 16, 8, 256, 256, 50.0, 50.0)}.items():
+                (1024, 16, 8, 256, 256, 50.0, 50.0),
+            "whisper S512": (512, 12, 12, 64, 0, 0.0, 1.0),
+            "llama-vision S1024": (1024, 64, 8, 128, 0, 0.0, 1.0)}.items():
         q, k, v = rand((1, hq, s, d), q_scale), rand((1, hkv, s, d)), \
             rand((1, hkv, s, d))
         kw = dict(causal=True, window=window, cap=cap)
@@ -2425,11 +2461,12 @@ def _peak_gib() -> float:
 
 def _sequential(params, cfg, rt, eng, prompt, new, dev):
     """Sequential greedy generation of one request with a batch-one cache,
-    prefilling exactly the padded bucket the engine prefills."""
+    prefilling exactly the padded bucket the engine prefills (with the
+    engine's memory input)."""
     from repro_torch.models import transformer as T
     cache = T.init_cache(cfg, 1, eng.max_seq, device=dev)
     toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()
-    T.prefill(params, toks[None], cache, cfg, rt)
+    T.prefill(params, toks[None], cache, cfg, rt, eng.extra)
     tok, pos, out = int(prompt[-1]), len(prompt) - 1, []
     for _ in range(new):
         lg, _ = T.decode_step(params, torch.tensor([[tok]], device=dev),
@@ -2484,6 +2521,25 @@ def device_idle(fn) -> dict:
                             for k, c, us in evs[:6]]}
 
 
+def self_layers(cfg) -> int:
+    """The layers whose self-attention goes through kernel 8: all but
+    the vlm's cross layers (the encoder's and the cross layers' attention
+    stay on the naive path, as in the JAX package)."""
+    if cfg.family == "vlm":
+        return cfg.num_layers // cfg.cross_attn_every * (
+            cfg.cross_attn_every - 1)
+    return cfg.num_layers
+
+
+def memory_input(cfg, dev, seed):
+    """One memory input for every request: the audio family's encoder
+    input [1, 1500, D] or the vlm's vision input [1, 1601, D], standard
+    normal from numpy's `seed` in the model's type on the card, as
+    launch/train.py draws it; None for the other families."""
+    from repro_torch.launch.train import add_extra
+    return add_extra({}, np.random.default_rng(seed), cfg, 1, dev) or None
+
+
 def serve_phase(dev, card, smi, c):
     """One LM served at full width in bf16, c["layers"] deep (None: its
     config's depth), random weights from a torch.Generator seeded with 0
@@ -2492,7 +2548,10 @@ def serve_phase(dev, card, smi, c):
     (slots reused), prompts of c["len_lo"]-c["len_hi"] tokens (numpy seed
     0), every prefill above 128 tokens, so each goes through kernel 8. The
     exact-length families (ssm, hybrid) prefill the prompt as it is; the
-    others pad to c["buckets"]. Checks: flash launches exact, engine ==
+    others pad to c["buckets"]. The audio and vlm families serve every
+    request with one memory input (`memory_input`, c["memory_seed"]),
+    the vlm's gates set to c["gate"] first. Checks: flash launches exact
+    (`self_layers` a prefill), engine ==
     sequential generation over the same (padded) prefill for the first
     request of each prefill length (of the first c["n_sequential"]) and
     for the first request in a reused slot, every admitted slot's SSM
@@ -2514,6 +2573,9 @@ def serve_phase(dev, card, smi, c):
     t = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
+    if "gate" in c:                      # open the cross layers' gates
+        params["blocks"]["cross"]["gate"].fill_(c["gate"])
+    extra = memory_input(cfg, dev, c.get("memory_seed", 0))
     torch.cuda.synchronize()
     n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
     init_s = time.perf_counter() - t
@@ -2525,7 +2587,7 @@ def serve_phase(dev, card, smi, c):
     eng = ServingEngine(params, cfg, max_batch=c["max_batch"],
                         max_seq=c["max_seq"],
                         prompt_buckets=c["buckets"],
-                        rt=rt, device=dev)
+                        rt=rt, extra=extra, device=dev)
     for pr in prompts:
         eng.submit(pr, max_new_tokens=c["new_tokens"])
     # the recurrent state of each admitted slot as its prefill starts
@@ -2552,7 +2614,7 @@ def serve_phase(dev, card, smi, c):
     problems = []
     if len(done) != c["n_requests"]:
         problems.append(f"{arch}: {len(done)} of {c['n_requests']} finished")
-    want = cfg.num_layers * c["n_requests"]
+    want = self_layers(cfg) * c["n_requests"]
     if launches["flash_attention"] != want:
         problems.append(f"{arch}: flash_attention launched "
                         f"{launches['flash_attention']} times, expected "
@@ -2646,8 +2708,11 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     look-ahead) is read the same way and must land above the limit. A
     ragged exact-length prompt runs the chunked path as one chunk. The
     bf16 prefill itself is checked layer by layer: each flash launch
-    against the plain version on the same q, k, v (bf16 2e-2). Returns
-    (problems, row)."""
+    against the plain version on the same q, k, v (bf16 2e-2). The audio
+    and vlm families prefill with the engine's memory input (an fp32 copy
+    of it in fp32), and the bf16 kernel path's logits with another memory
+    (the next numpy seed) must differ from them by more than
+    c["memory_rel_l2"]. Returns (problems, row)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
@@ -2655,7 +2720,7 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()[None]
     sound = kops.flash_attention
 
-    def prefill(p, pcfg, impl, flash=sound):
+    def prefill(p, pcfg, impl, flash=sound, memory=eng.extra):
         kops.flash_attention = flash
         try:
             cache = T.init_cache(pcfg, 1, c["max_seq"], device=dev)
@@ -2664,7 +2729,7 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
             chunk = math.gcd(512, toks.shape[1])
             chunk = chunk if chunk >= 128 else toks.shape[1]
             return T.prefill(p, toks, cache, pcfg, Runtime(
-                attn_impl=impl, q_chunk=chunk, kv_chunk=chunk))[0]
+                attn_impl=impl, q_chunk=chunk, kv_chunk=chunk), memory)[0]
         finally:
             kops.flash_attention = sound
 
@@ -2683,10 +2748,16 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
 
     bf = {impl: prefill(params, cfg, impl) for impl in ("naive", "chunked")}
     bf["cuda"] = prefill(params, cfg, "cuda", checked)
+    mem_rel = None
+    if eng.extra is not None:
+        mem_rel = _rel_l2(prefill(params, cfg, "cuda", memory=memory_input(
+            cfg, dev, c["memory_seed"] + 1)), bf["cuda"])
     p32, cfg32 = _to_float(params), dataclasses.replace(cfg, dtype="float32")
-    f32 = {impl: prefill(p32, cfg32, impl) for impl in ("naive", "cuda")}
-    f32["fault"] = prefill(p32, cfg32, "cuda", late_band)
-    del p32
+    x32 = None if eng.extra is None else _to_float(eng.extra)
+    f32 = {impl: prefill(p32, cfg32, impl, memory=x32)
+           for impl in ("naive", "cuda")}
+    f32["fault"] = prefill(p32, cfg32, "cuda", late_band, memory=x32)
+    del p32, x32
     torch.cuda.empty_cache()
     sound_rel = _rel_l2(f32["cuda"], f32["naive"])
     fault_rel = _rel_l2(f32["fault"], f32["naive"])
@@ -2705,16 +2776,23 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
            "bf16_same_argmax": bool(bf["cuda"].argmax()
                                     == bf["naive"].argmax())}
     problems = []
+    if mem_rel is not None:
+        row.update(bf16_rel_l2_other_memory=mem_rel,
+                   other_memory_limit=c["memory_rel_l2"])
+        if not mem_rel > c["memory_rel_l2"]:
+            problems.append(f"{c['arch']}: another memory input moves the "
+                            f"prefill logits by {mem_rel} (rel L2), not "
+                            f"over {c['memory_rel_l2']}")
     if not (sound_rel <= c["logits_rel_l2"] < fault_rel
             and all(bool(torch.isfinite(x).all()) for x in f32.values())):
         problems.append(f"{c['arch']}: fp32 prefill logits cuda vs naive "
                         f"rel L2 "
                         f"{sound_rel}, planted fault {fault_rel}, limit "
                         f"{c['logits_rel_l2']}")
-    if len(layers) != cfg.num_layers or not all(ok for ok, _ in layers):
+    if len(layers) != self_layers(cfg) or not all(ok for ok, _ in layers):
         problems.append(f"{c['arch']}: bf16 prefill flash launches vs plain: "
                         f"{sum(ok for ok, _ in layers)} of {len(layers)} "
-                        f"within 2e-2, expected {cfg.num_layers}")
+                        f"within 2e-2, expected {self_layers(cfg)}")
     return problems, row
 
 
@@ -3031,7 +3109,7 @@ def run_train_steps(params, masks, cfg, rt, dev, seq, batch, n_steps, eta,
     losses, secs, ckpt = [], [], None
     before = last = None
     for i in range(n_steps):
-        last = packed_batch(it, dev)
+        last = packed_batch(it, cfg, batch, dev)
         before = params
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3072,17 +3150,19 @@ def flash_grad_check(dev, cfg, rt):
     grad_rel_l2; a planted fault (the backward kernel fed dO one position
     late) must read above it. One gradient tree at a time sits on the card
     beside the parameters (mixtral's is 21.7 GB), and the distances are
-    taken a slice at a time."""
+    taken a slice at a time. Whisper's encoder is cut to the same depth,
+    and its batch carries an encoder input."""
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.launch.steps import value_and_grad
-    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.launch.train import batch_extra, synthetic_batch
     from repro_torch.models import flash_vjp as fv
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
     from repro_torch.tree import leaves
     c = TRAIN
-    cfg2 = dataclasses.replace(cfg, num_layers=c["grad_depth"],
-                               dtype="float32")
+    cfg2 = dataclasses.replace(
+        cfg, num_layers=c["grad_depth"], dtype="float32",
+        encoder_layers=min(cfg.encoder_layers, c["grad_depth"]))
     params = T.init_params(torch.Generator(device=dev).manual_seed(1), cfg2,
                            device=dev)
     seq = INPUT_SHAPES[c["shape"]].seq_len
@@ -3097,7 +3177,8 @@ def flash_grad_check(dev, cfg, rt):
         fv._kernel_bwd = bwd
         try:
             return value_and_grad(lambda p: T.loss_fn(
-                p, batch["tokens"], batch["labels"], cfg2, rtx), params)
+                p, batch["tokens"], batch["labels"], cfg2, rtx,
+                batch_extra(batch)), params)
         finally:
             fv._kernel_bwd = sound
 
@@ -3298,15 +3379,16 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     under specialize's train_4k runtime (flash_vjp, chunks 512, loss_chunk
     256, remat) and its train_microbatches: masks at lambda 0.3 from one
     warm-up gradient, 3 steps at eta 1e-2 on packed batches of 4 x 4096
-    tokens; finite losses, pruned coordinates unchanged bit for bit, the
-    last step rerun from its state bit for bit, the launches of both
-    attention kernels exact (kernel 8 twice a layer a gradient, remat; the
-    backward once; a gradient for the warm-up and for each microbatch of
-    each step); then the gradient check and the kernel rows on layer 0's
-    real inputs of the last microbatch. `card` is torch's device name (the
-    peaks' key), `smi` nvidia-smi's name and power limit, printed beside
-    every number. Returns (problems, launches, (forward row, backward
-    row))."""
+    tokens (the audio family's with launch/train.py's encoder input
+    beside them); finite losses, pruned coordinates unchanged bit for bit,
+    the last step rerun from its state bit for bit, the launches of both
+    attention kernels exact (kernel 8 twice a self-attention layer a
+    gradient, remat; the backward once; a gradient for the warm-up and for
+    each microbatch of each step); then the gradient check and the kernel
+    rows on layer 0's real inputs of the last microbatch. `card` is
+    torch's device name (the peaks' key), `smi` nvidia-smi's name and
+    power limit, printed beside every number. Returns (problems,
+    launches, (forward row, backward row))."""
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.kernels.counters import LAUNCHES, reset_launches
@@ -3345,8 +3427,8 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     launches = dict(LAUNCHES)
     peak = _peak_gib()
     grads = 1 + c["steps"] * mb
-    want = {"flash_attention": 2 * cfg.num_layers * grads,   # remat: twice
-            "flash_attention_bwd": cfg.num_layers * grads}
+    want = {"flash_attention": 2 * self_layers(cfg) * grads,  # remat: twice
+            "flash_attention_bwd": self_layers(cfg) * grads}
     for kname, n in want.items():
         if launches[kname] != n:
             problems.append(f"{arch} train: {kname} launched "
@@ -3625,7 +3707,7 @@ def main() -> int:
     problems += m_problems
     walls["mamba2_serving"] = time.perf_counter() - t
     serve_launches = {}
-    for conf in (HYMBA, MIXTRAL):
+    for conf in (HYMBA, MIXTRAL, WHISPER, VISION):
         t = time.perf_counter()
         s_problems, s_eng, serve_launches[conf["arch"]], _ = serve_phase(
             dev, name, card, conf)
@@ -3651,7 +3733,8 @@ def main() -> int:
     walls["mamba2_train"] = time.perf_counter() - t
     new_train = {}
     for arch, layers in (("hymba-1.5b", None),
-                         ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS)):
+                         ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
+                         ("whisper-small", None)):
         t = time.perf_counter()
         tr_problems, tr_launches, tr_rows = lm_train_phase(
             dev, name, card, arch, layers)
@@ -3721,6 +3804,10 @@ def main() -> int:
                                else "bf16 2e-2") if res["ok"] else "FAILED",
                      **({"entry_call": res["entry_call"]}
                         if "entry_call" in res else {}),
+                     **({f"prefill_{label.replace(' ', '_')}":
+                         _row_summary(flash_rows[label])
+                         for label in ("whisper S512", "llama-vision S1024")}
+                        if kname == "flash_attention" else {}),
                      **({"train_launches": train_launches[kname],
                          "train_lse": _row_summary(train_fwd),
                          **{f"{_short(a)}_serving_launches": n[kname]

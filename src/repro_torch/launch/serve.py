@@ -5,10 +5,12 @@
         --full --batch 4 --prompt-len 256 --gen 32
 
 Random weights from a torch.Generator seeded with 0 (drawn on the card),
-random prompts from numpy's seed 0. Runs on CUDA (or --device cpu, reduced
-configs only in practice) through the flash-attention kernel for prompts
-longer than 128 tokens; times come from the card's clock (the host clock
-around work that ends in a synchronise).
+random prompts from numpy's seed 0 (drawn after the audio or vlm
+family's memory input, as the JAX launcher draws them). Runs on CUDA (or
+--device cpu, reduced configs only in practice) through the
+flash-attention kernel for prompts longer than 128 tokens; times come
+from the card's clock (the host clock around work that ends in a
+synchronise).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.configs.registry import get_config, list_configs
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import add_extra
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import Runtime
 
@@ -50,6 +53,7 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(0)
     params = T.init_params(gen, cfg, device=device)
     max_seq = args.prompt_len + args.gen
+    extra = add_extra({}, rng, cfg, args.batch, device) or None
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, size=(args.batch, args.prompt_len)),
         device=device)
@@ -58,7 +62,7 @@ def main(argv=None):
     _sync(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
-        logits, cache = T.prefill(params, prompts, cache, cfg, rt)
+        logits, cache = T.prefill(params, prompts, cache, cfg, rt, extra)
     _sync(device)
     t_prefill = time.perf_counter() - t0
     print(f"prefill {args.batch}x{args.prompt_len}: {t_prefill:.2f}s "

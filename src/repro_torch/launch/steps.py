@@ -74,11 +74,13 @@ def structured_slice(params: PyTree,
 
 def value_and_grad(loss_of, params: PyTree):
     """(detached loss, gradient tree) of the scalar loss_of(params), by
-    autograd with respect to every leaf of params."""
+    autograd with respect to every leaf of params; a leaf the loss does
+    not read gets zeros, as jax.grad gives it (the gate of whisper's
+    ungated cross layers, llama-vision's cross layers' ln_self)."""
     req = [w.detach().requires_grad_() for w in leaves(params)]
     loss = loss_of(unflatten(params, req))
-    return loss.detach(), unflatten(params,
-                                    list(torch.autograd.grad(loss, req)))
+    return loss.detach(), unflatten(params, list(torch.autograd.grad(
+        loss, req, allow_unused=True, materialize_grads=True)))
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
@@ -86,12 +88,14 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
                     structured_lambda: float = 0.0):
     """(params, masks, batch) -> (loss, new_params): the masked-FedSGD step.
 
-    batch: {"tokens", "labels"} [B, S] integer tensors. With microbatches
-    > 1 the batch is processed in that many slices (a loop in place of
-    ``lax.scan``), dividing activation memory; gradients accumulate in
-    fp32 (bf16 above 100e9 parameters). structured_lambda > 0 also
-    width-prunes the FFNs (structured_slice). Returns new tensors; the
-    inputs are left as they are."""
+    batch: {"tokens", "labels"} [B, S] integer tensors, and the audio or
+    vlm family's memory input ("encoder_input" / "vision_embeddings"
+    [B, T, D], transformer.forward's `extra`). With microbatches > 1
+    every entry of the batch is cut into that many slices (a loop in
+    place of ``lax.scan``), dividing activation memory; gradients
+    accumulate in fp32 (bf16 above 100e9 parameters). structured_lambda
+    > 0 also width-prunes the FFNs (structured_slice). Returns new
+    tensors; the inputs are left as they are."""
     mb = train_microbatches(cfg) if microbatches is None else microbatches
     # >= 100B params: bf16 gradient accumulation (an fp32 accumulator is
     # 7.5 GB/device for arctic-480b at the JAX package's FSDP sharding)
@@ -140,7 +144,8 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
     def prefill_step(params, batch, cache):
-        return T.prefill(params, batch["tokens"], cache, cfg, rt)
+        extra = {k: v for k, v in batch.items() if k != "tokens"} or None
+        return T.prefill(params, batch["tokens"], cache, cfg, rt, extra)
 
     return prefill_step
 

@@ -9,7 +9,9 @@
 Random weights from a torch.Generator seeded with 0 (drawn on the card);
 masks at --lam from Taylor importance (eq. 4) of one warm-up gradient on
 a random batch (numpy seed 0); then --steps steps on document-packed
-batches (data/lm_pipeline.py; --data random for numpy draws), a
+batches (data/lm_pipeline.py; --data random for numpy draws), the audio
+and vlm families' memory input drawn beside each batch as the JAX launcher
+draws it (`add_extra`, JAX's `_add_extra`), a
 checkpoint every 10 steps and at the end with --ckpt-dir. Attention as the
 JAX launcher picks it: naive up to 512 tokens, chunked beyond. Runs on
 CUDA unless given --device cpu; step times are the host clock around a
@@ -32,24 +34,48 @@ from repro_torch.models.blocks import Runtime
 from repro_torch.tree import tree_map
 
 
-def packed_batch(it, device) -> dict:
-    """Document-packed batch from the deterministic LM pipeline."""
+def packed_batch(it, cfg, batch, device) -> dict:
+    """Document-packed batch from the deterministic LM pipeline, with the
+    memory input of a fresh numpy seed 0, as the JAX launcher's."""
     pb = next(it)
-    return {"tokens": torch.as_tensor(pb.tokens, device=device).long(),
-            "labels": torch.as_tensor(pb.labels, device=device).long()}
+    out = {"tokens": torch.as_tensor(pb.tokens, device=device).long(),
+           "labels": torch.as_tensor(pb.labels, device=device).long()}
+    return add_extra(out, np.random.default_rng(0), cfg, batch, device)
+
+
+def add_extra(out, rng, cfg, batch, device) -> dict:
+    """The audio family's encoder input, the vlm's vision embeddings:
+    standard normal [batch, T, D] from `rng` in the model's type."""
+    name, n = {"audio": ("encoder_input", cfg.encoder_tokens),
+               "vlm": ("vision_embeddings", cfg.vision_tokens)}.get(
+                   cfg.family, (None, 0))
+    if name:
+        out[name] = torch.as_tensor(
+            rng.normal(size=(batch, n, cfg.d_model)), device=device).to(
+                getattr(torch, cfg.dtype))
+    return out
 
 
 def synthetic_batch(rng, cfg, batch, seq, device) -> dict:
     tokens = rng.integers(0, cfg.vocab_size, size=(batch, seq + 1))
-    return {"tokens": torch.as_tensor(tokens[:, :-1], device=device).long(),
-            "labels": torch.as_tensor(tokens[:, 1:], device=device).long()}
+    out = {"tokens": torch.as_tensor(tokens[:, :-1], device=device).long(),
+           "labels": torch.as_tensor(tokens[:, 1:], device=device).long()}
+    return add_extra(out, rng, cfg, batch, device)
+
+
+def batch_extra(batch) -> dict | None:
+    """The entries of a batch beside its tokens and labels (the memory
+    input), or None."""
+    return {k: v for k, v in batch.items()
+            if k not in ("tokens", "labels")} or None
 
 
 def warmup_importance(params, batch, cfg, rt):
     """Taylor importance (eq. 4) of `params` with the loss gradient on
     `batch` as the warm-up v^(s-1)."""
     _, g0 = value_and_grad(lambda p: T.loss_fn(
-        p, batch["tokens"], batch["labels"], cfg, rt), params)
+        p, batch["tokens"], batch["labels"], cfg, rt, batch_extra(batch)),
+        params)
     return pruning.taylor_importance(params, g0)
 
 
@@ -113,7 +139,7 @@ def main(argv=None):
     for i in range(args.steps):
         t0 = time.time()
         if data_it is not None:
-            batch = packed_batch(data_it, device)
+            batch = packed_batch(data_it, cfg, args.batch, device)
         else:
             batch = synthetic_batch(rng, cfg, args.batch, args.seq, device)
         loss, params = step(params, masks, batch)

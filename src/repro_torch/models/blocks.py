@@ -13,9 +13,9 @@ dict is returned, so a caller holding a view of a larger cache (the
 serving engine's slot rows) sees the update.
 
 Ported: the dense block (llama / granite / qwen / gemma2), the MoE block
-(mixtral / arctic), the SSM block (mamba2) and the hybrid block (hymba). The
-encoder and cross-attention blocks raise NotImplementedError naming their
-ROADMAP item.
+(mixtral / arctic), the SSM block (mamba2), the hybrid block (hymba), the
+encoder block (whisper) and the cross-attention decoder block (whisper's
+decoder layer, llama-vision's gated cross layer).
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, gated_mlp,
-                                       gated_mlp_params, rms_norm)
+                                       gated_mlp_params, layer_norm, mlp,
+                                       mlp_params, rms_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +47,6 @@ class Runtime:
     loss_chunk: int = 512       # vocab CE sequence chunking
     remat: bool = False         # activation checkpointing over layers
     swa_only: bool = False      # gemma2's long-context variant
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                              f"section 1, item {item}")
 
 
 # -- attention sub-block ------------------------------------------------------
@@ -246,12 +242,95 @@ def hybrid_block(x, p, cfg, rt, *, kind=0, cache=None, pos=None):
     return x, cache
 
 
-# -- families not ported yet --------------------------------------------------
+# -- encoder block (whisper's encoder: bidirectional, LayerNorm, GELU MLP) ----
 
-def encoder_block(*args, **kwargs):
-    _not_ported("the encoder block (whisper)", "7.4, audio/vlm")
+def _layer_norms(names, lead, cfg, device) -> dict:
+    """fp32 LayerNorm scales (ones) and biases (zeros) [*lead, D], as
+    name_s / name_b for each name."""
+    out = {}
+    for nm in names:
+        out[nm + "_s"] = torch.ones((*lead, cfg.d_model),
+                                    dtype=torch.float32, device=device)
+        out[nm + "_b"] = torch.zeros((*lead, cfg.d_model),
+                                     dtype=torch.float32, device=device)
+    return out
 
 
-def cross_block(*args, **kwargs):
-    _not_ported("the cross-attention block (whisper, llama-vision)",
-                "7.4, audio/vlm")
+def encoder_block_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
+    lead = (stacked,) if stacked else ()
+    p = {"attn": attn.attention_params(gen, cfg, stacked=stacked,
+                                       device=device),
+         "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff,
+                           getattr(torch, cfg.dtype), stacked=stacked,
+                           device=device)}
+    p.update(_layer_norms(("ln1", "ln2"), lead, cfg,
+                          p["attn"]["wq"].device))
+    return p
+
+
+def encoder_block(x, p, cfg, rt):
+    """Pre-LN bidirectional self-attention over the encoder frames, on the
+    naive path (1,500 frames are short and not chunk-aligned), then the
+    GELU MLP."""
+    h, _ = attn_apply(layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps),
+                      p["attn"], cfg, rt, window=0, causal=False,
+                      impl="naive")
+    x = x + h
+    return x + mlp(layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps),
+                   p["mlp"])
+
+
+# -- cross-attention decoder block (whisper's decoder, llama-vision) ----------
+
+def cross_block_params(gen, cfg, *, stacked: int = 0, self_attn: bool = True,
+                       use_layernorm: bool = True, device=None) -> dict:
+    """Cross-attention to a memory (no biases), a GELU MLP with LayerNorms
+    (whisper) or a gated MLP with RMSNorms (llama-vision), the fp32 tanh
+    gate (0: closed), and with self_attn a causal self-attention. The
+    three norms exist whether or not the self-attention does, as in the
+    JAX package's tree."""
+    lead = (stacked,) if stacked else ()
+    dtype = getattr(torch, cfg.dtype)
+    p = {"cross": attn.attention_params(gen, cfg, stacked=stacked,
+                                        cross=True, device=device)}
+    dev = p["cross"]["wq"].device
+    p["mlp"] = (mlp_params if use_layernorm else gated_mlp_params)(
+        gen, cfg.d_model, cfg.d_ff, dtype, stacked=stacked, device=dev)
+    p["gate"] = torch.zeros(lead, dtype=torch.float32, device=dev)
+    if self_attn:
+        p["self"] = attn.attention_params(gen, cfg, stacked=stacked,
+                                          device=dev)
+    names = ("ln_self", "ln_cross", "ln_mlp")
+    p.update(_layer_norms(names, lead, cfg, dev) if use_layernorm
+             else _norms(names, lead, cfg, dev))
+    return p
+
+
+def _norm(x, p, name, cfg):
+    """LayerNorm where the block holds name_s / name_b, else RMSNorm."""
+    if name + "_s" in p:
+        return layer_norm(x, p[name + "_s"], p[name + "_b"], cfg.norm_eps)
+    return rms_norm(x, p[name], cfg.norm_eps)
+
+
+def cross_block(x, p, cfg, rt, *, enc, cache=None, pos=None, gated=False):
+    """The optional self-attention (its {"k", "v"} cache written in place,
+    as attn_apply does), then cross-attention to `enc` [B, T, D] on the
+    naive path (the memory is short and not chunk-aligned); with `gated`
+    the result is scaled by tanh(gate) in h's type. The cross K/V are
+    recomputed from `enc` at every call, decode included: the cache holds
+    none, as in the JAX package. Then the MLP the block holds (GELU with
+    its w_in, else gated), which the JAX package's `use_gelu_mlp` names
+    but does not decide."""
+    if "self" in p:
+        h, _ = attn_apply(_norm(x, p, "ln_self", cfg), p["self"], cfg, rt,
+                          window=cfg.sliding_window, cache=cache, pos=pos)
+        x = x + h
+    h, _ = attn_apply(_norm(x, p, "ln_cross", cfg), p["cross"], cfg, rt,
+                      window=0, kv_x=enc, causal=False, impl="naive")
+    if gated:
+        h = h * torch.tanh(p["gate"].to(h.dtype))
+    x = x + h
+    hin = _norm(x, p, "ln_mlp", cfg)
+    return x + (mlp(hin, p["mlp"]) if "w_in" in p["mlp"]
+                else gated_mlp(hin, p["mlp"])), cache

@@ -6,20 +6,29 @@ Public API:
     param_count(cfg)                              -> number of parameters
     active_param_count(cfg)                       -> parameters a token uses
     init_cache(cfg, batch, max_seq, device=None)  -> serving cache dict
-    forward(params, tokens, cfg, rt)              -> logits [B,S,V]
-    loss_fn(params, tokens, labels, cfg, rt)      -> scalar CE (chunked)
-    prefill(params, tokens, cache, cfg, rt)       -> (last-token logits, cache)
+    forward(params, tokens, cfg, rt, extra)       -> logits [B,S,V]
+    loss_fn(params, tokens, labels, cfg, rt, extra) -> scalar CE (chunked)
+    prefill(params, tokens, cache, cfg, rt, extra) -> (last logits, cache)
     decode_step(params, token, cache, pos, cfg, rt) -> (logits [B,V], cache)
+
+`extra` is the cross-attention memory's input: {"encoder_input": [B, T,
+D]} (audio: whisper's stub frame embeddings, run through the encoder) or
+{"vision_embeddings": [B, N, D]} (vlm: stub patch embeddings, projected by
+`vision_proj`); the other families take none. `prefill` writes the memory
+into the cache ("enc_out" / "vision"), and `decode_step` reads it there.
 
 Stacked layer weights keep their [L, ...] shape and a Python loop over
 layers takes the place of ``lax.scan``; with ``rt.remat`` each layer (a
 local/global pair for gemma2) runs under ``torch.utils.checkpoint``, as
-the JAX package wraps its scan bodies in ``jax.checkpoint``. Caches are
-written in place (models/blocks.py). Ported families: dense (plain and
-gemma2's local/global alternation), moe, ssm and hybrid; audio and vlm
-raise NotImplementedError naming their ROADMAP item. The JAX package's
-`constrain_batch_model` is a no-op on one device and is dropped (sharding
-is ROADMAP item 8). Entry points run on CUDA unless given device="cpu".
+the JAX package wraps its scan bodies in ``jax.checkpoint`` (the vlm: a
+group of k-1 self layers and its cross layer; whisper's encoder: each
+layer). Caches are written in place (models/blocks.py). Families: dense
+(plain and gemma2's local/global alternation), moe, ssm, hybrid, audio
+(whisper: encoder, learned positions, cross-attention decoder) and vlm
+(llama-vision: self layers stacked [n_groups, k-1, ...], one gated cross
+layer a group). The JAX package's `constrain_batch_model` is a no-op on
+one device and is dropped (sharding is ROADMAP item 8). Entry points run
+on CUDA unless given device="cpu".
 """
 from __future__ import annotations
 
@@ -31,23 +40,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.blocks import Runtime
-from repro_torch.models.layers import embed_init, rms_norm, softcap
+from repro_torch.models.layers import (embed_init, layer_norm, rms_norm,
+                                       softcap)
 from repro_torch.tree import flatten_with_path
 
-# family -> its ROADMAP.md section 1 item
-_NOT_PORTED = {"audio": "7.4, audio/vlm", "vlm": "7.4, audio/vlm"}
 _BLOCKS = {"dense": (B.dense_block_params, B.dense_block),
            "moe": (B.moe_block_params, B.moe_block),
            "ssm": (B.ssm_block_params, B.ssm_block),
            "hybrid": (B.hybrid_block_params, B.hybrid_block)}
 
 
+# the cache leaf that holds each cross-attention family's memory
+_MEMORY = {"audio": "enc_out", "vlm": "vision"}
+_FAMILIES = (*_BLOCKS, *_MEMORY)
+
+
 def _check_family(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md section 1, item {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in _BLOCKS:
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -55,10 +64,17 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _layer(tree, i: int):
-    """Layer i of a stacked dict (views, so in-place writes reach it)."""
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+def _layer(tree, *i: int):
+    """Layer i of a stacked dict (views, so in-place writes reach it); two
+    indices (group, layer) for the vlm's [n_groups, k-1, ...] stack."""
+    return {k: (_layer(v, *i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _groups(cfg) -> tuple[int, int]:
+    """The vlm's (n_groups, k_every): k_every - 1 self layers and one
+    cross layer a group."""
+    return cfg.num_layers // cfg.cross_attn_every, cfg.cross_attn_every
 
 
 # -- parameters and caches ----------------------------------------------------
@@ -84,11 +100,46 @@ def init_params(gen: torch.Generator, cfg, *, device=None) -> dict:
                                           device=device),
             "global": B.dense_block_params(gen, cfg, stacked=half,
                                            device=device)}
+    elif cfg.family == "audio":
+        d = cfg.d_model
+        p["pos_embed"] = embed_init(gen, (cfg.max_seq, d), dtype, device)
+        p["enc_pos_embed"] = embed_init(gen, (cfg.encoder_tokens, d), dtype,
+                                        device)
+        p["enc_blocks"] = B.encoder_block_params(
+            gen, cfg, stacked=cfg.encoder_layers, device=device)
+        p["enc_final_s"] = torch.ones((d,), dtype=torch.float32,
+                                      device=device)
+        p["enc_final_b"] = torch.zeros((d,), dtype=torch.float32,
+                                       device=device)
+        p["blocks"] = B.cross_block_params(gen, cfg, stacked=cfg.num_layers,
+                                           self_attn=True,
+                                           use_layernorm=True, device=device)
+        p["final_b"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    elif cfg.family == "vlm":
+        n_groups, k_every = _groups(cfg)
+        self_p = B.dense_block_params(gen, cfg,
+                                      stacked=n_groups * (k_every - 1),
+                                      device=device)
+        p["blocks"] = {
+            "self": _regroup(self_p, n_groups, k_every - 1),
+            "cross": B.cross_block_params(gen, cfg, stacked=n_groups,
+                                          self_attn=False,
+                                          use_layernorm=False,
+                                          device=device)}
+        p["vision_proj"] = embed_init(gen, (cfg.d_model, cfg.d_model), dtype,
+                                      device)
     else:
         p["blocks"] = _BLOCKS[cfg.family][0](gen, cfg,
                                              stacked=cfg.num_layers,
                                              device=device)
     return p
+
+
+def _regroup(tree, n_groups: int, per: int) -> dict:
+    """[n_groups * per, ...] leaves as [n_groups, per, ...] (views)."""
+    return {k: _regroup(v, n_groups, per) if isinstance(v, dict)
+            else v.reshape(n_groups, per, *v.shape[1:])
+            for k, v in tree.items()}
 
 
 def _kv_cache(cfg, batch, max_seq, dtype, device, lead=(), quant=False):
@@ -133,6 +184,18 @@ def init_cache(cfg, batch: int, max_seq: int, *, swa_only: bool = False,
         return _kv_cache(cfg, batch, eff(cfg.sliding_window), dtype, device,
                          (cfg.num_layers,),
                          quant=kv_quant and not cfg.sliding_window)
+    if cfg.family in _MEMORY:
+        # the decoder's self-attention K/V and the cross-attention memory
+        # (encoder output [B, T, D] / projected vision tokens [B, N, D])
+        if cfg.family == "audio":
+            lead, n = (cfg.num_layers,), cfg.encoder_tokens
+        else:
+            n_groups, k_every = _groups(cfg)
+            lead, n = (n_groups, k_every - 1), cfg.vision_tokens
+        c = _kv_cache(cfg, batch, max_seq, dtype, device, lead)
+        c[_MEMORY[cfg.family]] = torch.zeros((batch, n, cfg.d_model),
+                                             dtype=dtype, device=device)
+        return c
     per = ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
     ssm = {k: v.expand(cfg.num_layers, *v.shape).clone()
            for k, v in per.items()}
@@ -176,14 +239,43 @@ def _maybe_remat(fn, rt):
     return lambda x: checkpoint(fn, x, use_reentrant=False)
 
 
-def _run_stack(x, params, cfg, rt, *, cache=None, pos=None):
+def _run_stack(x, params, cfg, rt, *, cache=None, pos=None, enc=None):
     """Run every layer; returns (hidden, cache, aux), aux the MoE layers'
     load-balance losses summed (0 for the other families). Without a
     cache (training and `forward`) each layer body goes through
     `_maybe_remat`, which recomputes a MoE layer's routing in the
-    backward from the same input."""
+    backward from the same input. `enc` is the cross-attention memory of
+    the audio and vlm families."""
     blocks = params["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the audio and vlm caches hold the memory beside the layers' K/V
+    kv = None if cache is None or cfg.family not in _MEMORY else \
+        {"k": cache["k"], "v": cache["v"]}
+    if cfg.family == "audio":
+        for i in range(cfg.num_layers):
+            if cache is None:
+                x = _maybe_remat(lambda h, i=i: B.cross_block(
+                    h, _layer(blocks, i), cfg, rt, enc=enc)[0], rt)(x)
+            else:
+                x, _ = B.cross_block(x, _layer(blocks, i), cfg, rt, enc=enc,
+                                     cache=_layer(kv, i), pos=pos)
+        return x, cache, aux
+    if cfg.family == "vlm":
+        n_groups, k_every = _groups(cfg)
+
+        def group(h, g):
+            for j in range(k_every - 1):
+                h, _ = B.dense_block(
+                    h, _layer(blocks["self"], g, j), cfg, rt,
+                    cache=None if kv is None else _layer(kv, g, j),
+                    pos=pos)
+            return B.cross_block(h, _layer(blocks["cross"], g), cfg, rt,
+                                 enc=enc, gated=True)[0]
+
+        for g in range(n_groups):
+            x = group(x, g) if cache is not None else \
+                _maybe_remat(lambda h, g=g: group(h, g), rt)(x)
+        return x, cache, aux
     if cfg.family == "dense" and cfg.local_global:
         for i in range(cfg.num_layers // 2):
             if cache is None:
@@ -217,13 +309,52 @@ def _run_stack(x, params, cfg, rt, *, cache=None, pos=None):
     return x, cache, torch.stack(auxs).sum() if moe else aux
 
 
-def _embed_tokens(params, tokens, cfg):
+def _encode(params, enc_input, cfg, rt):
+    """Whisper's encoder over stub frame embeddings [B, T, D]: learned
+    positions, the encoder layers (each under `_maybe_remat`), a final
+    LayerNorm."""
+    x = enc_input + params["enc_pos_embed"][None, :enc_input.shape[1]]
+    for i in range(cfg.encoder_layers):
+        x = _maybe_remat(lambda h, i=i: B.encoder_block(
+            h, _layer(params["enc_blocks"], i), cfg, rt), rt)(x)
+    return layer_norm(x, params["enc_final_s"], params["enc_final_b"],
+                      cfg.norm_eps)
+
+
+def _embed_tokens(params, tokens, cfg, *, pos0: int = 0):
     x = params["embed"][tokens]
     if cfg.embed_scale:
         # scale in the residual dtype, as the JAX package does
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if cfg.family == "audio":
+        # learned positions pos0 .. pos0 + S - 1; the start clamped into
+        # the table as jax.lax.dynamic_slice_in_dim clamps it
+        s, n = tokens.shape[1], params["pos_embed"].shape[0]
+        start = min(max(pos0, 0), n - s)
+        x = x + params["pos_embed"][None, start:start + s]
     return x
+
+
+def _final_hidden(x, params, cfg):
+    if cfg.family == "audio":
+        return layer_norm(x, 1.0 + params["final_norm"], params["final_b"],
+                          cfg.norm_eps)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _extra_enc(params, cfg, rt, extra, cache=None):
+    """The cross-attention memory: the encoder's output (audio) or the
+    projected vision tokens (vlm), from `extra`, or from the cache when a
+    cache is given without `extra` (decode); None for the other
+    families."""
+    if cfg.family not in _MEMORY:
+        return None
+    if cache is not None and extra is None:
+        return cache[_MEMORY[cfg.family]]
+    if cfg.family == "audio":
+        return _encode(params, extra["encoder_input"], cfg, rt)
+    return extra["vision_embeddings"] @ params["vision_proj"]
 
 
 def _head(params, cfg):
@@ -235,13 +366,14 @@ def _logits(params, h, cfg):
     return softcap((h @ _head(params, cfg)).float(), cfg.final_softcap)
 
 
-def forward(params, tokens, cfg, rt: Runtime = Runtime()):
+def forward(params, tokens, cfg, rt: Runtime = Runtime(),
+            extra: dict | None = None):
     """Full-sequence logits [B, S, V] (small vocabs / tests)."""
     _check_family(cfg)
+    enc = _extra_enc(params, cfg, rt, extra)
     x, _, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
-                         rt)
-    return _logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps),
-                   cfg)
+                         rt, enc=enc)
+    return _logits(params, _final_hidden(x, params, cfg), cfg)
 
 
 def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
@@ -250,12 +382,13 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
     rt.loss_chunk (all of S when it does not divide S), each chunk's
     logits recomputed in the backward (a checkpoint), so the [B,S,V]
     logits are never held. Adds aux_weight times the MoE layers' summed
-    load-balance loss (0 for the other families). `extra` is the JAX
-    signature's: the ported families take no extra input."""
+    load-balance loss (0 for the other families). `extra`: the audio and
+    vlm families' memory input (module docstring)."""
     _check_family(cfg)
+    enc = _extra_enc(params, cfg, rt, extra)
     x, _, aux = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
-                           rt)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                           rt, enc=enc)
+    h = _final_hidden(x, params, cfg)
     head = _head(params, cfg)
     bsz, s, _ = h.shape
     c = min(rt.loss_chunk, s)
@@ -275,13 +408,18 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
     return total / (bsz * s) + aux_weight * aux
 
 
-def prefill(params, tokens, cache, cfg, rt: Runtime = Runtime()):
+def prefill(params, tokens, cache, cfg, rt: Runtime = Runtime(),
+            extra: dict | None = None):
     """Process the prompt, fill the cache in place, return (last-token
-    logits [B, V], cache)."""
+    logits [B, V], cache). The audio and vlm families take their memory
+    from `extra` and write it into the cache for the decode steps."""
     _check_family(cfg)
+    enc = _extra_enc(params, cfg, rt, extra)
+    if enc is not None and extra is not None:
+        cache[_MEMORY[cfg.family]].copy_(enc)
     x, cache, _ = _run_stack(_embed_tokens(params, tokens, cfg), params,
-                             cfg, rt, cache=cache)
-    h = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+                             cfg, rt, cache=cache, enc=enc)
+    h = _final_hidden(x[:, -1:], params, cfg)
     return _logits(params, h, cfg)[:, 0], cache
 
 
@@ -290,7 +428,8 @@ def decode_step(params, token, cache, pos: int, cfg,
     """One serving step: token [B, 1] at position `pos` -> (logits [B, V],
     cache written in place)."""
     _check_family(cfg)
-    x, cache, _ = _run_stack(_embed_tokens(params, token, cfg), params, cfg,
-                             rt, cache=cache, pos=pos)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    enc = _extra_enc(params, cfg, rt, None, cache=cache)
+    x, cache, _ = _run_stack(_embed_tokens(params, token, cfg, pos0=pos),
+                             params, cfg, rt, cache=cache, pos=pos, enc=enc)
+    h = _final_hidden(x, params, cfg)
     return _logits(params, h, cfg)[:, 0], cache

@@ -15,6 +15,9 @@ As in the JAX package:
     cache entries are never attended;
   * each slot decodes as a batch of one against its own cache row, so the
     engine computes exactly what a sequential generation computes;
+  * `extra` (the audio family's encoder input, the vlm's vision
+    embeddings: one batch-1 memory) goes to every prefill, which writes
+    the memory into the slot's cache row for its decode steps;
   * greedy decoding takes the first maximum of the fp32 logits.
 
 Where the port differs:
@@ -94,6 +97,8 @@ def _batch_axis(path: tuple[str, ...], leaf: torch.Tensor) -> int:
         return leaf.ndim - 4              # [*, B, S, Hkv, Dh] / [L, B, H, P, N]
     if name == "conv":
         return leaf.ndim - 3              # [L, B, W-1, Cd]
+    if name in ("enc_out", "vision"):
+        return 0                          # [B, T, D]
     raise ValueError(f"unknown cache leaf {'/'.join(path)} "
                      f"{tuple(leaf.shape)}")
 
@@ -121,7 +126,7 @@ class ServingEngine:
                  max_seq: int = 512,
                  rt: Runtime = Runtime(attn_impl="cuda"),
                  prompt_buckets: tuple[int, ...] = (32, 64, 128, 256),
-                 seed: int = 0, device=None):
+                 extra: dict | None = None, seed: int = 0, device=None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -130,6 +135,7 @@ class ServingEngine:
         self.max_seq = max_seq
         self.prompt_buckets = tuple(b for b in prompt_buckets
                                     if b <= max_seq) or (max_seq,)
+        self.extra = extra
         self.cache = T.init_cache(cfg, max_batch, max_seq, device=self.device)
         self.rows = [_row(self.cache, s) for s in range(max_batch)]
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -169,7 +175,8 @@ class ServingEngine:
                 leaf.zero_()                 # no state carried over
             tokens = torch.as_tensor(self.prefill_tokens(req.prompt),
                                      device=self.device)[None]
-            T.prefill(self.params, tokens.long(), row, self.cfg, self.rt)
+            T.prefill(self.params, tokens.long(), row, self.cfg, self.rt,
+                      self.extra)
             st = RequestState(request=req, slot=slot,
                               pos=len(req.prompt) - 1, t_enqueue=time.time())
             st.next_token = int(req.prompt[-1])

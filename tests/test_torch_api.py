@@ -43,6 +43,12 @@ from repro_torch.checkpoint import (CheckpointCorruptError,  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
 N, ROUNDS, BATCH = 5, 10, 8
+# the JAX package's registries as they stand at import (collection), before
+# any test runs: tests/test_api.py registers a model there for good, and a
+# worker that runs it first would show that name in the live registry
+JAX_REGISTRY_NAMES = {name: getattr(japi, name).names() for name in (
+    "MODELS", "DATASETS", "SCHEMES", "DATA_SELECTION", "CHANNEL_NOISE",
+    "FAULT_MODELS")}
 
 
 @pytest.fixture(autouse=True)
@@ -114,9 +120,8 @@ def test_spec_errors_name_the_field():
 # -- registries ------------------------------------------------------------------
 
 def test_registries_match_jax_and_name_unported_items():
-    for name in ("MODELS", "DATASETS", "SCHEMES", "DATA_SELECTION",
-                 "CHANNEL_NOISE", "FAULT_MODELS"):
-        assert getattr(tapi, name).names() == getattr(japi, name).names()
+    for name, jax_names in JAX_REGISTRY_NAMES.items():
+        assert getattr(tapi, name).names() == jax_names
     from repro.api.registry import LOCAL_SCHEMES as JLOCAL
     assert tapi.LOCAL_SCHEMES.names() == JLOCAL.names()
     with pytest.raises(KeyError, match="unknown model 'wat'; registered"):

@@ -715,6 +715,13 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (1, 777, 25, 5, 64, True, 256, 0.0),
     (1, 512, 48, 8, 128, True, 0, 0.0),       # mixtral's heads: g = 6
     (1, 2048, 8, 2, 64, True, 128, 0.0),      # a band across many tiles
+    # whisper's decoder heads, g = 1 (one warpgroup): a 256 bucket, a
+    # ragged prompt and its training layer's length
+    (1, 256, 12, 12, 64, True, 0, 0.0),
+    (1, 439, 12, 12, 64, True, 0, 0.0),
+    (2, 4096, 12, 12, 64, True, 0, 0.0),
+    # llama-vision's self layers, g = 8, D 128: its 1024 bucket
+    (1, 1024, 64, 8, 128, True, 0, 0.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -758,6 +765,8 @@ BWD_CASES = [
     (1, 1024, 25, 5, 64, True, 256, 0.0),     # hymba's heads: g = 5, window
     (1, 512, 48, 8, 128, True, 0, 0.0),       # mixtral's heads: g = 6
     (1, 2048, 8, 2, 64, True, 128, 0.0),      # a band across many tiles
+    (2, 1024, 12, 12, 64, True, 0, 0.0),      # whisper's heads: g = 1
+    (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's: g = 8
 ]
 
 
@@ -812,6 +821,8 @@ def _scaled_err(got, want) -> float:
     (2, 2048, 16, 8, 128, True, 0, 0.0),      # D 128, two warpgroups
     (2, 384, 8, 2, 128, True, 128, 50.0),     # D 128, window, cap
     (1, 200, 8, 2, 64, False, 0, 0.0),        # ragged, no mask
+    (4, 4096, 12, 12, 64, True, 0, 0.0),      # whisper's train layer, g = 1
+    (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's heads, g = 8
 ])
 def test_flash_attention_bwd_bf16_at_each_outputs_scale(dev, b, s, hq, hkv,
                                                         d, causal, window,
@@ -911,34 +922,44 @@ def test_flash_attention_lse_leaves_o_unchanged(dev, dtype, s, hq, hkv, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b", "hymba-1.5b",
-                                  "mixtral-8x22b"])
+                                  "mixtral-8x22b", "whisper-small",
+                                  "llama-3.2-vision-90b"])
 def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
     """loss_fn's gradient on a reduced model in fp32 under the train
     runtime (flash_vjp: kernel 8 with lse, the backward kernel; remat)
     against the naive path's autograd on the card, and each kernel
-    launched as the layers and remat predict."""
+    launched as the layers and remat predict. Whisper and llama-vision
+    take their memory input (random; llama-vision's gates opened to 0.7):
+    the encoder's and the cross layers' attention stay on the naive path,
+    so only the decoder's self-attention layers launch the kernels."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import add_extra
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
-    from repro_torch.tree import leaves, unflatten
+    from repro_torch.tree import leaves
     cfg = get_config(arch).reduced()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
+    if cfg.family == "vlm":
+        params["blocks"]["cross"]["gate"].fill_(0.7)
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 257)),
                            device=dev)
+    extra = add_extra({}, rng, cfg, 2, dev) or None
+    self_layers = cfg.num_layers
+    if cfg.family == "vlm":
+        self_layers -= cfg.num_layers // cfg.cross_attn_every
 
     def grads(rt):
-        req = [w.detach().requires_grad_() for w in leaves(params)]
-        loss = T.loss_fn(unflatten(params, req), toks[:, :-1], toks[:, 1:],
-                         cfg, rt)
-        return torch.autograd.grad(loss, req)
+        return leaves(value_and_grad(lambda p: T.loss_fn(
+            p, toks[:, :-1], toks[:, 1:], cfg, rt, extra), params)[1])
 
     pm.reset_launches()
     got = grads(Runtime(attn_impl="flash_vjp", q_chunk=64, kv_chunk=64,
                         loss_chunk=64, remat=True))
-    assert pm.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
-    assert pm.LAUNCHES["flash_attention_bwd"] == cfg.num_layers
+    assert pm.LAUNCHES["flash_attention"] == 2 * self_layers
+    assert pm.LAUNCHES["flash_attention_bwd"] == self_layers
     want = grads(Runtime(attn_impl="naive"))
     num = sum(float((a - b).double().square().sum()) for a, b in
               zip(got, want))
@@ -1212,6 +1233,63 @@ def test_serving_engine_runs_through_the_flash_kernel(dev):
             out.append(tok)
             pos += 1
         assert by_uid[uid] == out
+
+
+@pytest.mark.cuda
+def test_whisper_engine_at_full_width_equals_sequential(dev):
+    """whisper-small at full width (d 768, 12 heads of 64, its 51,865-word
+    tied head) and 2 of its 12 decoder and encoder layers, in bf16, one
+    shared encoder input [1, 1500, 768]: every prefill past 128 tokens
+    goes through kernel 8 (g = 1) once a decoder layer, the engine's
+    tokens equal a sequential generation over the same padded prefill
+    (the first request of each bucket and one in a reused slot), and
+    another encoder input changes the prefill's logits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.blocks import Runtime
+    from repro_torch.serving import ServingEngine
+    cfg = dataclasses.replace(get_config("whisper-small"), num_layers=2,
+                              encoder_layers=2)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    rt = Runtime(attn_impl="cuda")
+    rng = np.random.default_rng(0)
+
+    def memory():
+        return {"encoder_input": torch.as_tensor(rng.normal(
+            size=(1, cfg.encoder_tokens, cfg.d_model)), device=dev).to(
+                torch.bfloat16)}
+
+    extra = memory()
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (150, 300, 140, 260, 200)]
+    eng = ServingEngine(params, cfg, max_batch=2, max_seq=512, rt=rt,
+                        prompt_buckets=(256, 384), extra=extra, device=dev)
+    for pr in prompts:
+        eng.submit(pr, max_new_tokens=6)
+    pm.reset_launches()
+    done = eng.run_to_completion()
+    assert pm.LAUNCHES["flash_attention"] == cfg.num_layers * len(prompts)
+    assert len(done) == len(prompts)
+    by_uid = {st.request.uid: st.generated for st in done}
+    for uid in (0, 1, 2):
+        cache = T.init_cache(cfg, 1, 512, device=dev)
+        pr = prompts[uid]
+        padded = torch.as_tensor(eng.prefill_tokens(pr), device=dev).long()
+        first, _ = T.prefill(params, padded[None], cache, cfg, rt, extra)
+        tok, pos, out = int(pr[-1]), len(pr) - 1, []
+        for _ in range(6):
+            lg, _ = T.decode_step(params, torch.tensor([[tok]], device=dev),
+                                  cache, pos, cfg, rt)
+            tok = int(lg[0].argmax())
+            out.append(tok)
+            pos += 1
+        assert by_uid[uid] == out
+    other, _ = T.prefill(params, padded[None],
+                         T.init_cache(cfg, 1, 512, device=dev), cfg, rt,
+                         memory())
+    assert float((other - first).abs().max()) > 1e-2
 
 
 # -- multi-round blocks on CUDA graphs -----------------------------------------

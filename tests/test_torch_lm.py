@@ -309,18 +309,10 @@ def test_int8_cache_prefill_decode_match_jax():
         _close(tl, jl, dict(rtol=1e-3, atol=1e-3))
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b"])
-def test_families_not_ported_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
-        T.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 7\.4, "):
-        T.init_cache(cfg, 1, 16, device="cpu")
-
-
 def test_init_params_has_the_jax_tree_and_shapes():
     for arch in ("granite-3-2b", "gemma2-9b", "mamba2-130m", "qwen2.5-3b",
-                 "mixtral-8x22b", "arctic-480b", "hymba-1.5b"):
+                 "mixtral-8x22b", "arctic-480b", "hymba-1.5b",
+                 "whisper-small", "llama-3.2-vision-90b"):
         jcfg, cfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
         shapes = jax.eval_shape(lambda: JT.init_params(jax.random.key(0),
                                                        jcfg))

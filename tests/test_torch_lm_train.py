@@ -322,7 +322,8 @@ def test_specialize_matches_jax():
             jsteps.train_microbatches(jax_get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("qwen2.5-3b",))
+@pytest.mark.parametrize("arch", ARCHS + ("qwen2.5-3b", "whisper-small",
+                                          "llama-3.2-vision-90b"))
 def test_param_count_matches_jax(arch):
     """param_count and active_param_count (MoE: the top-k experts' share)
     at full and reduced size."""

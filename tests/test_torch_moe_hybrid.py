@@ -409,10 +409,13 @@ def test_hybrid_ssm_state_is_not_carried_across_slot_reuse():
 # -- parameters and launchers -------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "mixtral-8x22b",
-                                  "arctic-480b"])
+                                  "arctic-480b", "whisper-small",
+                                  "llama-3.2-vision-90b"])
 def test_lm_params_from_numpy_carries_the_trees(arch):
-    """A JAX-initialised reduced model in bf16 (its fp32 router, norms and
-    SSM leaves kept): the same nesting, shapes, dtypes and bits."""
+    """A JAX-initialised reduced model in bf16 (its fp32 router, norms,
+    gates and SSM leaves kept): the same nesting, shapes, dtypes and bits;
+    whisper's encoder and learned positions, llama-vision's self stack of
+    [n_groups, k - 1, ...] beside its cross layers."""
     jcfg = dataclasses.replace(jax_get_config(arch).reduced(),
                                dtype="bfloat16")
     jp = JT.init_params(jax.random.key(0), jcfg)
@@ -429,7 +432,20 @@ def test_lm_params_from_numpy_carries_the_trees(arch):
                               a.dtype.name == "bfloat16" else a), path
         n += 1
     assert n == len(jax.tree.leaves(jp))
-    assert tp["blocks"]["moe" if jcfg.num_experts else "mixer"]
+    if jcfg.family == "audio":
+        assert tp["enc_blocks"]["ln1_s"].dtype == torch.float32
+        assert tp["pos_embed"].shape == (jcfg.max_seq, jcfg.d_model)
+        assert tp["blocks"]["gate"].dtype == torch.float32
+        assert tp["blocks"]["self"]["wq"].dtype == torch.bfloat16
+    elif jcfg.family == "vlm":
+        n_groups = jcfg.num_layers // jcfg.cross_attn_every
+        assert tp["blocks"]["self"]["attn"]["wq"].shape[:2] == (
+            n_groups, jcfg.cross_attn_every - 1)
+        assert tp["blocks"]["cross"]["gate"].dtype == torch.float32
+        assert tp["blocks"]["cross"]["cross"]["wk"].dtype == torch.bfloat16
+        assert tp["vision_proj"].dtype == torch.bfloat16
+    else:
+        assert tp["blocks"]["moe" if jcfg.num_experts else "mixer"]
     if jcfg.num_experts:
         assert tp["blocks"]["moe"]["router"].dtype == torch.float32
         assert tp["blocks"]["moe"]["w_gate"].dtype == torch.bfloat16
