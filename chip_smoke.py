@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, then the result line
     python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
+    python3 chip_smoke.py --sharded    # phase 1 and the sharded phase only
 
 Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
@@ -115,6 +116,21 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      per-run JSONL byte-identical, one environment build per group; then
      a sweep killed during its third cell and resumed with workers=2,
      byte-identical again;
+     then (24.) the sharded client axis: two gloo ranks spawned on the
+     card (torch.multiprocessing, a file:// rendezvous) after the kernels
+     are built, each running spec B cut to 12 rounds (4-round blocks on
+     capture-split CUDA graphs, and one round a dispatch), the attack
+     slice's coordinate-wise median over 8 rounds, FedDyn (E = 2, alpha
+     0.1) on spec B over 8 rounds and fleet (a) over 16 rounds streamed
+     with sharded cohorts and replicated, beside the unsharded runs here:
+     sharded blocks == sharded rounds, median and FedDyn sharded ==
+     unsharded, streamed == replicated, bit for bit; the mean path's v
+     the host's shard-order replay of its gathered partials bit for bit
+     and w within 1e-6 of the unsharded run's; both ranks' (w, v) equal
+     after every block; one collective a round; launches per rank as
+     predicted (kernel 3 off the sharded mean path); each rank's cohort
+     rows its own clients', at about half the unsharded cohort's bytes;
+     ms a round at 1 and 2 ranks and the gather's ms a round printed;
  11. the LM stack's kernels against their plain versions in bf16 (the
      JAX package's bf16 kernel tolerance, 2e-2): flash attention at
      granite's prefill buckets and at gemma2's head dim 256 with its
@@ -147,7 +163,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      whole entry call timed beside its bound;
      then (16.) hymba-1.5b at full width, 16 of its 32 layers (25/5
      heads of 64, window 1,024 beside the SSM mixer) and (17.)
-     mixtral-8x22b at full width, 4 of its 56 layers (48/8 heads of 128,
+     mixtral-8x22b at full width, 2 of its 56 layers (48/8 heads of 128,
      8 experts of top 2), served as granite is: flash launches == layers
      x 16, engine == sequential (mixtral's over the same padded prefill:
      padding shares expert capacity), every admitted hymba slot's SSM
@@ -236,7 +252,8 @@ from repro_torch.core import (AOConfig, BoundConstants, ClientData,  # noqa: E40
                               MixedFaults, ParamPack, ScaledMalicious,
                               SignFlip, make_aggregator, phis, solve_p1)
 from repro_torch.core.packing import LANES  # noqa: E402
-from repro_torch.core.round_engine import kth_smallest_threshold  # noqa: E402
+from repro_torch.core.round_engine import (  # noqa: E402
+    kth_smallest_threshold, replay_shard_mean)
 from repro_torch.data import make_dataset, partition_by_dirichlet  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -2206,6 +2223,372 @@ def sweep_phase(dev, card):
     return problems
 
 
+# -- phase 24: the sharded client axis, two gloo ranks sharing the card --------
+
+SHARDS = 2
+SHARD_ROUNDS = 12          # spec B's first schedule, cut from 40 rounds
+SHARD_SHORT = 8            # the median and FedDyn runs
+SHARD_FLEET_ROUNDS = 16    # fleet (a): two 8-round blocks
+# the mean path's (w, v) against the unsharded run's, max |diff| / max |ref|
+SHARD_MEAN_RTOL = 1e-6
+SHARD_CASES = ("spec_b_first", "spec_b_blocked", "spec_b_rounds", "median",
+               "feddyn", "fleet_streamed", "fleet_replicated")
+# kernel launches a round, per rank, of each sharded run: the mean path's
+# partial sums are plain torch (kernel 3 stays off it, as in the JAX
+# package's sharded body); the median reduces the gathered stack
+SHARD_LAUNCHES = {
+    "spec_b_blocked": {"exponent_histogram": 1, "fedsgd_aggregate_weighted": 0,
+                       "client_rank_sort": 0},
+    "median": {"exponent_histogram": 1, "importance_mask_2d": 1,
+               "client_rank_sort": 1, "fedsgd_aggregate_weighted": 0},
+    # FedDyn's whole tail runs on the gathered stacks on every rank
+    "feddyn": {"exponent_histogram": 1, "fedsgd_aggregate_weighted": 1}}
+
+
+def shard_spec_b(rpd, shards, **scheme):
+    """Spec B (phase 7), evaluation and the budget stop off, `rpd` rounds a
+    dispatch, over `shards` ranks; the runs take the first rounds of its
+    40-round schedule (`shard_run`: round 2 gives each client its own k,
+    so kernel 1 runs)."""
+    s = quick_spec("B", rounds_per_dispatch=rpd, shards=shards,
+                   evaluate=False, stop_on_budget=False)
+    return dataclasses.replace(s, scheme=dataclasses.replace(s.scheme,
+                                                             **scheme))
+
+
+_SHARD_ENVS: dict = {}
+
+
+def shard_run(spec, rounds, dev, env=None, trainer=None):
+    """The spec built (on `env` / `trainer` when given, else on this
+    process's environment of the same data and model), its schedule cut to
+    its first `rounds` rounds."""
+    from repro_torch.api import Experiment, build_environment
+    if env is None:
+        key = (repr(spec.data), repr(spec.model), str(dev))
+        env = _SHARD_ENVS.get(key)
+        if env is None:
+            env = _SHARD_ENVS[key] = build_environment(spec, device=dev)
+    run = Experiment(spec).build(device=dev, env=env, trainer=trainer)
+    if rounds is not None:
+        run.schedule = first_rounds(run.schedule, rounds)
+    return run
+
+
+class ShardWatch(Callback):
+    """After each block: the rounds it ran, a digest of (w, v), and on a
+    streamed run this rank's cohort rows held against its clients'."""
+
+    def __init__(self, clients=None):
+        self.clients = clients
+        self.rounds, self.digests, self.cohorts = 0, [], []
+
+    def on_block_end(self, start, n_rounds, trainer):
+        import hashlib
+        self.rounds += n_rounds
+        h = hashlib.sha256()
+        for t in (trainer._w, trainer._v):
+            h.update(t.cpu().numpy().tobytes())
+        self.digests.append(h.hexdigest())
+        if self.clients is None or trainer._cohorts is None:
+            return
+        cohort = next(iter(trainer._cohorts._live.values()))
+        ids = cohort.ids_by_shard[trainer.rank] if cohort.sharded \
+            else cohort.ids_by_shard[0]
+        rows = cohort.x[cohort.base:cohort.base + len(ids)].cpu().numpy()
+        ok = all(np.array_equal(rows[k, :len(self.clients[int(c)].y)],
+                                np.asarray(self.clients[int(c)].x))
+                 for k, c in enumerate(ids))
+        self.cohorts.append({"ids": len(ids), "rows_ok": bool(ok),
+                             "sharded": bool(cohort.sharded),
+                             "local_bytes": int(cohort.local_nbytes),
+                             "bytes": int(cohort.nbytes)})
+
+
+def shard_case(label: str, dev, shards: int) -> dict:
+    """One run of the sharded phase on this process (shards 1: the
+    parent's unsharded baseline), launch counts from 0 just before it;
+    spec B blocked is built again on its trainer and timed (its graphs
+    captured by the first run). Returns the run's row."""
+    watch = ShardWatch()
+    if label == "median":
+        ds, clients, sp, ch, sched, params = attack_env(dev)
+        c = ATTACK
+        tr = FederatedTrainer(
+            make_loss_fn(lenet_apply), params, clients, eta=c["eta"],
+            batch_size=c["batch"], seed=0, device=dev, shards=shards,
+            rounds_per_dispatch=4,
+            fault_model=ScaledMalicious(rate=c["rate"], scale=c["scale"],
+                                        seed=c["seed"], exact=True),
+            aggregator=make_aggregator("coord_median"))
+        pm.reset_launches()
+        hist = tr.run(first_rounds(sched, SHARD_SHORT), sp, ch.uplink,
+                      ch.downlink, callbacks=[watch])
+        launches = dict(pm.LAUNCHES)
+    else:
+        rounds = None
+        if label.startswith("fleet"):
+            spec = fleet_spec(FLEET_PARITY, label.split("_")[1],
+                              rounds=SHARD_FLEET_ROUNDS, shards=shards)
+        elif label == "feddyn":
+            spec, rounds = shard_spec_b(4, shards, local_scheme="feddyn",
+                                        local_steps=2,
+                                        local_kwargs={"alpha": 0.1}), \
+                SHARD_SHORT
+        else:
+            spec = shard_spec_b(4 if label == "spec_b_blocked" else 1,
+                                shards)
+            rounds = 1 if label == "spec_b_first" else SHARD_ROUNDS
+        run = shard_run(spec, rounds, dev)
+        if label == "fleet_streamed":
+            watch.clients = run.env.clients
+        pm.reset_launches()
+        res = run.run(callbacks=[watch])
+        launches = dict(pm.LAUNCHES)
+        hist, tr = res.history, run.trainer
+    _sync(dev)
+    eng = tr.engine
+    row = {"rounds": len(hist), "live_rounds": sum(1 for m in hist
+                                                   if m.selected),
+           "losses": [m.train_loss for m in hist],
+           "n_agg": [m.n_agg_adjusted for m in hist],
+           "w": tr._w.cpu().numpy(), "v": tr._v.cpu().numpy(),
+           "h": None if tr._h is None else tr._h.cpu().numpy(),
+           "digests": watch.digests, "block_rounds": watch.rounds,
+           "cohorts": watch.cohorts, "launches": launches,
+           "collectives": eng.collectives, "gather_s": eng.gather_seconds,
+           "sync_s": eng.sync_seconds,
+           "graphs_captured": eng.graphs_captured,
+           "graph_replays": eng.graph_replays}
+    if label == "spec_b_blocked" and eng.last_gathered is not None:
+        rl = tr._w.numel()
+        # the trainer's 1/n when every weighted client survived
+        inv = np.float32(1.0 / float(eng.last_gathered[:, rl].sum()))
+        rep = replay_shard_mean(eng.last_gathered, rl, inv)
+        row["replay_bitwise"] = bool(torch.equal(
+            rep.view(torch.int32), tr._v.cpu().reshape(-1).view(torch.int32)))
+    if label == "spec_b_blocked":
+        # the same rounds again on the same trainer (reset): every round a
+        # replay of the graphs the first run captured
+        run = shard_run(spec, SHARD_ROUNDS, dev, env=run.env, trainer=tr)
+        c0, g0, s0 = eng.collectives, eng.gather_seconds, eng.sync_seconds
+        _sync(dev)
+        t = time.perf_counter()
+        run.run()
+        _sync(dev)
+        n = len(hist)
+        row["ms_per_round"] = 1e3 * (time.perf_counter() - t) / n
+        row["gather_ms_per_round"] = 1e3 * (eng.gather_seconds - g0) / n
+        row["copy_out_ms_per_round"] = 1e3 * (eng.sync_seconds - s0) / n
+        row["timed_collectives"] = eng.collectives - c0
+    return row
+
+
+def spread_case(dev, shards: int) -> dict:
+    """One per-client round of spec B's engine whose thresholds differ
+    between the ranks' client positions (spec B's own per-client round
+    gives both halves the same k list): the trainer's initial w, a seeded
+    v, 16 samples of each of 8 clients, lambda spread over [0.1, 0.8].
+    Launch counts from 0 just before it."""
+    run = shard_run(shard_spec_b(1, shards), 1, dev)
+    tr, eng = run.trainer, run.trainer.engine
+    v = (1e-2 * np.random.default_rng(7).normal(size=tuple(tr._w.shape))
+         ).astype(np.float32) * eng.pack.valid_mask()
+    cl = run.env.clients[:8]
+    xs = np.stack([np.asarray(c.x)[:16] for c in cl])
+    ys = np.stack([np.asarray(c.y)[:16] for c in cl])
+    c0 = eng.collectives
+    pm.reset_launches()
+    w2, g, losses, thr = eng.round_step(
+        tr._w.clone(), torch.as_tensor(v, device=dev), xs, ys,
+        np.linspace(0.1, 0.8, len(cl)))[:4]
+    launches = dict(pm.LAUNCHES)
+    _sync(dev)
+    row = {"w": w2.cpu().numpy(), "v": g.cpu().numpy(),
+           "thr": thr.cpu().numpy(), "launches": launches,
+           "collectives": eng.collectives - c0}
+    if eng.last_gathered is not None:
+        rep = replay_shard_mean(eng.last_gathered, g.numel(),
+                                np.float32(1.0 / len(cl)))
+        row["replay_bitwise"] = bool(torch.equal(
+            rep.view(torch.int32), g.cpu().reshape(-1).view(torch.int32)))
+    return row
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_ranks(group) -> dict:
+    """A rank of the sharded phase: every case at the group's size on the
+    shared card (the parent built the kernels)."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if group.device.type == "cuda":
+        _build.load()
+    out = {label: shard_case(label, group.device, group.world)
+           for label in SHARD_CASES}
+    out["spread"] = spread_case(group.device, group.world)
+    return out
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float(np.max(np.abs(a.astype(np.float64) - b))
+                 / max(float(np.max(np.abs(b))), 1e-30))
+
+
+def sharded_phase(dev, card):
+    """The sharded client axis (ROADMAP.md §1 item 8 (a)) on the card: two
+    gloo ranks sharing it, spawned after the parent built the kernels.
+    Spec B (LeNet, per-client lambda: kernels 1 and 4) over 12 rounds in
+    4-round blocks on capture-split CUDA graphs and one round a dispatch,
+    the attack slice's coordinate-wise median (kernel 6) and FedDyn on
+    spec B over 8 rounds, and fleet (a) streamed with sharded cohorts and
+    replicated over 16 rounds; the unsharded baselines run here first.
+    Checks: sharded blocks == sharded rounds, median and FedDyn sharded ==
+    unsharded, streamed == replicated, all bit for bit; the mean path's v
+    is the host's shard-order replay of its last round's gathered partials
+    bit for bit, and its (w, v) after round 0, after 12 rounds and after a
+    round whose per-client thresholds differ between the ranks' positions
+    (`spread_case`) within 1e-6 (of their scale) of the unsharded run's;
+    both ranks' (w, v) equal after every block; one collective a round;
+    the kernels' launches per rank as predicted; each rank's cohort rows
+    are its sub-cohort's clients' and its bytes about 1/2 of the unsharded
+    cohort's. Prints ms a round at 1 and 2 ranks, the gather's ms a round
+    and the captures. Returns problems."""
+    from repro_torch.launch.mesh import spawn_shards
+    problems = []
+    t = time.perf_counter()
+    one = {label: shard_case(label, dev, 1)
+           for label in ("spec_b_first", "spec_b_blocked", "median",
+                         "feddyn", "fleet_streamed")}
+    one["spread"] = spread_case(dev, 1)
+    t_one = time.perf_counter() - t
+    t = time.perf_counter()
+    ranks = spawn_shards(shard_ranks, SHARDS, device=str(dev),
+                         timeout_s=300, threads=None)
+    t_ranks = time.perf_counter() - t
+    r0 = ranks[0]
+
+    def same(a, b):
+        return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                     b.view(np.int32))
+
+    for label in SHARD_CASES:
+        a = r0[label]
+        for r, other in enumerate(ranks[1:], 1):
+            b = other[label]
+            if a["digests"] != b["digests"] or not (
+                    same(a["w"], b["w"]) and same(a["v"], b["v"])):
+                problems.append(f"sharded {label}: rank {r}'s (w, v) "
+                                "differ from rank 0's")
+        for r, rr in enumerate(ranks):
+            if rr[label]["collectives"] != rr[label]["live_rounds"]:
+                problems.append(
+                    f"sharded {label}: rank {r} issued "
+                    f"{rr[label]['collectives']} collectives over "
+                    f"{rr[label]['live_rounds']} rounds with clients")
+            for k, per in SHARD_LAUNCHES.get(label, {}).items():
+                want = per * rr[label]["live_rounds"]
+                if rr[label]["launches"].get(k, 0) != want:
+                    problems.append(f"sharded {label}: rank {r} launched "
+                                    f"{k} {rr[label]['launches'].get(k, 0)} "
+                                    f"times, expected {want}")
+        g, b = a["graphs_captured"], a["block_rounds"]
+        if b and (g < 2 or g % 2 or a["graph_replays"] != 2 * b - g):
+            problems.append(f"sharded {label}: {g} graphs captured, "
+                            f"{a['graph_replays']} replays over {b} block "
+                            "rounds (two graphs a round)")
+    blk, rnd = r0["spec_b_blocked"], r0["spec_b_rounds"]
+    if not (same(blk["w"], rnd["w"]) and same(blk["v"], rnd["v"])
+            and blk["losses"] == rnd["losses"]):
+        problems.append("sharded spec B: blocks != rounds")
+    sb = (r0["spec_b_blocked"]["launches"]["importance_mask_batched"]
+          + r0["spec_b_blocked"]["launches"]["importance_mask_2d"])
+    if sb != blk["live_rounds"] or \
+            not r0["spec_b_blocked"]["launches"]["importance_mask_batched"]:
+        problems.append(f"sharded spec B: mask launches {sb} over "
+                        f"{blk['live_rounds']} rounds (kernel 1 must run)")
+    if not blk.get("replay_bitwise"):
+        problems.append("sharded spec B: v != the host's replay of the "
+                        "gathered partials")
+    # the mean path reassociates only the cross-shard sum: round 0 (a
+    # shared k, kernel 2), the 12 rounds (round 2 gives each client its
+    # own k, but both ranks' halves the same k list) and the spread round
+    # (kernel 1 on each rank's own, different thresholds) stay within
+    # 1e-6 of the unsharded run
+    first, spread = r0["spec_b_first"], r0["spread"]
+    rel_w = _rel(first["w"], one["spec_b_first"]["w"])
+    rel_v = _rel(first["v"], one["spec_b_first"]["v"])
+    run_w = _rel(blk["w"], one["spec_b_blocked"]["w"])
+    run_v = _rel(blk["v"], one["spec_b_blocked"]["v"])
+    spr_w = _rel(spread["w"], one["spread"]["w"])
+    spr_v = _rel(spread["v"], one["spread"]["v"])
+    half = len(spread["thr"]) // SHARDS
+    for r, rr in enumerate(ranks):
+        s = rr["spread"]
+        if not (same(s["w"], spread["w"]) and same(s["v"], spread["v"])
+                and same(s["thr"], one["spread"]["thr"])
+                and s["collectives"] == 1 and s.get("replay_bitwise")
+                and s["launches"].get("importance_mask_batched") == 1):
+            problems.append(f"sharded spread round: rank {r}'s (w, v), "
+                            "thresholds, collective, replay or kernel 1")
+    if np.array_equal(spread["thr"][:half], spread["thr"][half:]):
+        problems.append("sharded spread round: the ranks' thresholds agree")
+    for what, dw, dv in (("round 0", rel_w, rel_v),
+                         (f"{SHARD_ROUNDS} rounds", run_w, run_v),
+                         ("the spread round", spr_w, spr_v)):
+        if not (dw <= SHARD_MEAN_RTOL and dv <= SHARD_MEAN_RTOL):
+            problems.append(f"sharded spec B: (w, v) after {what} {dw}, "
+                            f"{dv} from the unsharded run's")
+    for label in ("median", "feddyn"):
+        a, b = r0[label], one[label]
+        keys = ("w", "v", "h") if label == "feddyn" else ("w", "v")
+        if not all(same(a[k], b[k]) for k in keys) or \
+                a["losses"] != b["losses"] or a["n_agg"] != b["n_agg"]:
+            problems.append(f"sharded {label}: != the unsharded run")
+    st, rep = r0["fleet_streamed"], r0["fleet_replicated"]
+    if not (same(st["w"], rep["w"]) and same(st["v"], rep["v"])
+            and st["losses"] == rep["losses"]):
+        problems.append("sharded fleet: streamed != replicated")
+    unsharded_bytes = max(c["bytes"] for c in one["fleet_streamed"]["cohorts"])
+    ratios = []
+    for r, rr in enumerate(ranks):
+        cs = rr["fleet_streamed"]["cohorts"]
+        if not cs or not all(c["rows_ok"] and c["sharded"] for c in cs):
+            problems.append(f"sharded fleet: rank {r}'s cohort rows")
+        ratios.append(max(c["local_bytes"] for c in cs) / unsharded_bytes
+                      if cs else None)
+    if not all(x is not None and x <= 1.0 / SHARDS + 0.1 for x in ratios):
+        problems.append(f"sharded fleet: cohort bytes a rank over the "
+                        f"unsharded cohort's {ratios}")
+    print(json.dumps({"sharded": {
+        "card": card, "ranks": SHARDS, "backend": "gloo",
+        "spec_b_ms_per_round": {"1": one["spec_b_blocked"]["ms_per_round"],
+                                str(SHARDS): blk["ms_per_round"]},
+        "gather_ms_per_round": blk["gather_ms_per_round"],
+        "copy_out_ms_per_round": blk["copy_out_ms_per_round"],
+        "timed_collectives": blk["timed_collectives"],
+        "rounds": {k: r0[k]["rounds"] for k in SHARD_CASES},
+        "live_rounds": {k: r0[k]["live_rounds"] for k in SHARD_CASES},
+        "collectives": {k: r0[k]["collectives"] for k in SHARD_CASES},
+        "graphs_captured": {k: r0[k]["graphs_captured"] for k in SHARD_CASES},
+        "graph_replays": {k: r0[k]["graph_replays"] for k in SHARD_CASES},
+        "launches_rank0": {k: {n: c for n, c in r0[k]["launches"].items()
+                               if c} for k in SHARD_CASES},
+        "spec_b_round0_vs_unsharded": {"w_rel": rel_w, "v_rel": rel_v},
+        "spec_b_12_rounds_vs_unsharded": {"w_rel": run_w, "v_rel": run_v},
+        "spread_round_vs_unsharded": {"w_rel": spr_w, "v_rel": spr_v},
+        "replay_bitwise": blk.get("replay_bitwise"),
+        "fleet_cohort_bytes_rank_over_unsharded": ratios,
+        "fleet_unsharded_cohort_bytes": unsharded_bytes,
+        "unsharded_s": t_one, "ranks_s": t_ranks}}))
+    return problems
+
+
 # -- phases 11-13: the LM stack, serving granite-3-2b and mamba2-130m ---------
 
 LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2247,14 +2630,14 @@ GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
 # reused slot are held to sequential generation. Its depth is cut from 32
 # to 16 layers (full width kept) to make room for the audio and vlm phases
 HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=16, n_sequential=1)
-# mixtral-8x22b at full width, 4 of its 56 layers (5.0 GB of bf16 a layer;
-# the training phase's memory after it); padded buckets, so its padding
-# tokens share expert capacity with the prompt's, and the sequential
-# generation is fed the same padded prefill. Its fp32 logits check runs on
-# a copy of the first two layers (a 4-layer fp32 copy would not fit beside
-# it; at one layer the planted fault cannot show: the last query sees
-# every key, and attention does not see their order)
-MIXTRAL = dict(GRANITE, arch="mixtral-8x22b", layers=4, logit_layers=2)
+# mixtral-8x22b at full width, 2 of its 56 layers (5.0 GB of bf16 a layer;
+# 4 until the sharded phase needed the time); padded buckets, so its
+# padding tokens share expert capacity with the prompt's, and the
+# sequential generation is fed the same padded prefill. Its fp32 logits
+# check runs on a copy of the same two layers (at one layer the planted
+# fault cannot show: the last query sees every key, and attention does
+# not see their order)
+MIXTRAL = dict(GRANITE, arch="mixtral-8x22b", layers=2, logit_layers=2)
 # whisper-small at full size: prompts under the source's 448-position
 # decoder cap, all past the 128-token naive rule, padded to (256, 512); one
 # random encoder input (numpy seed `memory_seed`) shared by every request.
@@ -3530,6 +3913,9 @@ def main() -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="set-up and the kernels against their plain "
                              "versions (phases 1 and 2) only; no result line")
+    parser.add_argument("--sharded", action="store_true",
+                        help="set-up and the sharded client axis (phase 24) "
+                             "only; no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3563,6 +3949,16 @@ def main() -> int:
     # tensor cores: HGMMA in the SASS of every wgmma instantiation, read by
     # cuobjdump beside the phases and checked before the result line
     sass_job = ThreadPoolExecutor(max_workers=1).submit(sass_hgmma_counts)
+    if args.sharded:
+        t = time.perf_counter()
+        problems = sharded_phase(dev, card)
+        walls["sharded_client_axis"] = time.perf_counter() - t
+        print(json.dumps({"phase_wall_s": walls}))
+        sass_job.result()
+        if problems:
+            print("chip_smoke FAILED: " + "; ".join(problems),
+                  file=sys.stderr)
+        return 1 if problems else 0
 
     t = time.perf_counter()
     ds, clients, sp, ch, sched, params = slice_env(dev)
@@ -3680,8 +4076,13 @@ def main() -> int:
     problems += sweep_phase(dev, card)
     walls["sweep_service"] = time.perf_counter() - t
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    problems += sharded_phase(dev, card)
+    walls["sharded_client_axis"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
     print(json.dumps({"phase_wall_s": {
-        k: walls[k] for k in ("fleet_streaming", "sweep_service")}}))
+        k: walls[k] for k in ("fleet_streaming", "sweep_service",
+                              "sharded_client_axis")}}))
 
     # the LM stack. torch.cumsum on CUDA (the SSD scans') has no
     # deterministic implementation, so deterministic mode goes off here;

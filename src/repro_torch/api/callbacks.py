@@ -196,5 +196,10 @@ class CheckpointCallback(Callback):
         self.history.append(m)
 
     def on_checkpoint(self, m: RoundMetrics, trainer) -> None:
+        # a sharded run's ranks hold the same state: rank 0 writes it (the
+        # others keep the checkpoint rounds as block boundaries all the
+        # same, so every rank runs the same blocks)
+        if getattr(trainer, "rank", 0) != 0:
+            return
         self.saved_paths.append(save_trainer_state(
             self.manager, trainer, m, spec=self.spec, history=self.history))

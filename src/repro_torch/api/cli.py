@@ -15,7 +15,11 @@
 
 The port of ``repro/api/cli.py``; a spec file, a sweep file, a checkpoint
 directory and a sweep directory serve either package's CLI. Runs go to
-the CUDA card unless given ``--device cpu``.
+the CUDA card unless given ``--device cpu``. A spec whose ``run.shards`` is
+above 1 (packed backend) makes `run` and `resume` spawn that many ranks on
+the device (launch/mesh.py: gloo, a ``file://`` rendezvous; on one card
+the ranks share it); rank 0's result is printed and exported, after the
+CLI has checked that every rank returned the same history.
 
 `run` executes a spec end-to-end (data -> phi -> P1 -> federated training)
 and optionally exports the RunResult as JSON-lines. `resume` rebuilds the
@@ -63,6 +67,44 @@ def _print_result(res: RunResult) -> None:
           + tail)
 
 
+def _spawn_count(spec: ExperimentSpec) -> int:
+    """The ranks `run` / `resume` spawn for a spec: run.shards when above 1
+    on the packed backend and no process group is up yet, else 0."""
+    import torch.distributed as dist
+    n = int(spec.run.shards or 1)
+    if n > 1 and spec.run.backend == "packed" and not (
+            dist.is_available() and dist.is_initialized()):
+        return n
+    return 0
+
+
+def _run_rank(group, spec: dict, resume_dir: str | None,
+              step: int | None) -> RunResult:
+    """One rank of a sharded CLI run (or resume): the run on the rank's
+    device, its RunResult returned to the launcher."""
+    if resume_dir is None:
+        return Experiment(ExperimentSpec.from_dict(spec)).run(
+            device=group.device)
+    return resume_from_checkpoint(resume_dir, step=step, device=group.device)
+
+
+def _sharded_result(n: int, spec: ExperimentSpec, device,
+                    resume_dir: str | None = None,
+                    step: int | None = None) -> RunResult:
+    """Spawn n ranks of the run and return rank 0's result; raise when the
+    ranks' histories differ."""
+    from repro_torch.api.callbacks import metrics_to_dict
+    from repro_torch.launch.mesh import spawn_shards
+    results = spawn_shards(_run_rank, n,
+                           args=(spec.to_dict(), resume_dir, step),
+                           device=device, timeout_s=None)
+    first = [metrics_to_dict(m) for m in results[0].history]
+    for r, res in enumerate(results[1:], 1):
+        if [metrics_to_dict(m) for m in res.history] != first:
+            raise RuntimeError(f"rank {r}'s history differs from rank 0's")
+    return results[0]
+
+
 def _cmd_run(args) -> int:
     spec = ExperimentSpec.from_file(args.spec)
     run_spec = spec.run
@@ -73,7 +115,9 @@ def _cmd_run(args) -> int:
         run_spec = dataclasses.replace(run_spec,
                                        checkpoint_every=args.checkpoint_every)
     spec = dataclasses.replace(spec, run=run_spec)
-    res = Experiment(spec).run(device=args.device)
+    n = _spawn_count(spec)
+    res = (_sharded_result(n, spec, args.device) if n
+           else Experiment(spec).run(device=args.device))
     _print_result(res)
     if args.out:
         print(f"wrote {res.to_jsonl(args.out)}")
@@ -81,8 +125,15 @@ def _cmd_run(args) -> int:
 
 
 def _cmd_resume(args) -> int:
-    res = resume_from_checkpoint(args.checkpoint_dir, step=args.step,
-                                 device=args.device)
+    from repro_torch.api.callbacks import load_run_state
+    _, extra = load_run_state(args.checkpoint_dir, step=args.step)
+    n = (_spawn_count(ExperimentSpec.from_dict(extra["spec"]))
+         if extra.get("spec") else 0)
+    res = (_sharded_result(n, ExperimentSpec.from_dict(extra["spec"]),
+                           args.device, args.checkpoint_dir, args.step)
+           if n else resume_from_checkpoint(args.checkpoint_dir,
+                                            step=args.step,
+                                            device=args.device))
     _print_result(res)
     if args.out:
         print(f"wrote {res.to_jsonl(args.out)}")

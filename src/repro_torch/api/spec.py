@@ -1,11 +1,11 @@
 """Declarative experiment specs (DESIGN.md §8).
 
 The port of ``repro/api/spec.py``, unchanged: one spec file runs in either
-package. Fields whose options the port does not carry yet (``shards`` > 1,
-``client_store="streamed"``, the fleet datasets) parse here and raise at
-build time naming their ROADMAP item; the scheme's ``local_scheme``,
-``local_steps`` and ``local_kwargs`` reach the trainer, and ``resnet``
-builds ResNet-CIFAR.
+package. ``run.shards`` > 1 shards the client axis over that many ranks of
+a process group (launch/mesh.py; the CLI spawns them); the scheme's
+``local_scheme``, ``local_steps`` and ``local_kwargs`` reach the trainer,
+``client_store="streamed"`` and the fleet datasets stream cohorts, and
+``resnet`` builds ResNet-CIFAR.
 
 One `ExperimentSpec` captures everything the paper's pipeline needs — data
 federation, model, wireless system, optimization scheme, and run policy —
@@ -186,7 +186,7 @@ class RunSpec(_SpecBase):
     stop_on_budget: bool = True        # stop when cumulative E/T pass E0/T0
     backend: str = "packed"            # FederatedTrainer backend
     rounds_per_dispatch: int | str = "auto"
-    shards: int | None = None          # client-axis shard count (None = auto)
+    shards: int | None = None          # client-axis ranks (None = auto)
     client_store: str = "auto"         # "auto" | "replicated" | "streamed"
     device_mem_budget: int | None = None   # bytes; None = env or 1 GiB
     checkpoint_dir: str | None = None

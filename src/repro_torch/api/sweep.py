@@ -829,12 +829,18 @@ class _CellRunner:
 
 
 def _collective_safe(cells: Sequence[SweepCell]) -> bool:
-    """True when thread-parallel cell dispatch cannot deadlock. In the JAX
-    package two in-flight programs with collectives over one mesh can
-    interleave so that the rendezvous never completes. The port runs every
-    engine on one device with no collective (sharding is ROADMAP.md §1
-    item 8; a cell with shards > 1 fails at its trainer), so every matrix
-    is safe."""
+    """True when thread-parallel cell dispatch cannot deadlock. A sharded
+    cell's rounds each meet the other ranks in one collective; two worker
+    threads issuing collectives on one process group can interleave them
+    so that the ranks' rendezvous never match. Collective-free cells
+    (shards == 1, or the eager reference backend) dispatch concurrently
+    fine, so the gate resolves each cell's shard count as its RoundEngine
+    will, as the JAX package's gate does."""
+    from repro_torch.core.round_engine import resolve_shards
+    for cell in cells:
+        r = cell.spec.run
+        if r.backend == "packed" and resolve_shards(r.shards) > 1:
+            return False
     return True
 
 
@@ -866,8 +872,7 @@ def run_sweep(sweep: SweepSpec, *, sink: RunSink | None = None,
     locked environment cache), which changes no per-run record bits, only
     index completion order and the trainer-build count. When a cell's
     engine would issue collectives over more than one device, `workers`
-    caps to 1 with a log note (`_collective_safe`; none can until
-    multi-device sharding is ported, ROADMAP.md §1 item 8). Environments and
+    caps to 1 with a log note (`_collective_safe`). Environments and
     trainers are pooled by `_env_key` / `_trainer_key`, which preserves
     bit-for-bit equality with standalone runs (reset re-derives every
     piece of run state from the cell's own spec). `callbacks` are passed

@@ -17,6 +17,9 @@ would have indexed out of `ClientData`).
 Padding rows (samples beyond a client's count) are zeros and are never
 gathered: drawn indices are below the client's count, and padding clients
 on the bucketed client axis replicate a real client's id and indices.
+
+With the client axis sharded over ranks (core/round_engine.py) every rank
+holds the whole store and gathers only its own client positions.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ Rows and counters are the JAX package's: the cohort is the plan's
 population), rows past a client's count and past the cohort are zeros, a
 cohort's bytes are its bucketed x + y bytes, and ``n_cohort_swaps``,
 ``h2d_bytes`` and ``peak_cohort_bytes`` advance at the same points, so
-both packages count the same on one spec.
+both packages count the same on one unsharded spec.
 
 What CUDA graphs change. The round engine replays one captured graph a
 round body, and a graph holds the addresses it gathers from. So the device
@@ -50,13 +50,26 @@ another thread is capturing (torch's pooled streams can coincide).
 Streaming moves data, never randomness: the batch indices are drawn on
 the host as before, the gathered values are the replicated store's, and
 the trajectory is bit for bit the replicated run's.
+
+Sharded cohorts (``shards`` > 1, the JAX package's ``_build_sharded``). With
+the client axis sharded over the ranks (core/round_engine.py), position j
+of a block's bucket belongs to rank ``j // per`` (``per = C_b / shards``).
+Each rank's sub-cohort is the unique ids at its positions (the trainer's
+padding included); every rank plans all of them (``ids_by_shard``, as in
+JAX) but packs and holds only its own, ``rows_per_shard`` rows on the same
+pow2 ladder capped at ``ceil(population / shards)``. `Cohort.remap` maps
+position j through rank ``j // per``'s table into that rank's rows, so each
+rank gathers its positions from its own rows with no collective. The
+counters count the rank's own bytes (``Cohort.local_nbytes``, what its
+commit copies); ``Cohort.nbytes`` keeps the JAX package's single-controller
+total over all shards' rows.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -81,8 +94,9 @@ class Cohort:
     gathers from (the same tensors for every cohort); this cohort holds
     rows ``[base, base + len(counts))`` of them. ``counts`` are the
     cohort's per-row real sample counts (zero on padding rows, which are
-    never gathered), ``ids_by_shard`` its sorted global client ids (one
-    entry: data-sharded cohorts are ROADMAP.md §1 item 8)."""
+    never gathered), ``ids_by_shard`` its sorted global client ids: one
+    entry, or one a shard when ``sharded`` (the rank holds the rows of
+    ``ids_by_shard[rank]`` only; ``per`` client positions a shard)."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -90,14 +104,27 @@ class Cohort:
     sharded: bool
     ids_by_shard: list
     start: int                # first schedule round of the owning block
-    nbytes: int               # bucketed x + y bytes (the H2D of its commit)
+    nbytes: int               # bucketed x + y bytes (all shards' rows)
+    local_nbytes: int         # this rank's bytes (the H2D of its commit)
     slot: int = 0
     base: int = 0             # first device row of the slot
+    per: int = 0              # client positions a shard (sharded only)
 
     def remap(self, cids: np.ndarray) -> np.ndarray:
-        """Global client ids [K, C] -> the device rows holding them."""
-        return (np.searchsorted(self.ids_by_shard[0], cids)
-                + self.base).astype(np.int32)
+        """Global client ids [K, C] -> the device rows holding them;
+        sharded, position j through shard j // per's table into that
+        shard's rows (the rank gathers only its own positions)."""
+        if not self.sharded:
+            return (np.searchsorted(self.ids_by_shard[0], cids)
+                    + self.base).astype(np.int32)
+        k, c_max = cids.shape
+        out = np.empty((k, c_max), np.int32)
+        for s, ids in enumerate(self.ids_by_shard):
+            lo, hi = s * self.per, min((s + 1) * self.per, c_max)
+            if lo >= c_max:
+                break
+            out[:, lo:hi] = np.searchsorted(ids, cids[:, lo:hi]) + self.base
+        return out
 
 
 class CohortSlots:
@@ -205,15 +232,15 @@ class CohortStore:
     previous run's `slots` for reuse, and `close`s it in the run's finally
     block. ``device=None`` means CUDA."""
 
-    def __init__(self, clients: Sequence, *, mesh=None, shards: int = 1,
+    def __init__(self, clients: Sequence, *, shards: int = 1, rank: int = 0,
+                 bucket_size: Callable[[int], int] | None = None,
                  max_clients: int | None = None,
                  counters: dict | None = None, device=None,
                  slots: CohortSlots | None = None):
-        if mesh is not None or int(shards or 1) > 1:
-            raise NotImplementedError(
-                "a data-sharded cohort store (a mesh, shards > 1) is not "
-                "ported to repro_torch yet (ROADMAP.md §1 item 8)")
         self.clients = clients
+        # sharded: this rank's sub-cohorts, on the engine's client buckets
+        self.shards, self.rank = int(shards or 1), int(rank)
+        self._bucket_size = bucket_size or (lambda n: int(n))
         self.device = resolve_device(device)
         self.max_clients = int(max_clients or len(clients))
         counts = getattr(clients, "counts", None)
@@ -231,7 +258,9 @@ class CohortStore:
         self._lock = threading.Lock()
         self._resident = 0                 # bytes of packed, live cohorts
         self._plans: list[tuple] = []      # (start, cids [K, C], counts [K])
-        self._ids: list[np.ndarray] = []   # each plan's sorted unique ids
+        self._ids: list[np.ndarray] = []   # the ids each plan packs here
+        self._shard_ids: list[list] = []   # sharded: each plan's ids_by_shard
+        self._per: list[int] = []          # sharded: positions a shard
         self._rows: list[int] = []         # each plan's bucketed rows
         self._order: dict[int, int] = {}
         self._pending: dict[int, tuple] = {}   # plan idx -> (thread, box)
@@ -248,11 +277,14 @@ class CohortStore:
         the block plan (and the same after a resume)."""
         self._plans = list(plans)
         self._order = {int(p[0]): i for i, p in enumerate(self._plans)}
-        self._ids = [np.unique(np.asarray(p[1])).astype(np.int64)
-                     for p in self._plans]
-        # pow2 row bucket capped at the population, as the client axis
-        self._rows = [max(len(ids), bucket_capacity(
-            len(ids), max_clients=self.max_clients)) for ids in self._ids]
+        if self.shards > 1:
+            self._plan_shards()
+        else:
+            self._ids = [np.unique(np.asarray(p[1])).astype(np.int64)
+                         for p in self._plans]
+            # pow2 row bucket capped at the population, as the client axis
+            self._rows = [max(len(ids), bucket_capacity(
+                len(ids), max_clients=self.max_clients)) for ids in self._ids]
         if self._plans:
             rows = max(self._rows)
             args = (self.n_max, self._xshape, self._xdtype, self._ydtype,
@@ -263,6 +295,32 @@ class CohortStore:
                 self.slots.drain()
         self._launch(0)
         self._launch(1)
+
+    def _plan_shards(self) -> None:
+        """Each plan's sub-cohorts (JAX's ``_build_sharded``): shard s takes
+        the unique ids at its client positions [s*per, (s+1)*per) of the
+        block's bucket; every shard's rows are the largest sub-cohort's on
+        the pow2 ladder capped at ceil(population / shards). This rank
+        packs its own."""
+        cap = -(-self.max_clients // self.shards)
+        self._ids, self._shard_ids, self._per, self._rows = [], [], [], []
+        for _, cids, counts in self._plans:
+            cids = np.asarray(cids)
+            k, c_max = cids.shape
+            c_b = self._bucket_size(int(np.asarray(counts).max()))
+            per = max(1, c_b // self.shards)
+            by_shard = []
+            for s in range(self.shards):
+                lo, hi = s * per, min((s + 1) * per, c_max)
+                cols = (cids[:, lo:hi] if hi > lo
+                        else np.empty((k, 0), cids.dtype))
+                by_shard.append(np.unique(cols).astype(np.int64))
+            rps = max(1, max(len(i) for i in by_shard))
+            rps = max(rps, bucket_capacity(rps, max_clients=cap))
+            self._shard_ids.append(by_shard)
+            self._per.append(per)
+            self._ids.append(by_shard[self.rank])
+            self._rows.append(rps)
 
     def _launch(self, i: int) -> None:
         if i >= len(self._plans) or i in self._pending or i in self._live:
@@ -279,7 +337,7 @@ class CohortStore:
         try:
             box["packed"] = self._pack(i)
             with self._lock:
-                self._resident += self._nbytes(i)
+                self._resident += self._nbytes(i, local=True)
                 self.counters["peak_cohort_bytes"] = max(
                     self.counters["peak_cohort_bytes"], self._resident)
         except BaseException as e:          # surfaced at acquire()
@@ -293,7 +351,7 @@ class CohortStore:
         for j in [j for j in self._live if j != i]:
             dropped = self._live.pop(j)
             with self._lock:
-                self._resident -= dropped.nbytes
+                self._resident -= dropped.local_nbytes
             self.slots.release(dropped.slot)
         if i not in self._live:
             self._launch(i)                 # miss: no prefetch for it
@@ -307,7 +365,7 @@ class CohortStore:
             self._live[i] = self._commit(i, box["packed"])
         cohort = self._live[i]
         self.counters["n_cohort_swaps"] += 1
-        self.counters["h2d_bytes"] += cohort.nbytes
+        self.counters["h2d_bytes"] += cohort.local_nbytes
         self._launch(i + 1)
         return cohort
 
@@ -319,6 +377,7 @@ class CohortStore:
         self._pending.clear()
         self._live.clear()
         self._plans, self._ids, self._rows = [], [], []
+        self._shard_ids, self._per = [], []
         self._order = {}
         if self.slots is not None:
             self.slots.drain()
@@ -327,10 +386,13 @@ class CohortStore:
 
     # -- cohort construction ------------------------------------------------
 
-    def _nbytes(self, i: int) -> int:
+    def _nbytes(self, i: int, local: bool = False) -> int:
+        """Plan i's bucketed x + y bytes: all shards' (the JAX package's
+        count), or this rank's with `local`."""
         per = (int(np.prod(self._xshape)) * self._xdtype.itemsize
                + self._ydtype.itemsize)
-        return self._rows[i] * self.n_max * per
+        shards = 1 if local else self.shards
+        return shards * self._rows[i] * self.n_max * per
 
     def _pack(self, i: int) -> np.ndarray:
         """Pack plan i's clients into host buffer i % 2: byte-copies of the
@@ -356,8 +418,13 @@ class CohortStore:
     def _commit(self, i: int, rcounts: np.ndarray) -> Cohort:
         slot = i % 2
         self.slots.commit(slot, self._rows[i])
+        sharded = self.shards > 1
         return Cohort(x=self.slots.x, y=self.slots.y, counts=rcounts,
-                      sharded=False, ids_by_shard=[self._ids[i]],
+                      sharded=sharded,
+                      ids_by_shard=(self._shard_ids[i] if sharded
+                                    else [self._ids[i]]),
                       start=int(self._plans[i][0]),
-                      nbytes=self._nbytes(i), slot=slot,
-                      base=slot * self.slots.rows)
+                      nbytes=self._nbytes(i),
+                      local_nbytes=self._nbytes(i, local=True), slot=slot,
+                      base=slot * self.slots.rows,
+                      per=self._per[i] if sharded else 0)

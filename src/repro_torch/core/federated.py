@@ -62,12 +62,20 @@ population-sized; a block works on its cohort's rows of it in a fixed slab
 (repro_torch.api.callbacks), fired at materialisation points only, and
 resume from a checkpoint taken after round ``start_round - 1``.
 
+Sharded client axis (``shards`` > 1, packed backend): every rank of a
+process group (launch/mesh.py) builds the same trainer from the same seed,
+draws the same schedule and batches, and runs the engine's sharded bodies
+(core/round_engine.py), which meet the other ranks in one collective a
+round; streamed cohorts are then sharded too, each rank holding only its
+own sub-cohort's rows. Every rank returns the same history. Only rank 0
+writes files (checkpoints, through `api.callbacks`); a resume reads on
+every rank. The reference backend ignores ``shards``, as the JAX package's
+does.
+
 The trainer runs on CUDA unless the caller passes ``device="cpu"``. On
 CUDA the packed backend needs a per-sample-weighted loss, so that ragged
 clients are padded and every round goes through the engine's kernels; only
-on the CPU may a ragged round fall back to the reference loop. Options of
-the JAX trainer that this port does not carry yet raise
-NotImplementedError naming the ROADMAP item that will bring them.
+on the CPU may a ragged round fall back to the reference loop.
 """
 from __future__ import annotations
 
@@ -147,11 +155,6 @@ class RoundMetrics:
     n_agg_adjusted: int = 0
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md §1 item {item})")
-
-
 class FederatedTrainer:
     """FedSGD with client selection + importance pruning + masked aggregation."""
 
@@ -176,13 +179,12 @@ class FederatedTrainer:
         client_store: str = "auto",
         device_mem_budget: int | None = None,
         local_scheme=None,
+        group=None,
     ):
         if backend not in ("packed", "reference"):
             raise ValueError(f"unknown backend {backend!r}")
         if client_store not in ("auto", "replicated", "streamed"):
             raise ValueError(f"unknown client_store {client_store!r}")
-        if shards not in (None, 1):
-            _not_ported("shards > 1 (multi-device sharding)", "8")
         self.device = resolve_device(device)
         # Per-sample-weighted loss: ragged client batches are padded with
         # zero-weight samples so they stay on the packed path
@@ -266,12 +268,16 @@ class FederatedTrainer:
                                       max_clients=len(self.clients),
                                       aggregator=aggregator,
                                       local_scheme=local_scheme,
-                                      device=self.device)
+                                      device=self.device, shards=shards,
+                                      group=group)
             self._w, self._v = self.engine.init_buffers(params)
         else:
             self.pack = self.engine = None
             self._params = params
             self._global_grad = tree_map(torch.zeros_like, params)
+        # this process's rank (0 unless the client axis is sharded): rank 0
+        # writes the files
+        self.rank = 0 if self.engine is None else self.engine.rank
 
     def reset(self, params: Params, seed: int, *, channel_noise=None,
               fault_model=None) -> None:
@@ -877,8 +883,8 @@ class FederatedTrainer:
             # index draws above do not depend on the layout)
             store = self._cohorts.acquire(start)
             cids = store.remap(cids)
-            if h_arg is not None:
-                # FedDyn over a cohort: its clients' rows of h, in cohort
+            if h_arg is not None and not store.sharded:
+                # FedDyn over a cohort (the engine refuses a sharded one): its clients' rows of h, in cohort
                 # row order and padded with the last id, go into the slots'
                 # fixed slab (the graphs capture its address), which the
                 # remapped ids index as they index the data; afterwards
@@ -1068,7 +1074,9 @@ class FederatedTrainer:
             # (selections only, no RNG), so a resumed run replays the same
             # cohort schedule; the first two cohorts prefetch from here
             self._cohorts = CohortStore(
-                self.clients, max_clients=len(self.clients),
+                self.clients, shards=self.engine.shards,
+                rank=self.engine.rank, bucket_size=self.engine.bucket_size,
+                max_clients=len(self.clients),
                 counters=self.fleet_counters, device=self.device,
                 slots=self._cohort_slots)
             self._cohorts.schedule(

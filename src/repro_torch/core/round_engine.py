@@ -1,6 +1,6 @@
-"""Single-device packed round engine (paper Sec. II-A, eqs. 2-7).
+"""Packed round engine (paper Sec. II-A, eqs. 2-7).
 
-The port of ``repro/core/round_engine.py`` (its single-device paths). One
+The port of ``repro/core/round_engine.py``. One
 ``round_step`` runs a whole round on the device over the packed
 ``[R, 128]`` parameter buffer (core/packing.py):
 
@@ -46,10 +46,37 @@ exactly the body ``round_step`` runs, so a block is bit for bit K
 On the CPU the kernels' plain versions run and the engine reproduces the
 reference trainer value for value; on CUDA the kernels are bit-identical to
 the plain versions, so the same holds there.
+
+Sharded client axis (``shards`` > 1, the JAX package's ``shard_map`` over
+the mesh's ``data`` axis). One process is one shard (launch/mesh.py): every
+rank holds (w, v) replicated and computes the threshold and the shared mask
+itself; client position j of the bucketed axis (``bucket_capacity`` with
+``shards``: a multiple of the shard count) belongs to rank ``j // (C_b /
+shards)``, which runs that client's update (the per-client masks from its
+local thresholds, kernel 1). The ranks meet in exactly one collective a
+round, an all-gather (`collectives` counts them):
+
+  * the mean path gathers each rank's [R*L + 2 + C_b/S] row: its weighted
+    partial gradient sum, its (weighted, surviving) client counts and its
+    losses. Every rank then sums the partials in shard order with the
+    flushing add (XLA:CPU's psum order, so the sum is the JAX package's
+    bit for bit), renormalizes over the survivors and steps (`_shard_tail`);
+  * the robust path gathers the post-fault uploads and their quarantine
+    weights; the reducer runs on the full stack on every rank;
+  * FedDyn gathers the raw uploads and state deltas; the whole tail (faults,
+    quarantine, aggregate, step, state scatter) runs on every rank.
+
+The robust and FedDyn rounds are bit for bit the unsharded ones (the same
+ops on the same stack); the mean path reassociates only the cross-shard sum.
+On CUDA a sharded round body is two captured graphs, before and after the
+collective: the host copies the rank's row out, gathers and copies the rows
+in between their replays, so this path syncs the host once a round where
+the JAX package's stays on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable
 
@@ -135,14 +162,62 @@ def h_scatter(h: torch.Tensor, cid: torch.Tensor, upd: torch.Tensor) -> None:
     h.index_copy_(0, cid, rows)
 
 
-def bucket_capacity(n_clients: int, *, max_clients: int | None = None) -> int:
-    """Padded client-axis size for a round selecting `n_clients` on one
-    device: next_pow2(n), capped at the population (padding clients cost
-    real gradient FLOPs, so full participation never pads past it)."""
-    p2 = 1 << (int(n_clients) - 1).bit_length()
-    if max_clients is not None:
-        p2 = min(p2, max(int(n_clients), int(max_clients)))
-    return p2
+def bucket_capacity(n_clients: int, *, shards: int = 1, bucket: bool = True,
+                    max_clients: int | None = None) -> int:
+    """Padded client-axis size for a round selecting `n_clients`: the JAX
+    package's formula, shards * next_pow2(ceil(n / shards)), the per-shard
+    bucket capped at ceil(max_clients / shards) (padding clients cost real
+    gradient FLOPs, so full participation never pads past the population).
+    `bucket=False` pads to a multiple of the shard count only."""
+    per = -(-int(n_clients) // shards)
+    if bucket:
+        p2 = 1 << (per - 1).bit_length()
+        if max_clients is not None:
+            p2 = min(p2, max(per, -(-int(max_clients) // shards)))
+        per = p2
+    return per * shards
+
+
+def resolve_shards(shards: int | None) -> int:
+    """Shard count of the client axis: the explicit argument, then the
+    REPRO_ROUND_SHARDS environment variable, then the world size of an
+    initialised default process group, else 1. The engine raises when the
+    count is above 1 and no process group of that size is there."""
+    if shards is not None:
+        return max(1, int(shards))
+    env = os.environ.get("REPRO_ROUND_SHARDS")
+    if env:
+        return max(1, int(env))
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def shard_order_sum(recv: torch.Tensor, rl: int):
+    """The sharded mean path's reduction of its gathered rows recv [S, n]:
+    the partial sums recv[:, :rl] added in shard order with the flushing
+    add (the order of the JAX package's psum on XLA:CPU), and the
+    (weighted, surviving) counts recv[:, rl:rl + 2] summed. Returns (sum
+    [rl], counts [2])."""
+    gsum, cnt = recv[0, :rl], recv[0, rl:rl + 2]
+    for s in range(1, recv.shape[0]):
+        gsum = ops.flush_add(gsum, recv[s, :rl])
+        cnt = cnt + recv[s, rl:rl + 2]
+    return gsum, cnt
+
+
+def replay_shard_mean(recv: torch.Tensor, rl: int, inv) -> torch.Tensor:
+    """The host's replay of a sharded mean-path round's broadcast gradient
+    (v') from the rows its collective gathered (`RoundEngine.last_gathered`):
+    `shard_order_sum` on the CPU, then the mean, with the host's `inv` when
+    every weighted client survived and 1/survivors otherwise. A reference
+    for checks of the engine; the engine does not call it."""
+    gsum, cnt = shard_order_sum(recv.detach().cpu(), rl)
+    n_w, n_ok = cnt[0], cnt[1]
+    inv_eff = (torch.as_tensor(inv, dtype=torch.float32)
+               if bool(n_ok == n_w) else 1.0 / torch.clamp(n_ok, min=1.0))
+    return ops.flush_mul(gsum, inv_eff)
 
 
 class RoundEngine:
@@ -157,19 +232,46 @@ class RoundEngine:
     (core/local.LocalScheme) makes each client run E local steps; None is
     the single-gradient FedSGD body. The kernels are the CUDA ones on a
     CUDA device and their plain versions on the CPU (kernels/ops.py,
-    impl="auto"); device=None means CUDA.
+    impl="auto"); device=None means CUDA. `shards` (`resolve_shards`) > 1
+    shards the client axis over `group` (a launch.mesh.ShardGroup; None:
+    `launch.mesh.current_group()`), which must have that many ranks.
     """
 
     def __init__(self, loss_fn: Callable, pack: ParamPack, *, eta: float,
                  weighted_loss_fn: Callable | None = None,
                  max_clients: int | None = None, aggregator=None,
-                 local_scheme=None, device=None):
+                 local_scheme=None, device=None, shards: int | None = None,
+                 group=None):
         self.pack = pack
         self.eta = float(eta)
         self.max_clients = int(max_clients) if max_clients else None
         self.aggregator = aggregator
         self.local_scheme = local_scheme
         self.device = resolve_device(device)
+        self.shards = resolve_shards(shards)
+        self.group = None
+        if self.shards > 1:
+            if group is None:
+                from repro_torch.launch.mesh import current_group
+                group = current_group(self.device)
+            if group is None or group.world != self.shards:
+                raise ValueError(
+                    f"shards={self.shards} needs a process group of "
+                    f"{self.shards} ranks (launch.mesh.init_shards or "
+                    "spawn_shards); "
+                    + ("none is initialised" if group is None
+                       else f"this one has {group.world}"))
+            self.group = group
+        # the rank's client positions [lo, hi) of a bucket: see _bounds
+        self.rank = 0 if self.group is None else self.group.rank
+        # collectives issued (one a sharded round); host seconds in the
+        # collectives themselves, and in the copies out before them (which
+        # wait for the device's work of the round so far)
+        self.collectives = 0
+        self.gather_seconds = 0.0
+        self.sync_seconds = 0.0
+        # the rows of the most recent sharded round's collective
+        self.last_gathered = None
         self.prunable = torch.as_tensor(pack.prunable_mask(),
                                         device=self.device)
         self._eta = torch.tensor(np.float32(eta), device=self.device)
@@ -186,6 +288,8 @@ class RoundEngine:
         self._graph_h = None
         self._graph_wv: tuple[torch.Tensor, torch.Tensor] | None = None
         self._capture_stream = None
+        # CUDA graphs captured and replayed (a sharded body is two graphs,
+        # both replayed each round)
         self.graphs_captured = 0
         self.graph_replays = 0
         # host seconds spent in _capture (the eager round and the capture)
@@ -362,10 +466,145 @@ class RoundEngine:
                                             faults)
         return w2, g, losses, thr, step, n_ok, ast
 
+    # -- sharded bodies: the client axis over the ranks ---------------------
+
+    def _bounds(self, c_b: int) -> tuple[int, int]:
+        """This rank's client positions [lo, hi) of a bucket of c_b."""
+        per = c_b // self.shards
+        return self.rank * per, (self.rank + 1) * per
+
+    def _shard_part(self, w, v, xs, ys, sw, cw, k, shared: bool, c_b: int,
+                    h=None, cid=None, cf=None, poison=None):
+        """The rank's half of a sharded round, up to its collective: the
+        threshold (replicated; [C_b] per-client thresholds when not
+        `shared`), the rank's client updates on its batches (xs, ys, sw:
+        its C_b/S positions only) and the row it sends, flat fp32:
+
+          * mean path: its weighted partial sum of the post-fault uploads
+            (the quarantine's weights: a non-finite upload weighs 0), its
+            (weighted, surviving) client counts, its losses;
+          * robust path: its post-fault uploads, their quarantine weights,
+            its losses;
+          * FedDyn (h given): its raw uploads and state deltas, its losses.
+
+        cw, cf, poison and cid are the whole bucket's (the rank slices
+        them). Returns (thresholds, row)."""
+        lo, hi = self._bounds(c_b)
+        q = ops.importance(w, v)
+        thr = kth_smallest_threshold(q, self.prunable, k)
+        if shared:
+            _, mask = ops.packed_importance_mask(w, v, self.prunable, thr)
+            pruned = w * mask
+            masks, start = mask, (lambda c: (pruned, mask))
+        else:
+            # the rank's masks from its local thresholds: one launch of the
+            # batched kernel over the replicated (w, v)
+            _, masks = ops.packed_importance_masks(w, v, self.prunable,
+                                                   thr[lo:hi])
+            start = (lambda c: (w * masks[c], masks[c]))
+        losses, ups, hds = self._client_axis(
+            start, masks, xs, ys, sw, h, None if cid is None else cid[lo:hi])
+        return thr, self._shard_row(losses, ups, hds, cw, c_b, cf, poison)
+
+    def _shard_row(self, losses, ups, hds, cw, c_b: int, cf=None,
+                   poison=None) -> torch.Tensor:
+        """The row `_shard_part` sends, from the rank's losses, uploads and
+        FedDyn state deltas (or None) and the bucket's cw / cf / poison."""
+        lo, hi = self._bounds(c_b)
+        if hds is not None:
+            parts = (ups, hds)
+        else:
+            if cf is not None:
+                ups = ops.flush_mul(ups, cf[lo:hi, None, None])
+            if poison is not None:
+                ups = ops.flush_add(ups, poison[lo:hi])
+            fin = torch.isfinite(ups).flatten(1).all(dim=1)
+            cwl = cw[lo:hi].float()
+            cwe = cwl * fin.float()
+            if self.aggregator is None:
+                parts = (ops.packed_weighted_grad_sum(ups, cwe),
+                         torch.stack([cwl.sum(), cwe.sum()]))
+            else:
+                parts = (ups, cwe)
+        return torch.cat([p.reshape(-1) for p in parts]
+                         + [losses.reshape(-1).float()])
+
+    def _exchange(self, send: torch.Tensor, recv: torch.Tensor) -> None:
+        """The round's one collective: every rank's row into recv [S, n]."""
+        self.group.all_gather_into(send, recv)
+        self.collectives += 1
+        self.gather_seconds += self.group.last_gather_s
+        self.sync_seconds += self.group.last_copy_s
+        self.last_gathered = recv
+
+    def _shard_tail(self, w, v, recv, c_b: int, cw, inv, h=None, cid=None,
+                    noise=None, cf=None, poison=None):
+        """The replicated half of a sharded round, from the gathered rows
+        recv [S, n]: the mean path sums the partials in shard order with
+        the flushing add, renormalizes the mean over the surviving count
+        (the host `inv` passes through when every weighted client
+        survived) and steps; the robust path reduces the full stack and
+        steps with inv = 1; FedDyn runs `_tail` on the full stacks. No
+        survivor: (w, v) carried. Returns (w', v', losses [C_b], step,
+        n_ok, agg_stat)."""
+        per = c_b // self.shards
+        rows, lanes = w.shape
+        rl = w.numel()
+        losses = recv[:, recv.shape[1] - per:].reshape(c_b)
+        if h is not None:
+            ups = recv[:, :per * rl].reshape(c_b, rows, lanes)
+            hds = recv[:, per * rl:2 * per * rl].reshape(c_b, rows, lanes)
+            w2, g, step, n_ok, ast = self._tail(
+                w, v, ups, hds, cw, inv, h, cid,
+                dict(noise=noise, cf=cf, poison=poison))
+            return w2, g, losses, step, n_ok, ast
+        if self.aggregator is not None:
+            grads = recv[:, :per * rl].reshape(c_b, rows, lanes)
+            cwe = recv[:, per * rl:per * rl + per].reshape(c_b)
+            ghat, ast = self.aggregator.reduce(grads, cwe)
+            n_ok = cwe.sum()
+            w2, g, step = ops.packed_apply_mean_update(w, ghat, None,
+                                                       self._eta, noise=noise)
+        else:
+            gsum, cnt = shard_order_sum(recv, rl)
+            n_w, n_ok = cnt[0], cnt[1]
+            inv_t = torch.as_tensor(inv, dtype=torch.float32,
+                                    device=w.device)
+            inv_eff = torch.where(
+                n_ok == n_w, inv_t,
+                torch.where(n_ok > 0.0, 1.0 / torch.clamp(n_ok, min=1.0),
+                            torch.zeros_like(n_ok)))
+            w2, g, step = ops.packed_apply_mean_update(
+                w, gsum.view(rows, lanes), inv_eff, self._eta, noise=noise)
+            ast = self._zero_stat
+        alive = n_ok > 0.0
+        w2 = torch.where(alive, w2, w)
+        g = torch.where(alive, g, v)
+        return w2, g, losses, step, n_ok.int(), ast
+
+    def _round_sharded(self, w, v, xs, ys, sw, cw, inv, k, shared: bool,
+                       h=None, cid=None, noise=None, cf=None, poison=None):
+        """One sharded round from the whole bucket's padded operands (xs,
+        ys, sw [C_b, ...]: the rank uses its positions): `_shard_part`, the
+        collective, `_shard_tail`. Returns `_round_shared`'s outputs."""
+        c_b = int(cw.shape[0])
+        lo, hi = self._bounds(c_b)
+        thr, send = self._shard_part(w, v, xs[lo:hi], ys[lo:hi], sw[lo:hi],
+                                     cw, k, shared, c_b, h=h, cid=cid,
+                                     cf=cf, poison=poison)
+        recv = torch.empty((self.shards, send.numel()), dtype=send.dtype,
+                           device=send.device)
+        self._exchange(send, recv)
+        w2, g, losses, step, n_ok, ast = self._shard_tail(
+            w, v, recv, c_b, cw, inv, h=h, cid=cid, noise=noise, cf=cf,
+            poison=poison)
+        return w2, g, losses, thr, step, n_ok, ast
+
     # -- public API ---------------------------------------------------------
 
     def bucket_size(self, n_clients: int) -> int:
-        return bucket_capacity(n_clients, max_clients=self.max_clients)
+        return bucket_capacity(n_clients, shards=self.shards,
+                               max_clients=self.max_clients)
 
     def init_buffers(self, params) -> tuple[torch.Tensor, torch.Tensor]:
         w = self.pack.pack(tree_map(lambda t: t.to(self.device), params))
@@ -484,15 +723,20 @@ class RoundEngine:
             faults.update(h=h, cid=torch.as_tensor(cid, device=dev))
             self.last_h = h
 
-        if np.all(ks == ks[0]):
-            out = self._round_shared(w, v, xs, ys, sw, cw, inv, int(ks[0]),
-                                     **faults)
+        shared = bool(np.all(ks == ks[0]))
+        if shared:
+            k = int(ks[0])
         else:
             ks_b = np.concatenate(
                 [ks, np.full(pad, ks[-1], np.int32)]) if pad else ks
-            out = self._round_multi(w, v, xs, ys, sw, cw, inv,
-                                    torch.as_tensor(ks_b, device=dev),
-                                    **faults)
+            k = torch.as_tensor(ks_b, device=dev)
+        if self.group is not None:
+            out = self._round_sharded(w, v, xs, ys, sw, cw, inv, k, shared,
+                                      **faults)
+        elif shared:
+            out = self._round_shared(w, v, xs, ys, sw, cw, inv, k, **faults)
+        else:
+            out = self._round_multi(w, v, xs, ys, sw, cw, inv, k, **faults)
         w2, g, losses, thr, step, n_ok, ast = out
         self.last_n_ok = n_ok
         self.last_agg_stat = ast
@@ -524,48 +768,93 @@ class RoundEngine:
             sw = self._sw_cache[shape] = torch.ones(shape, device=self.device)
         return sw
 
-    def _block_round(self, lay: "_BlockLayout", store, w, v, row, noise,
-                     poison, cf_on: bool, out, h=None) -> None:
-        """One round of a block from its operand row (`_BlockLayout`):
-        gathers the batches from the store, runs the `round_step` body on
-        (w, v) (and FedDyn's h, in place), writes (w', g) back into (w, v)
-        and the round's losses, thresholds, survivor and reducer counts
-        into `out`. Every operand is a device tensor, so a CUDA graph can
-        capture the whole round."""
-        c_b, n_k = lay.c_b, lay.n_k
+    def _row_operands(self, lay: "_BlockLayout", row, cf_on: bool) -> dict:
+        """A block round's per-bucket operands from its operand row
+        (`_BlockLayout`): ids, upload weights, the host's 1/n, the k (one,
+        or one a client) and the fault factors (or None)."""
         rowf = row.view(torch.float32)
-        o = lay.offsets
-        shape = lay.batch_shape
-        cid = row[o["cid"]:o["cid"] + c_b].long()
-        ix = row[o["ix"]:o["k"]].view(shape).long()
-        cidx = cid.view((c_b,) + (1,) * (len(shape) - 1))
-        xs = store.x[cidx, ix]
-        ys = store.y[cidx, ix]
-        sw = (rowf[o["sw"]:o["sw"] + ix.numel()].view(shape)
-              if lay.has_sw else self._ones_sw(shape))
-        cw = rowf[o["cw"]:o["cw"] + c_b]
-        inv = rowf[o["inv"]]
-        faults = {} if h is None else dict(h=h, cid=cid)
-        if cf_on:
-            faults["cf"] = rowf[o["cf"]:o["cf"] + c_b]
-        if poison is not None:
-            faults["poison"] = poison
-        if noise is not None:
-            faults["noise"] = noise
-        if lay.shared:
-            res = self._round_shared(w, v, xs, ys, sw, cw, inv, row[o["k"]],
-                                     **faults)
-        else:
-            res = self._round_multi(w, v, xs, ys, sw, cw, inv,
-                                    row[o["k"]:o["k"] + c_b], **faults)
-        w2, g, losses, thr, _, n_ok, ast = res
+        o, c_b = lay.offsets, lay.c_b
+        return dict(cid=row[o["cid"]:o["cid"] + c_b].long(),
+                    cw=rowf[o["cw"]:o["cw"] + c_b], inv=rowf[o["inv"]],
+                    k=row[o["k"]] if lay.shared else row[o["k"]:o["k"] + c_b],
+                    cf=rowf[o["cf"]:o["cf"] + c_b] if cf_on else None)
+
+    def _row_batches(self, lay: "_BlockLayout", store, row, cid, lo: int,
+                     hi: int):
+        """The batches (xs, ys, sw) of client positions [lo, hi) of a block
+        round, gathered from the store by the row's ids `cid` and sample
+        indices (a replicated store by global ids, a sharded cohort by the
+        rank's own row ids: the same slice of the row either way)."""
+        o, shape = lay.offsets, lay.batch_shape
+        ix = row[o["ix"]:o["k"]].view(shape)[lo:hi].long()
+        cidx = cid[lo:hi].view((hi - lo,) + (1,) * (len(shape) - 1))
+        sw = (row.view(torch.float32)[o["sw"]:o["sw"] + int(np.prod(shape))]
+              .view(shape)[lo:hi] if lay.has_sw
+              else self._ones_sw((hi - lo,) + shape[1:]))
+        return store.x[cidx, ix], store.y[cidx, ix], sw
+
+    def _put_round(self, lay: "_BlockLayout", w, v, out, w2, g, losses,
+                   n_ok, ast) -> None:
+        """A block round's results: (w', g) into (w, v), the losses and the
+        survivor and reducer counts into `out`."""
         w.copy_(w2)
         v.copy_(g)
-        outf = out.view(torch.float32)
-        outf[:c_b].copy_(losses)
-        outf[c_b:c_b + n_k].copy_(thr.reshape(-1))
+        out.view(torch.float32)[:lay.c_b].copy_(losses)
         out[-2].copy_(n_ok)
         out[-1].copy_(ast)
+
+    def _block_round(self, lay: "_BlockLayout", store, w, v, row, noise,
+                     poison, cf_on: bool, out, h=None) -> None:
+        """One round of a block from its operand row: gathers the batches
+        from the store, runs the `round_step` body on (w, v) (and FedDyn's
+        h, in place), writes (w', g) back into (w, v) and the round's
+        losses, thresholds, survivor and reducer counts into `out`. Every
+        operand is a device tensor, so a CUDA graph can capture the whole
+        round."""
+        f = self._row_operands(lay, row, cf_on)
+        xs, ys, sw = self._row_batches(lay, store, row, f["cid"], 0, lay.c_b)
+        body = self._round_shared if lay.shared else self._round_multi
+        w2, g, losses, thr, _, n_ok, ast = body(
+            w, v, xs, ys, sw, f["cw"], f["inv"], f["k"], h=h,
+            cid=None if h is None else f["cid"], noise=noise, cf=f["cf"],
+            poison=poison)
+        out.view(torch.float32)[lay.c_b:lay.c_b + lay.n_k].copy_(
+            thr.reshape(-1))
+        self._put_round(lay, w, v, out, w2, g, losses, n_ok, ast)
+
+    def _block_part(self, lay: "_BlockLayout", store, w, v, row, poison,
+                    cf_on: bool, out, h=None) -> torch.Tensor:
+        """A sharded block round up to its collective: gathers the rank's
+        positions' batches from the store, runs `_shard_part`, writes the
+        thresholds into `out` and returns the row to send."""
+        c_b = lay.c_b
+        lo, hi = self._bounds(c_b)
+        f = self._row_operands(lay, row, cf_on)
+        xs, ys, sw = self._row_batches(lay, store, row, f["cid"], lo, hi)
+        thr, send = self._shard_part(
+            w, v, xs, ys, sw, f["cw"], f["k"], lay.shared, c_b, h=h,
+            cid=None if h is None else f["cid"], cf=f["cf"], poison=poison)
+        out.view(torch.float32)[c_b:c_b + lay.n_k].copy_(thr.reshape(-1))
+        return send
+
+    def _block_tail(self, lay: "_BlockLayout", w, v, row, noise, poison,
+                    cf_on: bool, out, recv, h=None) -> None:
+        """A sharded block round after its collective: `_shard_tail` on
+        the gathered rows, then `_put_round`."""
+        f = self._row_operands(lay, row, cf_on)
+        w2, g, losses, _, n_ok, ast = self._shard_tail(
+            w, v, recv, lay.c_b, f["cw"], f["inv"], h=h, cid=f["cid"],
+            noise=noise, cf=f["cf"], poison=poison)
+        self._put_round(lay, w, v, out, w2, g, losses, n_ok, ast)
+
+    def _block_sharded_round(self, lay, store, w, v, row, noise, poison,
+                             cf_on: bool, out, h) -> None:
+        """One eager sharded block round: part, collective, tail."""
+        part = self._block_part(lay, store, w, v, row, poison, cf_on, out, h)
+        recv = torch.empty((self.shards, part.numel()), dtype=part.dtype,
+                           device=part.device)
+        self._exchange(part, recv)
+        self._block_tail(lay, w, v, row, noise, poison, cf_on, out, recv, h)
 
     def _capture(self, key, lay, store, w, v, row, noise, poison,
                  cf_on, h) -> "_RoundGraph":
@@ -600,22 +889,57 @@ class RoundEngine:
                                 device=self.device))
             cur = torch.cuda.current_stream(self.device)
             s.wait_stream(cur)
-            with torch.cuda.stream(s):
-                self._block_round(lay, store, w, v, rg.row, rg.noise,
-                                  rg.poison, cf_on, rg.out, h)
-            graph = torch.cuda.CUDAGraph()
-            with capturing() as launches:
-                with torch.cuda.graph(graph, stream=s,
-                                      capture_error_mode="thread_local"):
+            if self.group is not None:
+                self._capture_sharded(rg, lay, store, w, v, cf_on, h, s)
+            else:
+                with torch.cuda.stream(s):
                     self._block_round(lay, store, w, v, rg.row, rg.noise,
                                       rg.poison, cf_on, rg.out, h)
-            rg.launches = launches
+                graph = torch.cuda.CUDAGraph()
+                with capturing() as launches:
+                    with torch.cuda.graph(graph, stream=s,
+                                          capture_error_mode="thread_local"):
+                        self._block_round(lay, store, w, v, rg.row,
+                                          rg.noise, rg.poison, cf_on, rg.out,
+                                          h)
+                rg.launches = launches
+                rg.graph = graph
+                self.graphs_captured += 1
             cur.wait_stream(s)
-            rg.graph = graph
             self._graphs[key] = rg
-            self.graphs_captured += 1
             self.capture_seconds += time.perf_counter() - t0
             return rg
+
+    def _capture_sharded(self, rg: "_RoundGraph", lay, store, w, v,
+                         cf_on: bool, h, s) -> None:
+        """`_capture` of a sharded body: the eager round (part, collective,
+        tail) on the capture stream, then two graphs, the part up to the
+        collective (it writes the static send row) and the tail after it
+        (it reads the static gathered rows); a collective cannot sit inside
+        a graph, so the host gathers between their replays."""
+        with torch.cuda.stream(s):
+            part = self._block_part(lay, store, w, v, rg.row, rg.poison,
+                                    cf_on, rg.out, h)
+            rg.send = torch.empty_like(part)
+            rg.recv = torch.empty((self.shards, part.numel()),
+                                  dtype=part.dtype, device=part.device)
+            rg.send.copy_(part)
+            self._exchange(rg.send, rg.recv)
+            self._block_tail(lay, w, v, rg.row, rg.noise, rg.poison, cf_on,
+                             rg.out, rg.recv, h)
+        pre, post = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with capturing() as launches:
+            with torch.cuda.graph(pre, stream=s,
+                                  capture_error_mode="thread_local"):
+                rg.send.copy_(self._block_part(lay, store, w, v, rg.row,
+                                               rg.poison, cf_on, rg.out, h))
+            with torch.cuda.graph(post, stream=s,
+                                  capture_error_mode="thread_local"):
+                self._block_tail(lay, w, v, rg.row, rg.noise, rg.poison,
+                                 cf_on, rg.out, rg.recv, h)
+        rg.launches = launches
+        rg.graph, rg.post = pre, post
+        self.graphs_captured += 2
 
     @torch.no_grad()
     def block_step(self, w, v, store, cids, idxs, lams, counts,
@@ -664,9 +988,14 @@ class RoundEngine:
         of a block must share one bucket; K is not padded."""
         dyn = self._dyn(h)
         if getattr(store, "sharded", False):
-            raise NotImplementedError(
-                "a data-sharded cohort store is not ported to repro_torch "
-                "yet (ROADMAP.md §1 item 8)")
+            if self.group is None:
+                raise ValueError("a data-sharded cohort store needs an "
+                                 "engine sharded over the same ranks")
+            if dyn:
+                raise ValueError(
+                    "feddyn over a data-sharded cohort store is not "
+                    "supported: run with shards=1 (streamed cohorts stay "
+                    "available) or client_store='replicated'")
         lams = np.asarray(lams, np.float64)
         if np.any((lams < 0.0) | (lams >= 1.0)):
             raise ValueError(f"lambda must be in [0,1), got {lams}")
@@ -790,7 +1119,8 @@ class RoundEngine:
             vs.copy_(v)
             for k in range(n_rounds):
                 row, noise, poison, cf_k = operands(k)
-                key = (lay, cf_k, poison is not None, noise is not None)
+                key = (lay, cf_k, poison is not None, noise is not None,
+                       self.shards)
                 rg = self._graphs.get(key)
                 if rg is None:
                     rg = self._capture(key, lay, store, ws, vs, row, noise,
@@ -803,16 +1133,21 @@ class RoundEngine:
                         rg.poison.copy_(poison)
                     rg.graph.replay()
                     self.graph_replays += 1
+                    if rg.post is not None:
+                        self._exchange(rg.send, rg.recv)
+                        rg.post.replay()
+                        self.graph_replays += 1
                     for name, n in rg.launches.items():
                         count_launch(name, n)
                 out[k].copy_(rg.out)
             w2, v2 = ws.clone(), vs.clone()
         else:
             w2, v2 = w.clone(), v.clone()
+            body = (self._block_round if self.group is None
+                    else self._block_sharded_round)
             for k in range(n_rounds):
                 row, noise, poison, cf_k = operands(k)
-                self._block_round(lay, store, w2, v2, row, noise, poison,
-                                  cf_k, out[k], h)
+                body(lay, store, w2, v2, row, noise, poison, cf_k, out[k], h)
         outf = out.view(torch.float32)
         losses = outf[:, :c_b]
         thrs = outf[:, c_b:c_b + lay.n_k]
@@ -891,11 +1226,15 @@ class _BlockLayout:
 class _RoundGraph:
     """A captured round body with its static operand buffers: the operand
     row, the round's noise and poison, and the output row; `launches` are
-    the kernel launches of one replay."""
+    the kernel launches of one replay (of both graphs of a sharded
+    body)."""
 
     def __init__(self, row, noise, poison, out):
         self.row, self.noise, self.poison, self.out = row, noise, poison, out
         self.graph = None
+        # a sharded body's second graph (after the collective) and the
+        # static rows it sends and receives
+        self.post = self.send = self.recv = None
         self.launches: dict[str, int] = {}
 
 

@@ -1751,3 +1751,58 @@ def test_launch_counts_stay_exact_under_two_sweep_workers(dev):
         assert counts["importance_mask_2d"] + \
             counts["importance_mask_batched"] == n_rounds, workers
     assert out[1][1] == out[2][1] and len(out[1][1]) == 4
+
+
+# -- the sharded client axis: two gloo ranks sharing the card -------------------
+
+@pytest.fixture(scope="module")
+def card_shards():
+    """Each rank's results of tests/_torch_shards.py `card_cases`, from
+    one spawn of two gloo ranks on the card (the parent builds the kernels
+    first: the ranks must not race nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels build with nvcc for sm_90a")
+    import _torch_shards
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import spawn_shards
+    _build.load()
+    return spawn_shards(_torch_shards.card_cases, 2, device="cuda:0",
+                        timeout_s=600, threads=None)
+
+
+@pytest.mark.cuda
+def test_sharded_mean_round_on_two_ranks_is_the_replay_of_its_partials(
+        card_shards):
+    """A per-client-lambda round at 2 ranks: v is the host's shard-order
+    replay of the gathered partials bit for bit, the losses are one rank's,
+    w within 1e-6 of one rank's."""
+    for r in card_shards:
+        m = r["multi"]
+        assert m["replay_bitwise"] and m["round_losses_bitwise"]
+        assert m["round_w_max_err"] <= 1e-6 * m["round_w_scale"]
+
+
+@pytest.mark.cuda
+def test_sharded_robust_round_on_two_ranks_equals_one_rank(card_shards):
+    for r in card_shards:
+        m = r["coord_median"]
+        assert m["round_w_bitwise"] and m["round_v_bitwise"]
+        assert m["round_losses_bitwise"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["multi", "coord_median"])
+def test_sharded_capture_split_block_equals_its_rounds(card_shards, body):
+    """Two blocks of 4 rounds, each round two graphs around the host's
+    gather, against 8 sharded round_steps: bit for bit, one collective a
+    round, the same kernel launches; both ranks end on the same (w, v)."""
+    for r in card_shards:
+        m = r[body]
+        assert m["block_rounds_bitwise"] and m["block_w_bitwise"]
+        assert m["block_v_equal"]
+        assert m["block_collectives"] == 8
+        assert m["launches_blocked"] == m["launches_eager"]
+        assert m["launches_blocked"]["exponent_histogram"] == 8
+        assert m["graphs_captured"] >= 2 and m["graphs_captured"] % 2 == 0
+        assert m["graphs_captured"] + m["graph_replays"] == 16
+    assert card_shards[0][body]["digest"] == card_shards[1][body]["digest"]

@@ -33,6 +33,7 @@ import repro_torch.data as tdata  # noqa: E402
 import repro_torch.wireless as twireless  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
 
@@ -245,7 +246,7 @@ for need in ("repro_torch.kernels._build", "repro_torch.configs.registry",
              "repro_torch.models.flash_vjp",
              "repro_torch.kernels.flash_attention_bwd",
              "repro_torch.launch.steps", "repro_torch.launch.train",
-             "repro_torch.models.moe"):
+             "repro_torch.models.moe", "repro_torch.launch.mesh"):
     assert need in sys.modules, need
 print(len(names))
 """
@@ -255,7 +256,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 77
+    assert int(out.stdout.split()[-1]) >= 78
 
 
 def test_entry_points_default_to_cuda():
@@ -285,10 +286,11 @@ def test_entry_points_default_to_cuda():
         == "cuda"
 
 
-def test_engine_eval_and_inits_default_to_cuda():
-    """RoundEngine, make_eval_fn and the model inits take device=None as
-    CUDA, like FederatedTrainer: on a host without a card they raise rather
-    than run on the CPU unasked."""
+def test_engine_eval_and_inits_default_to_cuda(tmp_path):
+    """RoundEngine, make_eval_fn, the model inits and the shard launcher
+    (spawn_shards, init_shards) take device=None as CUDA, like
+    FederatedTrainer: on a host without a card they raise rather than run
+    on the CPU unasked (the launcher before it starts or joins a rank)."""
     if torch.cuda.is_available():
         pytest.skip("the host has a card: device=None resolves to it")
     params = cnn.mlp_edge_init(torch.Generator().manual_seed(0), device="cpu")
@@ -300,6 +302,9 @@ def test_engine_eval_and_inits_default_to_cuda():
                                  np.zeros(2, np.int32)),
         lambda: cnn.lenet_init(torch.Generator().manual_seed(0)),
         lambda: cnn.mlp_edge_init(torch.Generator().manual_seed(0)),
+        lambda: mesh.spawn_shards(len, 2, timeout_s=30),
+        lambda: mesh.init_shards(2, rank=0,
+                                 init_method=f"file://{tmp_path}/rdzv"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

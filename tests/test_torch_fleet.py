@@ -15,8 +15,8 @@ the CPU, against the JAX package.
   stall seconds) are JAX's, and the streamed trajectory from JAX's initial
   weights stays within atol 1e-4 of JAX's after 6 rounds (layer (d)).
 * Policy: "auto" resolves on the budget, StoreBudgetError names the
-  population, data selection on a roster is refused, sharded cohorts name
-  ROADMAP.md §1 item 8.
+  population, data selection on a roster is refused. (Sharded cohorts:
+  tests/test_torch_sharding.py.)
 """
 import dataclasses
 
@@ -35,7 +35,6 @@ import repro_torch.api as tapi  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import (ClientStore, CohortStore,  # noqa: E402
                               StoreBudgetError, estimated_store_nbytes)
-from repro_torch.core.cohort_store import Cohort  # noqa: E402
 from repro_torch.data import make_fleet  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
@@ -222,25 +221,6 @@ def test_cohort_rows_match_replicated_store_and_jax_counters(seed):
     again.schedule(plans[:2])
     assert again.slots is slots
     again.close()
-
-
-def test_sharded_cohorts_name_item_8():
-    roster = make_fleet(population=6, n_train=60, n_test=8).roster
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        CohortStore(roster, mesh=object(), shards=2, device="cpu")
-    spec = fleet_spec(tapi, "streamed", rounds_per_dispatch=2)
-    run = tapi.Experiment(spec).build(device="cpu")
-    eng = run.trainer.engine
-    w, v = eng.init_buffers(run.trainer.params)
-    x = torch.zeros((2, 4, 28, 28, 1))
-    y = torch.zeros((2, 4), dtype=torch.int32)
-    cohort = Cohort(x=x, y=y, counts=np.full(2, 4), sharded=True,
-                    ids_by_shard=[np.arange(1), np.arange(1, 2)], start=0,
-                    nbytes=0)
-    with pytest.raises(NotImplementedError, match=r"item 8\)"):
-        eng.block_step(w, v, cohort, np.zeros((1, 2), np.int32),
-                       np.zeros((1, 2, 4), np.int32), np.zeros((1, 2)),
-                       np.asarray([2]))
 
 
 # -- the trainer: streamed == replicated ---------------------------------------

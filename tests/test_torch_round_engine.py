@@ -255,17 +255,13 @@ def test_trainer_state_views_round_trip():
 
 
 def test_unported_options_raise_not_implemented():
-    """Options of the JAX trainer the port does not carry yet raise naming
-    their ROADMAP.md §1 item; the ones it now carries (blocks, the client
-    store, local schemes, callbacks, resume, reset) do not."""
+    """The JAX trainer's options the port carries (blocks, the client
+    store, local schemes, callbacks, resume, reset; sharding, which needs a
+    process group: tests/test_torch_sharding.py) raise nothing."""
     from repro_torch.core.local import make_local_scheme
     clients = _env(2, 60, seed=5)
     params = cnn.mlp_edge_init(torch.Generator().manual_seed(5), device="cpu")
     loss = cnn.make_loss_fn(cnn.mlp_edge_apply)
-    for kw, item in ((dict(shards=2), "8"),):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            FederatedTrainer(loss, params, clients, eta=0.1, batch_size=8,
-                             device="cpu", **kw)
     for kw in (dict(rounds_per_dispatch=4), dict(rounds_per_dispatch="auto"),
                dict(client_store="replicated"), dict(client_store="auto"),
                dict(client_store="streamed"),
