@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, then the result line
     python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
     python3 chip_smoke.py --sharded    # phase 1 and the sharded phase only
+    python3 chip_smoke.py --lm-sharded # phase 1 and the sharded LM step only
 
 Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
@@ -142,11 +143,11 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      at mamba2's shapes; times, bounds and the library call
      (scaled_dot_product_attention) beside them, the device time summed
      over every kernel the wrapper launches per call;
- 12. granite-3-2b at full width in bf16, its depth cut from 40 to 10
+ 12. granite-3-2b at full width in bf16, its depth cut from 40 to 8
      layers (random weights, seed 0), served by the continuous-batching
      engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
-     slots; flash launches == 10 x 16, engine tokens == a sequential
+     slots; flash launches == 8 x 16, engine tokens == a sequential
      generation over the same padded prefill (the first request of each
      bucket and one in a reused slot); the prefill's last-token
      logits in fp32 on the same weights within 1e-3 (relative L2) of the
@@ -161,7 +162,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
-     then (16.) hymba-1.5b at full width, 16 of its 32 layers (25/5
+     then (16.) hymba-1.5b at full width, 6 of its 32 layers (25/5
      heads of 64, window 1,024 beside the SSM mixer) and (17.)
      mixtral-8x22b at full width, 2 of its 56 layers (48/8 heads of 128,
      8 experts of top 2), served as granite is: flash launches == layers
@@ -202,7 +203,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  15. mamba2-130m trained at full size the same way: finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
-     then (18.) hymba-1.5b at full width and depth, (19.) mixtral-8x22b
+     then (18.) hymba-1.5b at full width, 8 of its 32 layers, (19.) mixtral-8x22b
      at full width on one layer (its deepest that trains on one card; 4
      microbatches) and (23.) whisper-small at full size (an encoder input
      [4, 1500, 768] beside each batch) trained with phase 14's checks,
@@ -211,6 +212,26 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      depth-2 copy (whisper's encoder cut to 2 layers with it). Training
      llama-vision is left out: one group at full width (6.5e9 parameters)
      would take ~150 GB at mixtral's ~23 bytes a parameter;
+ 25. the sharded LM train step (sharding/rules.py on DTensor): (a)
+     granite-3-2b at full width, 2 of its 40 layers, one masked-FedSGD
+     step of 2 x 4096 tokens on a 1 x 1 (data, model) mesh (a fake world
+     of one rank), parameters and masks placed by the partition rules,
+     attention through local_map into kernel 8 and the backward: loss and
+     every new parameter bit for bit the unsharded step's, the kernels'
+     launches equal; (b) rank 0's share of the production 16 x 16 mesh (a
+     fake world of 256 ranks whose collectives move nothing) for
+     granite-3-2b at full width and depth on train_4k (256 x 4096
+     tokens; 16 x 4096 on rank 0): its local shards on the card, one
+     warm-up step and one timed step; peak memory under 80 GiB, the
+     collective counts by kind those of the dry run (launch/dryrun.py,
+     its collectives pass on meta tensors, in this process after the
+     step) of the same (arch, shape, mesh), kernel 8 launched layers x 2
+     (remat) and the backward layers times, every local shard the rules'
+     shape; ms a step, peak GiB and collectives printed; then kernel 8
+     with lse and the backward at the local shape the step gives them
+     (q [16, 4096, 2, 64], k / v [16, 4096, 1, 64]: 2 query heads on one
+     repeated KV head, g = 2) on random inputs, held to their plain
+     versions and timed as phase 14's kernel rows are;
  20. one JSON line listing the kernels (the ten TPU kernels' ports and
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
@@ -2623,13 +2644,15 @@ BF16_TOL = 2e-2
 GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
                max_batch=8, max_seq=2048, buckets=(256, 512, 1024),
                len_lo=130, len_hi=1000, n_sequential=None,
-               logits_rel_l2=1e-3, layers=10)
+               logits_rel_l2=1e-3, layers=8)
 # hymba-1.5b at full width and depth on granite's traffic: the hybrid
 # family prefills the exact prompt length (no padding into its SSM state),
 # so its 16 lengths are all distinct; the first of them and a request in a
 # reused slot are held to sequential generation. Its depth is cut from 32
-# to 16 layers (full width kept) to make room for the audio and vlm phases
-HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=16, n_sequential=1)
+# to 16 layers (full width kept) to make room for the audio and vlm phases,
+# and to 6 for the sharded LM phase (25: its in-process dry run and its
+# kernel rows at rank 0's local shapes)
+HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=6, n_sequential=1)
 # mixtral-8x22b at full width, 2 of its 56 layers (5.0 GB of bf16 a layer;
 # 4 until the sharded phase needed the time); padded buckets, so its
 # padding tokens share expert capacity with the prompt's, and the
@@ -3707,6 +3730,9 @@ def train_kernel_rows(captured, card, smi, name):
 # mixtral-8x22b trains at full width on this many of its 56 layers: the
 # deepest whole number whose peak stays under ~70 GiB on one card
 MIXTRAL_TRAIN_LAYERS = 1
+# hymba trains 8 of its 32 layers (full width) since the sharded LM phase
+# (25) needed the time
+HYMBA_TRAIN_LAYERS = 8
 
 
 # gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
@@ -3896,6 +3922,280 @@ def mamba_train_phase(dev, smi):
     return problems
 
 
+# phase 25: the sharded LM train step (sharding/rules.py, DTensor)
+LM_SHARDED = dict(arch="granite-3-2b", one_layers=2, one_batch=2,
+                  mesh=(16, 16), lam=0.3, card_gib=80.0)
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def _local_random(meta, dev, gen, kind, vocab=None):
+    """A random tensor of `meta`'s shape (a local shard) on the card:
+    normal * 0.02 in its dtype ("param"), a {0, 1} uint8 mask kept with
+    probability 1 - lambda ("mask"), or token ids below `vocab`
+    ("tokens")."""
+    shape = tuple(meta.shape)
+    if kind == "param":
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(
+            meta.dtype)
+    if kind == "mask":
+        return (torch.rand(shape, generator=gen, device=dev)
+                >= LM_SHARDED["lam"]).to(torch.uint8)
+    return torch.randint(0, vocab, shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def lm_sharded_one(dev, smi):
+    """(a) granite-3-2b at full width, LM_SHARDED["one_layers"] of its 40
+    layers, in bf16 under the train_4k runtime (flash_vjp, remat), one
+    masked-FedSGD step on a batch of one_batch x 4096 random tokens: the
+    unsharded step, then the same tensors as DTensors placed by the
+    partition rules over a 1 x 1 (data, model) mesh on a fake world of one
+    rank (no data moves), the step through local_map and the kernels.
+    Loss and every new parameter bit for bit; kernel 8's and the
+    backward's launches equal. Returns (problems, row, sharded
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import INPUT_SHAPES
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import rules
+    from repro_torch.tree import leaves, tree_map
+    from torch.distributed.device_mesh import init_device_mesh
+    c = LM_SHARDED
+    shape = INPUT_SHAPES["train_4k"]
+    cfg, rt = steps.specialize(dataclasses.replace(
+        get_config(c["arch"]), num_layers=c["one_layers"]), shape)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+    masks = tree_map(lambda w: _local_random(w, dev, gen, "mask"), params)
+    tok = _local_random(torch.empty(c["one_batch"], shape.seq_len + 1,
+                                    device="meta"), dev, gen, "tokens",
+                        cfg.vocab_size)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    step = steps.make_train_step(cfg, rt)
+    reset_launches()
+    loss0, new0 = step(params, masks, batch)
+    torch.cuda.synchronize()
+    plain = {k: LAUNCHES[k] for k in FLASH_KERNELS}
+    fake_world(1)
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data",
+                                                                "model"))
+    pol = rules.make_policy(cfg, mesh, "train")
+    specs = rules.param_specs(cfg, pol, params)
+    dp = rules.distribute(params, specs, mesh)
+    dm = rules.distribute(masks, specs, mesh)
+    db = rules.distribute(batch, {k: rules.batch_spec(v.shape[0], pol)
+                                  for k, v in batch.items()}, mesh)
+    reset_launches()
+    with rules.set_mesh(mesh):
+        loss1, new1 = step(dp, dm, db)
+    torch.cuda.synchronize()
+    sharded = {k: LAUNCHES[k] for k in FLASH_KERNELS}
+    loss_eq = torch.equal(loss0, loss1.to_local())
+    differ = sum(not torch.equal(a, b.to_local())
+                 for a, b in zip(leaves(new0), leaves(new1)))
+    problems = []
+    if not loss_eq or differ:
+        problems.append(f"lm sharded 1x1: loss equal {loss_eq}, {differ} "
+                        "parameter leaves differ from the unsharded step")
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers}
+    if sharded != plain or plain != want:
+        problems.append(f"lm sharded 1x1: launches {sharded}, unsharded "
+                        f"{plain}, expected {want}")
+    row = {"lm_sharded": "1x1", "card": smi, "arch": c["arch"],
+           "layers": cfg.num_layers, "batch": c["one_batch"],
+           "seq": shape.seq_len, "loss": float(loss0),
+           "loss_bitwise": loss_eq, "param_leaves_differing": differ,
+           "launches": sharded, "unsharded_launches": plain}
+    print(json.dumps(row))
+    return problems, row, sharded
+
+
+def lm_sharded_rank0(dev, card, smi):
+    """(b) rank 0's share of the production 16 x 16 mesh: granite-3-2b at
+    full width and depth, train_4k (256 x 4096 tokens), a fake world of
+    256 ranks (every collective completes at once and moves nothing, so
+    the values of gathered shards are not meaningful). Rank 0's local
+    shards of the parameters, masks and batch (16 x 4096 tokens on the
+    data axis) are random tensors on the card, placed by the rules; one
+    warm-up step, then one timed step under CommDebugMode. Checks: peak
+    memory under the card's 80 GiB, the collective counts those of the
+    dry run (launch/dryrun.py, its collectives pass on the meta device,
+    run here after the step) for the same (arch, shape, mesh), the
+    launches layers x 2 (remat) for kernel 8 and layers for the backward,
+    every local shard's shape the rules'. Then kernel 8 with lse and the
+    backward at the local shape this path gives them (layer 0's, read
+    from the step: granite's 32 / 8 heads on 16 model ranks are 2 query
+    heads on one repeated KV head, g = 2), on random inputs of that shape
+    held against their plain versions (train_kernel_rows). Returns
+    (problems, row, launches, (forward row, backward row))."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models import flash_vjp as fv
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import INPUT_SHAPES
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import rules
+    from repro_torch.tree import flatten_with_path, leaves, unflatten
+    c = LM_SHARDED
+    os.environ.pop("REPRO_FORCE_MESH", None)
+    shape = INPUT_SHAPES["train_4k"]
+    cfg, rt = steps.specialize(get_config(c["arch"]), shape)
+    dryrun.fake_world(math.prod(c["mesh"]))
+    mesh = make_production_mesh(device_type=dev.type)
+    pol = rules.make_policy(cfg, mesh, "train")
+    shapes = rules.param_shapes(cfg)
+    specs = rules.param_specs(cfg, pol, shapes)
+    spec_list = [s for _, s in rules.spec_leaves(specs)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def shard(tree, sp, kind, vocab=None):
+        out = []
+        for (_, t), s in zip(flatten_with_path(tree), sp):
+            loc = torch.empty(rules.local_shape(t.shape, s, mesh),
+                              dtype=t.dtype, device="meta")
+            out.append(DTensor.from_local(
+                _local_random(loc, dev, gen, kind, vocab), mesh,
+                rules.placements(s, mesh), run_check=False,
+                shape=t.shape, stride=torch.empty(t.shape,
+                                                  device="meta").stride()))
+        return unflatten(tree, out)
+
+    torch.cuda.reset_peak_memory_stats()
+    dp = shard(shapes, spec_list, "param")
+    dm = shard(shapes, spec_list, "mask")
+    bmeta = steps.batch_specs(cfg, shape, with_labels=True)
+    bspec = [rules.batch_spec(v.shape[0], pol) for v in bmeta.values()]
+    db = shard(bmeta, bspec, "tokens", cfg.vocab_size)
+    step = steps.make_train_step(cfg, rt)
+    captured, sound = {}, fv._kernel_bwd
+
+    def keep_last(res, do, *args):      # the last call of a backward: layer 0
+        captured["shapes"] = [tuple(t.shape) for t in (*res, do)]
+        captured["args"] = args
+        return sound(res, do, *args)
+
+    with rules.set_mesh(mesh):
+        step(dp, dm, db)                                  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        comm = dryrun.comm_counter()
+        fv._kernel_bwd = keep_last
+        t = time.perf_counter()
+        try:
+            with comm:
+                loss, new = step(dp, dm, db)
+            torch.cuda.synchronize()
+        finally:
+            fv._kernel_bwd = sound
+        ms = 1e3 * (time.perf_counter() - t)
+    launches = {k: LAUNCHES[k] for k in FLASH_KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dryrun.collective_stats(comm)["counts"]
+    problems = []
+    bad_shapes = [p for (p, w), s in zip(flatten_with_path(new), spec_list)
+                  if tuple(w.to_local().shape) != rules.local_shape(
+                      w.shape, s, mesh)
+                  or tuple(w.placements) != rules.placements(s, mesh)]
+    bad_shapes += [p for (p, w), s in zip(flatten_with_path(dm), spec_list)
+                   if tuple(w.to_local().shape) != rules.local_shape(
+                       w.shape, s, mesh)]
+    bad_shapes += [k for (k, w), s in zip(db.items(), bspec)
+                   if tuple(w.to_local().shape) != rules.local_shape(
+                       w.shape, s, mesh)]
+    if bad_shapes:
+        problems.append(f"lm sharded 16x16: local shards off the rules' "
+                        f"shapes: {bad_shapes[:5]}")
+    want = {"flash_attention": 2 * cfg.num_layers,
+            "flash_attention_bwd": cfg.num_layers}
+    if launches != want:
+        problems.append(f"lm sharded 16x16: launches {launches}, expected "
+                        f"{want}")
+    if not peak < c["card_gib"]:
+        problems.append(f"lm sharded 16x16: peak {peak:.2f} GiB")
+    del dp, dm, db, new, loss
+    torch.cuda.empty_cache()
+    # the dry run's collectives pass (launch/dryrun.run_one's first pass)
+    # on meta tensors, in this process's fake world of 256
+    t = time.perf_counter()
+    lowered, _ = dryrun.lower_step(c["arch"], "train_4k")
+    dry_comm = dryrun.comm_counter()
+    with dry_comm:
+        lowered.run()
+    dry = dryrun.collective_stats(dry_comm)["counts"]
+    dry_s = time.perf_counter() - t
+    del lowered
+    if dry != counts:
+        problems.append(f"lm sharded 16x16: collectives {counts}, the dry "
+                        f"run's {dry}")
+    # kernel 8 and the backward at layer 0's local shapes: q [16, 4096, 2,
+    # 64], k / v [16, 4096, 1, 64]
+    hq = cfg.num_heads // c["mesh"][1]
+    want_q = (shape.global_batch // c["mesh"][0], shape.seq_len, hq,
+              cfg.head_dim)
+    want_kv = want_q[:2] + (1, cfg.head_dim)
+    got = captured.get("shapes")
+    if not got or got[0] != want_q or got[1] != want_kv or \
+            got[2] != want_kv:
+        problems.append(f"lm sharded 16x16: layer 0's attention shapes "
+                        f"{got}, expected q {want_q}, k / v {want_kv}")
+    rng = np.random.default_rng(0)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(
+        np.float32)).to(dev, torch.bfloat16)
+        for sh in (want_q, want_kv, want_kv, want_q))
+    causal, window, cap = captured.get("args", (True, 0, 0.0))
+    o, lse = fv._kernel_fwd(q, k, v, causal, window, cap)
+    k_problems, fwd_row, bwd_row = train_kernel_rows(
+        ((q, k, v, o, lse), do, (causal, window, cap)), card, smi,
+        f"{c['arch']} 16x16 rank 0 (random inputs)")
+    problems += k_problems
+    row = {"lm_sharded": "16x16 rank 0", "card": smi, "arch": c["arch"],
+           "layers": cfg.num_layers, "global_batch": shape.global_batch,
+           "local_batch": rules.local_shape(
+               (shape.global_batch, shape.seq_len), bspec[0], mesh)[0],
+           "seq": shape.seq_len, "ms_per_step": ms, "peak_gib": peak,
+           "collectives": counts,
+           "collective_bytes": dryrun.collective_stats(comm)["bytes_by_kind"],
+           "dry_run_collectives": dry, "dry_run_s": dry_s,
+           "launches": launches, "layer0_attention_shapes": got}
+    print(json.dumps(row))
+    return problems, row, launches, (fwd_row, bwd_row)
+
+
+def lm_sharded_phase(dev, card, smi):
+    """Phase 25: (a) lm_sharded_one, (b) lm_sharded_rank0; the fake process
+    group is taken down after each. Returns (problems, launches by part,
+    (b)'s kernel rows or None)."""
+    import traceback
+
+    import torch.distributed as dist
+    problems, launches, rows = [], {}, None
+    for part, fn, args in (("1x1", lm_sharded_one, (dev, smi)),
+                           ("16x16_rank0", lm_sharded_rank0,
+                            (dev, card, smi))):
+        # a part that raises fails the phase with its traceback, and the
+        # other part still runs
+        try:
+            p, _, launches[part], *more = fn(*args)
+            problems += p
+            rows = more[0] if more else rows
+        except Exception:
+            problems.append(f"lm sharded {part} raised:\n"
+                            + traceback.format_exc())
+            launches[part] = {k: 0 for k in FLASH_KERNELS}
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    return problems, launches, rows
+
+
 def _short(arch: str) -> str:
     return arch.split("-")[0]
 
@@ -3916,6 +4216,9 @@ def main() -> int:
     parser.add_argument("--sharded", action="store_true",
                         help="set-up and the sharded client axis (phase 24) "
                              "only; no result line")
+    parser.add_argument("--lm-sharded", action="store_true",
+                        help="set-up and the sharded LM train step (phase "
+                             "25) only; no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3949,6 +4252,17 @@ def main() -> int:
     # tensor cores: HGMMA in the SASS of every wgmma instantiation, read by
     # cuobjdump beside the phases and checked before the result line
     sass_job = ThreadPoolExecutor(max_workers=1).submit(sass_hgmma_counts)
+    if args.lm_sharded:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        t = time.perf_counter()
+        problems, _, _ = lm_sharded_phase(dev, name, card)
+        walls["lm_sharded_train_step"] = time.perf_counter() - t
+        print(json.dumps({"phase_wall_s": walls}))
+        problems += hgmma_problems(sass_job.result())
+        if problems:
+            print("chip_smoke FAILED: " + "; ".join(problems),
+                  file=sys.stderr)
+        return 1 if problems else 0
     if args.sharded:
         t = time.perf_counter()
         problems = sharded_phase(dev, card)
@@ -4133,7 +4447,7 @@ def main() -> int:
     problems += mamba_train_phase(dev, card)
     walls["mamba2_train"] = time.perf_counter() - t
     new_train = {}
-    for arch, layers in (("hymba-1.5b", None),
+    for arch, layers in (("hymba-1.5b", HYMBA_TRAIN_LAYERS),
                          ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
                          ("whisper-small", None)):
         t = time.perf_counter()
@@ -4142,6 +4456,11 @@ def main() -> int:
         problems += tr_problems
         new_train[arch] = (tr_launches, *tr_rows)
         walls[f"{arch}_train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sh_problems, sharded_launches, sharded_rows = lm_sharded_phase(
+        dev, name, card)
+    problems += sh_problems
+    walls["lm_sharded_train_step"] = time.perf_counter() - t
     torch.use_deterministic_algorithms(False)
     print(json.dumps({"phase_wall_s": walls}))
 
@@ -4209,6 +4528,13 @@ def main() -> int:
                          _row_summary(flash_rows[label])
                          for label in ("whisper S512", "llama-vision S1024")}
                         if kname == "flash_attention" else {}),
+                     **({"lm_sharded_launches": {
+                         part: n[kname] for part, n in
+                         sharded_launches.items()},
+                         "lm_sharded_rank0": None if sharded_rows is None
+                         else _row_summary(sharded_rows[
+                             kname == "flash_attention_bwd"])}
+                        if kname in FLASH_KERNELS else {}),
                      **({"train_launches": train_launches[kname],
                          "train_lse": _row_summary(train_fwd),
                          **{f"{_short(a)}_serving_launches": n[kname]

@@ -19,7 +19,9 @@ the CUDA card unless given ``--device cpu``. A spec whose ``run.shards`` is
 above 1 (packed backend) makes `run` and `resume` spawn that many ranks on
 the device (launch/mesh.py: gloo, a ``file://`` rendezvous; on one card
 the ranks share it); rank 0's result is printed and exported, after the
-CLI has checked that every rank returned the same history.
+CLI has checked that every rank returned the same history. A sweep whose
+packed cells ask for run.shards > 1 spawns that many ranks, each draining
+the whole matrix with one worker; rank 0 alone writes --out-dir.
 
 `run` executes a spec end-to-end (data -> phi -> P1 -> federated training)
 and optionally exports the RunResult as JSON-lines. `resume` rebuilds the
@@ -206,6 +208,57 @@ def _parse_values(raw: str) -> list:
     return out
 
 
+def _sweep_spawn_count(cells) -> int:
+    """The ranks `sweep` spawns: the sharded packed cells' run.shards when
+    above 1 and no process group is up yet, else 0. Sharded cells must
+    agree on the count (the ranks form one process group)."""
+    import torch.distributed as dist
+    counts = {int(c.spec.run.shards) for c in cells
+              if c.spec.run.backend == "packed" and (c.spec.run.shards or 1)
+              > 1}
+    if len(counts) > 1:
+        raise SystemExit(f"sweep: sharded cells ask for {sorted(counts)} "
+                         "ranks; one process group serves one count")
+    if counts and not (dist.is_available() and dist.is_initialized()):
+        return counts.pop()
+    return 0
+
+
+def _sweep_rank(group, sweep: dict, out_dir: str | None, kw: dict):
+    """One rank of a sharded sweep: the whole matrix, one cell at a time,
+    on the rank's device; rank 0 alone writes the sink and returns the
+    SweepResult (the others None)."""
+    from repro_torch.api.sweep import RankDirSink
+    sink = RankDirSink(out_dir, group.rank) if out_dir else None
+    res = run_sweep(SweepSpec.from_dict(sweep), sink=sink,
+                    log=print if group.rank == 0 else None,
+                    device=group.device, **kw)
+    if group.rank:
+        return None
+    return res, None if sink is None else len(sink.paths)
+
+
+def _raise_interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _sharded_sweep(n: int, sweep: SweepSpec, out_dir, kw: dict, device):
+    """Spawn n ranks that each drain the matrix (run_sweep caps them to one
+    worker: its sharded cells issue collectives) and return rank 0's
+    (SweepResult, files written). SIGTERM stops the ranks at once; every
+    cell rank 0 finished is on disk and verifies on `--resume`, a cell cut
+    mid-write does not and runs again."""
+    import signal
+    from repro_torch.launch.mesh import spawn_shards
+    prev = signal.signal(signal.SIGTERM, _raise_interrupt)
+    try:
+        return spawn_shards(_sweep_rank, n,
+                            args=(sweep.to_dict(), out_dir, kw),
+                            device=device, timeout_s=None)[0]
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
 def _cmd_sweep(args) -> int:
     with open(args.spec) as f:
         d = json.load(f)
@@ -243,14 +296,19 @@ def _cmd_sweep(args) -> int:
                 f"sweep --resume: no sweep manifest at {manifest!r} — "
                 "not a resumable sweep directory; drop --resume to start "
                 "fresh or point --out-dir at the original sweep dir")
-    sink = JsonlDirSink(args.out_dir) if args.out_dir else None
+    kw = dict(max_retries=args.max_retries, retry_backoff=args.retry_backoff,
+              cell_timeout=args.cell_timeout, workers=args.workers,
+              resume=args.resume)
+    n = _sweep_spawn_count(cells)
     try:
-        res = run_sweep(sweep, sink=sink, log=print,
-                        max_retries=args.max_retries,
-                        retry_backoff=args.retry_backoff,
-                        cell_timeout=args.cell_timeout,
-                        workers=args.workers, resume=args.resume,
-                        device=args.device)
+        if n:
+            res, n_files = _sharded_sweep(n, sweep, args.out_dir, kw,
+                                          args.device)
+        else:
+            sink = JsonlDirSink(args.out_dir) if args.out_dir else None
+            res = run_sweep(sweep, sink=sink, log=print, device=args.device,
+                            **kw)
+            n_files = None if sink is None else len(sink.paths)
     except KeyboardInterrupt:
         print("sweep interrupted — completed cells are preserved; "
               "relaunch with --resume to continue", file=sys.stderr)
@@ -266,9 +324,8 @@ def _cmd_sweep(args) -> int:
     if res.n_worker_crashes:
         print(f"{res.n_worker_crashes} worker(s) crashed; their cells "
               f"were requeued and completed elsewhere", file=sys.stderr)
-    if sink is not None:
-        print(f"wrote {len(sink.paths)} run files + index under "
-              f"{sink.directory}")
+    if n_files is not None:
+        print(f"wrote {n_files} run files + index under {args.out_dir}")
     if res.errors:
         for e in res.errors:
             print(f"FAILED {e['name']}: {e['error']}", file=sys.stderr)

@@ -490,6 +490,37 @@ class JsonlDirSink(RunSink):
                     self._index.close()
 
 
+class RankDirSink(JsonlDirSink):
+    """The sink of one rank of a sharded sweep (every rank of the process
+    group drains the same matrix, in the same order, meeting the others in
+    each sharded round's collective): rank 0 writes the directory as
+    JsonlDirSink does; the other ranks write nothing but scan the same
+    directory on resume and name it, so every rank skips the same verified
+    cells and continues an interrupted cell from the same checkpoint
+    (which rank 0 alone writes). `begin` waits at a barrier of the default
+    process group, so no rank's resume scan can read a directory that rank
+    0 has begun to rewrite."""
+
+    def __init__(self, directory: str, rank: int, **kw):
+        super().__init__(directory, **kw)
+        self.rank = int(rank)
+
+    def begin(self, cells: Sequence[SweepCell], *,
+              resume: bool = False) -> None:
+        import torch.distributed as dist
+        dist.barrier()
+        if self.rank == 0:
+            super().begin(cells, resume=resume)
+
+    def _append(self, record: dict) -> None:
+        if self.rank == 0:
+            super()._append(record)
+
+    def write(self, name: str, result: RunResult) -> None:
+        if self.rank == 0:
+            super().write(name, result)
+
+
 # ---------------------------------------------------------------------------
 # Execution: an elastic service with env/trainer reuse across the matrix
 # ---------------------------------------------------------------------------

@@ -1,7 +1,17 @@
-"""Process groups for the sharded client axis.
+"""Device meshes and process groups: the LM's production meshes and the
+sharded client axis.
 
-The port of ``repro/launch/mesh.py``'s host mesh (``make_host_mesh``,
-``replicate``). The JAX package shards the round's client axis over the
+`make_production_mesh` is the port of the JAX package's entry point of the
+same name: the 16x16 ("data", "model") or 2x16x16 ("pod", "data",
+"model") ``DeviceMesh`` of the LM stack's partition rules
+(sharding/rules.py), over the default process group that the caller has
+initialised with the mesh's world size (launch/dryrun.py uses PyTorch's
+``fake`` backend for it, so one process stands for rank 0 of 256 or 512).
+``REPRO_FORCE_MESH="d,m"`` (or "p,d,m") overrides the shape, as in the JAX
+package.
+
+The rest is the port of ``repro/launch/mesh.py``'s host mesh
+(``make_host_mesh``, ``replicate``). The JAX package shards the round's client axis over the
 ``data`` axis of a device mesh inside one program (``shard_map``). Torch has
 no single-controller counterpart, so here one process is one shard, as in
 PyTorch's own idiom: every rank runs the same trainer on the same host
@@ -119,6 +129,28 @@ class ShardGroup:
 
 
 _CURRENT: ShardGroup | None = None
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> tuple:
+    """(sizes, axis names) of the production mesh, or of
+    ``REPRO_FORCE_MESH`` when it is set."""
+    forced = os.environ.get("REPRO_FORCE_MESH")
+    if forced:
+        sizes = tuple(int(x) for x in forced.split(","))
+        return sizes, ("pod", "data", "model")[-len(sizes):]
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """16x16 single pod (256 ranks) or 2x16x16 two pods (512 ranks), a
+    ``DeviceMesh`` over the initialised default process group, whose world
+    size must be the mesh's. `device_type` None means CUDA."""
+    from torch.distributed.device_mesh import init_device_mesh
+    sizes, names = production_mesh_shape(multi_pod=multi_pod)
+    return init_device_mesh(device_type or "cuda", sizes,
+                            mesh_dim_names=names)
 
 
 def init_shards(n: int, *, rank: int | None = None, backend: str = "gloo",

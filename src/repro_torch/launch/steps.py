@@ -1,14 +1,21 @@
-"""Step functions for every input shape (the port of
+"""Step functions and abstract inputs for every (arch x shape) (the port of
 ``repro/launch/steps.py``): the masked-FedSGD train step, prefill and
 serve.
 
-`make_train_step` realizes the paper's parameter-efficient FedSGD on one
-card: the pruning masks ride with the parameters, gradients are masked
-before the update (the pruned-gradient upload, DESIGN.md §3) and the
-server SGD update (eq. 7) is applied, w - eta (g m), so pruned
-coordinates never move. The JAX package's abstract input specs
-(`batch_specs`, `input_specs`) serve its multi-device dry-run and come
-with sharding (ROADMAP.md section 1, item 8).
+`make_train_step` realizes the paper's parameter-efficient FedSGD: the
+pruning masks ride with the parameters (identically sharded on a mesh),
+gradients are masked before the update (the pruned-gradient upload,
+DESIGN.md §3) and the server SGD update (eq. 7) is applied, w - eta (g m),
+so pruned coordinates never move. The same step runs on one card on plain
+tensors and on a mesh on DTensors (sharding/rules.py: parameters, masks
+and batch placed by `param_shardings` / `batch_spec`, under
+`rules.set_mesh`): there the update works on each rank's local shards, the
+gradients come back at their parameters' placements and the loss is
+replicated, as the JAX package's jit shardings give them.
+
+`batch_specs` / `input_specs` are the abstract inputs of each shape's step:
+meta tensors where the JAX package has ``ShapeDtypeStruct`` (the dry run,
+launch/dryrun.py).
 """
 from __future__ import annotations
 
@@ -16,11 +23,13 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import InputShape
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import Runtime
+from repro_torch.sharding.rules import constrain
 from repro_torch.tree import flatten_with_path, leaves, tree_map, unflatten
 
 PyTree = Any
@@ -79,8 +88,19 @@ def value_and_grad(loss_of, params: PyTree):
     ungated cross layers, llama-vision's cross layers' ln_self)."""
     req = [w.detach().requires_grad_() for w in leaves(params)]
     loss = loss_of(unflatten(params, req))
-    return loss.detach(), unflatten(params, list(torch.autograd.grad(
-        loss, req, allow_unused=True, materialize_grads=True)))
+    grads = torch.autograd.grad(loss, req, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), unflatten(params, [
+        _like(g, w) for g, w in zip(grads, req)])
+
+
+def _like(g, w):
+    """A DTensor gradient at its parameter's placements (the reduce-scatter
+    of FSDP), as the JAX package keeps gradients at the parameter
+    sharding; a plain gradient as it is."""
+    if isinstance(w, DTensor) and tuple(g.placements) != tuple(w.placements):
+        return g.redistribute(w.device_mesh, w.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
@@ -119,27 +139,95 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
             loss, grads = loss_and_grad(params, masks, batch["tokens"],
                                         batch["labels"], extra)
         else:
-            parts = {k: v.chunk(mb) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=acc_dtype, device=p.device), params)
+            parts = {k: _chunks(v, mb) for k, v in batch.items()}
+            # the accumulator sits at each parameter's placements on a
+            # mesh, and is added to in place: a + g would hold a second
+            # fp32 copy of the widest leaf (mixtral's experts, 3 GiB)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype),
+                             params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(mb):
                 li, gi = loss_and_grad(
                     params, masks, parts["tokens"][i], parts["labels"][i],
                     {k: parts[k][i] for k in extra})
-                grads = tree_map(lambda a, g: a + g.to(a.dtype), grads, gi)
+                for a, g in zip(leaves(grads), leaves(gi)):
+                    a.add_(g)
+                del gi
                 loss = loss + li
-            grads = tree_map(lambda g: g / mb, grads)
+            for g in leaves(grads):
+                g.div_(mb)
             loss = loss / mb
         # pruned coordinates neither upload nor update (eq. 5-7)
         with torch.no_grad():
             new_params = tree_map(
                 lambda w, g, m: w - eta * (g * m.to(g.dtype)).to(w.dtype),
                 params, grads, masks)
-        return loss, new_params
+        return constrain(loss), new_params
 
     return train_step
+
+
+def _chunks(v, mb: int) -> list:
+    """v cut into mb microbatches along dim 0, as the JAX package cuts
+    them: microbatch i is the global rows [i R, (i + 1) R), R = B / mb. A
+    DTensor whose rows are split over the batch axes (P ranks) keeps each
+    microbatch split over them, R / P rows a rank: one all-to-all over
+    the batch ranks sends each of the rank's mb blocks of R / P rows to
+    the rank that holds it in its microbatch (rank d's block j is global
+    block n = d mb + j, which is microbatch n // P on batch rank n % P).
+    Rows replicated on every rank are cut alike on every rank."""
+    if not isinstance(v, DTensor):
+        return list(v.chunk(mb))
+    from torch.distributed.tensor import Shard
+    mesh = v.device_mesh
+    dims = [k for k, p in enumerate(v.placements) if p == Shard(0)]
+    local = v.to_local()
+    if dims:
+        local = _to_microbatch_order(local, mb, mesh, dims)
+    return [DTensor.from_local(part, mesh, v.placements, run_check=False)
+            for part in local.chunk(mb)]
+
+
+def _to_microbatch_order(local, mb: int, mesh, dims: list):
+    """This rank's rows of microbatches 0 .. mb - 1, stacked (see
+    `_chunks`); `dims` are the mesh dims that split the rows, major
+    first."""
+    import math
+
+    from torch.distributed import _functional_collectives as funcol
+    sizes = [mesh.size(k) for k in dims]
+    p_all = math.prod(sizes)
+    rows = local.shape[0]                  # B / P
+    if rows % mb:
+        raise ValueError(f"{rows} rows a rank do not cut into {mb} "
+                         "microbatches")
+    if p_all == 1:
+        return local
+    coord = mesh.get_coordinate()
+    d = 0
+    for k, n in zip(dims, sizes):
+        d = d * n + coord[k]
+    blk = rows // mb                       # R / P rows a block
+    dest = [(d * mb + j) % p_all for j in range(mb)]
+    order = sorted(range(mb), key=lambda j: dest[j])
+    send = torch.cat([local[j * blk:(j + 1) * blk] for j in order])
+    in_splits = [blk * dest.count(r) for r in range(p_all)]
+    # what arrives, in source order: every (source s, block j) bound here
+    src = [(s, j) for s in range(p_all) for j in sorted(
+        range(mb), key=lambda j, s=s: (s * mb + j) % p_all)
+        if (s * mb + j) % p_all == d]
+    out_splits = [blk * sum(1 for s, _ in src if s == r)
+                  for r in range(p_all)]
+    group = mesh.get_group(dims[0]) if len(dims) == 1 else \
+        mesh[tuple(mesh.mesh_dim_names[k] for k in dims)]._flatten() \
+        .get_group()
+    got = funcol.wait_tensor(funcol.all_to_all_single(
+        send.contiguous(), out_splits, in_splits, group))
+    # arrival k is microbatch (s mb + j) // P
+    micro = [(s * mb + j) // p_all for s, j in src]
+    pos = sorted(range(len(src)), key=lambda k: micro[k])
+    return torch.cat([got[k * blk:(k + 1) * blk] for k in pos])
 
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
@@ -155,3 +243,56 @@ def make_serve_step(cfg: ModelConfig, rt: Runtime):
         return T.decode_step(params, token, cache, pos, cfg, rt)
 
     return serve_step
+
+
+# -- abstract inputs (meta tensors; nothing is allocated) ----------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape, *,
+                with_labels: bool) -> dict:
+    """The batch of a shape's step: tokens (and labels) [B, S] int32, and
+    the audio / vlm family's memory input [B, T, D]."""
+    b, s = shape.global_batch, shape.seq_len
+    d = {"tokens": _meta((b, s), torch.int32)}
+    if with_labels:
+        d["labels"] = _meta((b, s), torch.int32)
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.family == "audio":
+        d["encoder_input"] = _meta((b, cfg.encoder_tokens, cfg.d_model),
+                                   dtype)
+    if cfg.family == "vlm":
+        d["vision_embeddings"] = _meta((b, cfg.vision_tokens, cfg.d_model),
+                                       dtype)
+    return d
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, rt: Runtime) -> dict:
+    """All inputs of the shape's step function, on the meta device.
+
+    train:   params, masks (uint8, as the JAX package stores them: a bf16
+             mask tree would double parameter memory), batch
+    prefill: params, batch, cache (init_cache on the meta device)
+    decode:  params, cache, token [B, 1], pos: the int position of the
+             one new token against a seq_len-deep cache (seq_len - 1; the
+             port's decode step takes a Python int where the JAX package
+             traces a scalar)
+    """
+    from repro_torch.sharding.rules import param_shapes
+    pshapes = param_shapes(cfg)
+    if shape.kind == "train":
+        return {"params": pshapes,
+                "masks": tree_map(lambda w: _meta(w.shape, torch.uint8),
+                                  pshapes),
+                "batch": batch_specs(cfg, shape, with_labels=True)}
+    cache = T.init_cache(cfg, shape.global_batch, shape.seq_len,
+                         swa_only=rt.swa_only, device="meta")
+    if shape.kind == "prefill":
+        return {"params": pshapes,
+                "batch": batch_specs(cfg, shape, with_labels=False),
+                "cache": cache}
+    return {"params": pshapes, "cache": cache,
+            "token": _meta((shape.global_batch, 1), torch.int32),
+            "pos": shape.seq_len - 1}

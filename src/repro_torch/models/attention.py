@@ -24,8 +24,10 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import dense_init, softcap
+from repro_torch.sharding.rules import hold_grad
 
 NEG_INF = -2.0**30  # large but finite: no NaN for fully masked rows
 
@@ -62,15 +64,39 @@ def project_qkv(x, p, cfg, kv_x=None):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     b = x.shape[0]
-    q = q.reshape(b, -1, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, -1, cfg.num_kv_heads, cfg.head_dim)
+    q = _split_heads(q, b, cfg.num_heads, cfg.head_dim)
+    k = _split_heads(k, b, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v, b, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def _whole_heads(t, h: int | None = None):
+    """t [B, S, H, ...] with dim 2 (the heads, or the flat H*Dh) whole on
+    the model axis: a DTensor that splits it there is gathered, only when
+    H does not divide the axis if `h` is given; any other tensor as it
+    is."""
+    if not isinstance(t, DTensor) or "model" not in \
+            t.device_mesh.mesh_dim_names:
+        return t
+    i = t.device_mesh.mesh_dim_names.index("model")
+    if t.placements[i] != Shard(2) or (
+            h is not None and h % t.device_mesh.shape[i] == 0):
+        return t
+    pl = list(t.placements)
+    pl[i] = Replicate()
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _split_heads(t, b: int, h: int, dh: int):
+    """[B, S, H*Dh] -> [B, S, H, Dh]. A DTensor whose flat head dim is
+    sharded on the model axis where H does not divide it (granite's 8 KV
+    heads on 16 ranks: half a head each) is gathered on that axis first."""
+    return _whole_heads(t, h).reshape(b, -1, h, dh)
 
 
 def output_proj(o, p):
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p["wo"]
+    return hold_grad(o.reshape(b, s, -1)) @ p["wo"]
 
 
 # -- naive reference ----------------------------------------------------------
@@ -244,6 +270,14 @@ def decode_attention_ring(q, cache_k, cache_v, pos: int, *, cap: float = 0.0):
 def fill_ring(k: torch.Tensor, window: int) -> torch.Tensor:
     """The last `window` entries of k [B,S,...] in ring order (slot
     p % window holds position p); left-padded with zeros when S < window."""
+    if isinstance(k, DTensor):
+        # torch.roll has no DTensor strategy in every release the port runs
+        # on; the sequence dim is whole on every rank, so each rank rolls
+        # its own shard
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(k.placements)
+        return local_map(lambda t: fill_ring(t, window), out_placements=pl,
+                         in_placements=(pl,), device_mesh=k.device_mesh)(k)
     s = k.shape[1]
     if s >= window:
         tail = k[:, s - window:]
@@ -255,11 +289,14 @@ def fill_ring(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def _decode_core(q, k, v, valid, cap, *, k_scale=None, v_scale=None):
-    """k/v may be int8 with per-(B,S,H) fp32 scales (quantised cache)."""
+    """k/v may be int8 with per-(B,S,H) fp32 scales (quantised cache). On
+    a mesh the one token's query heads are gathered whole (the cache is
+    split on its sequence, not its heads), so the scores come out split on
+    the cache positions."""
     b, _, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qr = q.reshape(b, hkv, g, d)
+    qr = _whole_heads(q).reshape(b, hkv, g, d)
     s = torch.einsum("bhgd,bkhd->bhgk", qr.float(), k.float()) / math.sqrt(d)
     if k_scale is not None:                  # [B, S, Hkv] -> [B, Hkv, 1, S]
         s = s * k_scale.transpose(1, 2)[:, :, None, :]
@@ -291,6 +328,10 @@ def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
     path, whatever `impl` asks for."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; options {IMPLS}")
+    if isinstance(q, DTensor):
+        return _attend_local(q, k, v, impl=impl, causal=causal,
+                             window=window, cap=cap, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
     if impl == "naive" or q.shape[1] <= max(q_chunk, 128) // 4:
         return naive_attention(q, k, v, causal=causal, window=window, cap=cap)
     if impl == "cuda":
@@ -309,3 +350,26 @@ def attend(q, k, v, *, impl: str = "chunked", causal: bool = True,
                                              kv_chunk=kv_chunk)
     return chunked_attention(q, k, v, causal=causal, window=window, cap=cap,
                              q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+def _attend_local(q, k, v, **kw):
+    """`attend` on DTensors: every path (the kernels on CUDA) runs on each
+    rank's local shards under ``local_map``, batch over the batch axes
+    and heads over the model axis as `rules.head_layout` places them (KV
+    heads repeated where the model axis has more ranks than KV heads)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import head_layout
+    mesh = q.device_mesh
+    pl, rep = head_layout(mesh, q.shape[0], q.shape[2], k.shape[2])
+    q = q.redistribute(mesh, pl)
+    if rep > 1:
+        whole = [Replicate() if n == "model" else p
+                 for n, p in zip(mesh.mesh_dim_names, pl)]
+        k, v = (t.redistribute(mesh, whole).repeat_interleave(rep, dim=2)
+                for t in (k, v))
+    k, v = (t.redistribute(mesh, pl) for t in (k, v))
+    pl = list(pl)      # one output: a list, not a tuple of outputs
+    fn = local_map(lambda a, b, c: attend(a, b, c, **kw), out_placements=pl,
+                   in_placements=(pl, pl, pl), device_mesh=mesh)
+    return fn(q, k, v)

@@ -52,8 +52,28 @@ class Runtime:
 # -- attention sub-block ------------------------------------------------------
 
 def _write(cache: torch.Tensor, start: int, x: torch.Tensor) -> None:
-    """cache[:, start:start + S] = x (in place), cast to the cache's type."""
-    cache[:, start:start + x.shape[1]] = x.to(cache.dtype)
+    """cache[:, start:start + S] = x (in place), cast to the cache's type.
+    A DTensor cache (on a mesh, its sequence split on the model axis by
+    sharding/rules.cache_specs) is written on each rank's own slots: x is
+    gathered to the cache's batch rows, whole in its other dims, and each
+    rank copies the positions that fall in its slice (DTensor's setitem
+    would slice the split sequence dim of a gathered copy)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[:, start:start + x.shape[1]] = x.to(cache.dtype)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    xl = x.redistribute(mesh, [p if p == Shard(0) else Replicate()
+                               for p in pl]).to_local()
+    off, n = 0, cache.shape[1]
+    for k, p in enumerate(pl):
+        if p == Shard(1):                   # major first, as rules place it
+            n //= mesh.size(k)
+            off += mesh.get_coordinate()[k] * n
+    lo, hi = max(start, off), min(start + x.shape[1], off + n)
+    if lo < hi:
+        cache.to_local()[:, lo - off:hi - off] = \
+            xl[:, lo - start:hi - start].to(cache.dtype)
 
 
 def attn_apply(x, p, cfg, rt: Runtime, *, window: int, cache=None, pos=None,

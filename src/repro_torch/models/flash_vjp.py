@@ -25,6 +25,8 @@ tests hold against JAX and the card's checks hold the kernels against.
 
 Layout as in the JAX package: q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D], o like q,
 lse [B,Hkv,G,Sq] (the kernels' [B,Hq,Sq] in the same memory order).
+On meta tensors (the dry run, launch/dryrun.py) both directions give
+shapes only, their matrix products as einsums a FLOP counter reads.
 """
 from __future__ import annotations
 
@@ -57,6 +59,36 @@ def _kernel_bwd(res, do, causal, window, cap):
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+def _meta_fwd(q, k, v):
+    """Kernel 8's outputs on meta tensors (the dry run): shapes only, with
+    its two products as einsums so that a FLOP counter sees them."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qr = q.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", s, v).reshape(q.shape)
+    return o, torch.empty((b, hkv, hq // hkv, sq), dtype=torch.float32,
+                          device=q.device)
+
+
+def _meta_bwd(res, do):
+    """The backward's gradients on meta tensors: shapes, and the five
+    products of the FlashAttention-2 backward (s recomputed, dv, dp, dq,
+    dk) as einsums."""
+    q, k, v, _, _ = res
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qr = q.reshape(b, sq, hkv, hq // hkv, d)
+    dor = do.reshape(qr.shape)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", s, dor)
+    ds = torch.einsum("bqhgd,bkhd->bhgqk", dor, v)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k).reshape(q.shape)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qr)
+    del s
+    return dq, dk, dv
+
+
 class FlashChunked(torch.autograd.Function):
     """o = attention(q, k, v) whose backward recomputes p from (q, k, v, o,
     lse): the kernels on CUDA tensors, the plain versions on the CPU."""
@@ -65,6 +97,8 @@ class FlashChunked(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, cap, bq, bk):
         if q.is_cuda:
             o, lse = _kernel_fwd(q, k, v, causal, window, cap)
+        elif q.is_meta:
+            o, lse = _meta_fwd(q, k, v)
         else:
             o, lse = flash_vjp_plain_fwd(q, k, v, causal, window, cap, bq,
                                          bk)
@@ -79,6 +113,8 @@ class FlashChunked(torch.autograd.Function):
         do = do.contiguous()
         if do.is_cuda:
             grads = _kernel_bwd(res, do, causal, window, cap)
+        elif do.is_meta:
+            grads = _meta_bwd(res, do)
         else:
             grads = flash_vjp_plain_bwd(res, do, causal, window, cap, bq, bk)
         return (*grads, None, None, None, None, None)

@@ -24,9 +24,12 @@ expert is marked as padding explicitly: the port computes the reference's
 function, deterministically on every device (ROADMAP.md section 3,
 "Properties of the reference").
 
-The JAX package's sharding constraints are no-ops on one device and are
-dropped (sharding is ROADMAP.md section 1, item 8). The expert products
-are einsums, as the JAX package computes them outside any Pallas kernel.
+The JAX package's sharding constraints sit where it puts them
+(`rules.constrain`: the identity off a mesh). On a mesh the ops DTensor
+has no sharding strategy for (the dispatch's sort and searchsorted, the
+row gathers) run on each rank's groups under ``local_map``. The expert
+products are einsums, as the JAX package computes them outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -34,9 +37,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.rules import active_mesh, batch_rows, constrain
 
 
 def moe_params(gen, cfg, *, stacked: int = 0, device=None) -> dict:
@@ -120,8 +125,69 @@ def _group_dispatch(idx_g: torch.Tensor, w_g: torch.Tensor, cap: int,
     return bucket_tok, comb_idx, comb_w
 
 
+def _gather_rows(xg: torch.Tensor, bucket_tok: torch.Tensor) -> torch.Tensor:
+    """xg [G, Tg, D], bucket_tok [G, E, C] -> xe [G, E, C, D]; the id Tg
+    reads a zero row (the padding)."""
+    g, _, d = xg.shape
+    e, cap = bucket_tok.shape[1:]
+    xpad = torch.cat([xg, torch.zeros((g, 1, d), dtype=xg.dtype,
+                                      device=xg.device)], dim=1)
+    rows = torch.arange(g, device=xg.device)[:, None]
+    return xpad[rows, bucket_tok.reshape(g, e * cap)].reshape(g, e, cap, d)
+
+
+def _combine_rows(ye: torch.Tensor, comb_idx: torch.Tensor) -> torch.Tensor:
+    """ye [G, E, C, D], comb_idx [G, n] -> [G, n, D] (the inverse
+    permutation, a gather)."""
+    g, e, cap, d = ye.shape
+    rows = torch.arange(g, device=ye.device)[:, None]
+    return ye.reshape(g, e * cap, d)[rows, comb_idx]
+
+
+def _local(fn, out, ins, grads=None):
+    """local_map over the active mesh (the ops DTensor has no sharding
+    strategy for: sort, searchsorted and the duplicate-free index gathers
+    of the dispatch)."""
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=active_mesh())
+
+
+def _expert_down(h, w_down):
+    """ye = einsum("gecf,efd->gecd", h, w_down) on each rank's shards:
+    h is first placed on the model axis as w_down is there (its experts
+    where w_down splits E, its F where w_down splits F, as the serve rules
+    do, else whole), and the local products are the output's shards (a
+    partial sum over the model axis when F is split). DTensor's own einsum
+    views a permuted local shard that its recorded strides do not match
+    when the groups are split (mixtral's decode)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = w_down.device_mesh.mesh_dim_names
+    i = names.index("model")
+    wp = w_down.placements[i]
+    want, out = {Shard(0): (Shard(1), Shard(1)),
+                 Shard(1): (Shard(3), Partial())}.get(
+        wp, (Replicate(), Replicate()))
+    hp = list(h.placements)
+    hp[i] = want
+    h = h.redistribute(h.device_mesh, hp)
+    op = list(hp)
+    op[i] = out
+    wpl = list(w_down.placements)
+    # each rank's groups add their own share to w_down's gradient: a
+    # partial sum over the batch axes the groups are split on
+    wgrad = [Partial() if p == Shard(0) and n != "model" else q
+             for n, p, q in zip(names, hp, wpl)]
+    return _local(lambda a, b: torch.einsum("gecf,efd->gecd", a, b), op,
+                  (hp, wpl), (hp, wgrad))(h, w_down)
+
+
 def moe_apply(x: torch.Tensor, p: dict, cfg, groups: int | None = None):
-    """x [B, S, D] -> (y [B, S, D], aux loss scalar)."""
+    """x [B, S, D] -> (y [B, S, D], aux loss scalar). On a mesh the
+    dispatch and the row gathers run on each rank's groups under
+    ``local_map`` (DTensor has no strategy for sort, searchsorted or
+    index gathers), the expert products as DTensor einsums; the
+    constraints are the JAX package's."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
@@ -132,22 +198,49 @@ def moe_apply(x: torch.Tensor, p: dict, cfg, groups: int | None = None):
     g = pick_groups(t) if groups is None else groups
     tg = t // g
     cap = max(int(math.ceil(tg * k / e * cfg.moe_capacity_factor)), k)
-    bucket_tok, comb_idx, comb_w = _group_dispatch(
-        idx.reshape(g, tg, k), w.reshape(g, tg, k), cap, e)
+    xg = constrain(xt.reshape(g, tg, d), "batch", None, None)
+    idx_g, w_g = idx.reshape(g, tg, k), w.reshape(g, tg, k)
+    sharded = isinstance(xg, DTensor)
+    if sharded:
+        pl = batch_rows(xg)
+        mesh = active_mesh()
+        xg, idx_g, w_g = (v.redistribute(mesh, pl) for v in (xg, idx_g, w_g))
+        bucket_tok, comb_idx, comb_w = _local(
+            lambda i, ww: _group_dispatch(i, ww, cap, e), (pl, pl, pl),
+            (pl, pl))(idx_g, w_g)
+    else:
+        bucket_tok, comb_idx, comb_w = _group_dispatch(idx_g, w_g, cap, e)
+    bucket_tok = constrain(bucket_tok, "batch", "model", None)
 
     # gather into [G, E, C, D]; row Tg of each group is the zero padding
-    xpad = torch.cat([xt.reshape(g, tg, d),
-                      torch.zeros((g, 1, d), dtype=x.dtype, device=x.device)],
-                     dim=1)
-    rows = torch.arange(g, device=x.device)[:, None]
-    xe = xpad[rows, bucket_tok.reshape(g, e * cap)].reshape(g, e, cap, d)
+    if sharded:
+        from torch.distributed.tensor import Partial
+        bpl = list(bucket_tok.placements)
+        # experts split over the model axis: each rank's rows reach only its
+        # experts, so the gradient of xg is a partial sum there
+        xe = _local(_gather_rows, bpl, (pl, bpl),
+                    (batch_rows(xg, model=Partial())
+                     if bpl != pl else pl, bpl))(xg, bucket_tok)
+    else:
+        xe = _gather_rows(xg, bucket_tok)
+    xe = constrain(xe, "batch", "model", None, None)
     gg = torch.einsum("gecd,edf->gecf", xe, p["w_gate"])
     uu = torch.einsum("gecd,edf->gecf", xe, p["w_up"])
+    gg = constrain(gg, "batch", "model", None, "model")
+    uu = constrain(uu, "batch", "model", None, "model")
     h = F.silu(gg.float()).to(x.dtype) * uu
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    ye = _expert_down(h, p["w_down"]) if sharded else \
+        torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    ye = constrain(ye, "batch", "model", None, None)
 
     # combine by gather (the inverse permutation), batched over groups
-    contrib = ye.reshape(g, e * cap, d)[rows, comb_idx]     # [G, Tg*k, D]
+    if sharded:
+        ye = ye.redistribute(mesh, pl)     # every expert's rows, a gather
+        contrib = _local(_combine_rows, pl, (pl, pl))(ye, comb_idx)
+    else:
+        contrib = _combine_rows(ye, comb_idx)               # [G, Tg*k, D]
+    contrib = constrain(contrib, "batch", None, None)
     contrib = contrib * comb_w[..., None].to(ye.dtype)
     y = contrib.reshape(g, tg, k, d).sum(dim=2)
+    y = constrain(y, "batch", None, None)
     return y.reshape(b, s, d), aux

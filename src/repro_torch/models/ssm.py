@@ -19,9 +19,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.sharding.rules import batch_rows, hold_grad
 
 
 def ssm_dims(cfg):
@@ -125,6 +127,33 @@ def ssd_chunked(x, b, c, dt, a_log, d_skip, cfg, *, initial_state=None):
     return y[:, :s_orig].to(x.dtype), state
 
 
+def _ssd_local(x, b, c, dt, a_log, d_skip, cfg, *, initial_state=None):
+    """ssd_chunked on each rank's batch rows under ``local_map``, every
+    head whole (the scan's cumsum backward is a flip, which DTensor has
+    no strategy for in every torch release the port runs on). a_log's and
+    d_skip's gradients are partial sums over the batch axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = batch_rows(x)
+    whole = [Replicate()] * mesh.ndim
+    part = [Partial() if p == Shard(0) else p for p in rows]
+    ins = [t.redistribute(mesh, rows) for t in (x, b, c, dt)]
+    ins += [t.redistribute(mesh, whole) for t in (a_log, d_skip)]
+    pl, grads = [rows] * 4 + [whole] * 2, [rows] * 4 + [part] * 2
+    if initial_state is not None:
+        ins.append(initial_state.redistribute(mesh, rows))
+        pl, grads = pl + [rows], grads + [rows]
+
+    def scan(xx, bb, cc, dd, al, ds, st=None):
+        return ssd_chunked(xx, bb, cc, dd, al, ds, cfg, initial_state=st)
+
+    return local_map(scan, out_placements=(rows, rows),
+                     in_placements=tuple(pl),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*ins)
+
+
 def ssd_step(x, b, c, dt, a_log, d_skip, state):
     """One decode step. x [B,H,P], b/c [B,N], dt [B,H], state [B,H,P,N]."""
     a = -torch.exp(a_log.float())
@@ -156,9 +185,10 @@ def ssm_block(x, p, cfg, *, cache=None):
     dt = F.softplus(dt.float() + p["dt_bias"])
     xh = xi.reshape(bsz, s, heads, cfg.ssm_head_dim)
     if not decode:
-        y, final = ssd_chunked(xh, b, c, dt, p["a_log"], p["d_skip"], cfg,
-                               initial_state=None if cache is None
-                               else cache["ssm"])
+        scan = _ssd_local if isinstance(xh, DTensor) else ssd_chunked
+        y, final = scan(xh, b, c, dt, p["a_log"], p["d_skip"], cfg,
+                        initial_state=None if cache is None
+                        else cache["ssm"])
     else:
         y1, final = ssd_step(xh[:, 0], b[:, 0], c[:, 0], dt[:, 0],
                              p["a_log"], p["d_skip"], cache["ssm"])
@@ -166,7 +196,10 @@ def ssm_block(x, p, cfg, *, cache=None):
     if cache is not None:
         cache["ssm"].copy_(final)
         cache["conv"].copy_(conv_state.to(cache["conv"].dtype))
-    y = y.reshape(bsz, s, d_inner)
+    # on a mesh the gradient arriving here is split along d_inner, which
+    # the heads' reshape cannot take back where the heads do not divide
+    # the model axis (mamba2's 24 on 16): hold it at y's placements
+    y = hold_grad(y.reshape(bsz, s, d_inner))
     # gated RMS norm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float()).to(y.dtype)
     y = rms_norm(y, p["norm_scale"], cfg.norm_eps)

@@ -26,14 +26,22 @@ layer). Caches are written in place (models/blocks.py). Families: dense
 (plain and gemma2's local/global alternation), moe, ssm, hybrid, audio
 (whisper: encoder, learned positions, cross-attention decoder) and vlm
 (llama-vision: self layers stacked [n_groups, k-1, ...], one gated cross
-layer a group). The JAX package's `constrain_batch_model` is a no-op on
-one device and is dropped (sharding is ROADMAP item 8). Entry points run
-on CUDA unless given device="cpu".
+layer a group). Entry points run on CUDA unless given device="cpu".
+
+The same functions run sharded: given DTensor parameters placed by
+sharding/rules.py and called under `rules.set_mesh`, each layer gathers
+its weights' FSDP shards (`_weights`), the residual stream is constrained
+where the JAX package constrains it (`constrain_batch_model` at each layer
+input, after the embedding and the final norm, in the loss chunks), and
+attention and the other ops DTensor has no strategy for run on each
+rank's local shards under ``local_map``. Off a mesh every hook is the
+identity, so an unsharded run keeps its bits.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -42,6 +50,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.blocks import Runtime
 from repro_torch.models.layers import (embed_init, layer_norm, rms_norm,
                                        softcap)
+from repro_torch.sharding.rules import (batch_rows, constrain_batch_model,
+                                        unshard_batch)
 from repro_torch.tree import flatten_with_path
 
 _BLOCKS = {"dense": (B.dense_block_params, B.dense_block),
@@ -69,6 +79,12 @@ def _layer(tree, *i: int):
     indices (group, layer) for the vlm's [n_groups, k-1, ...] stack."""
     return {k: (_layer(v, *i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _weights(tree, *i: int):
+    """Layer i's weights, their FSDP shards gathered on a mesh (ZeRO-3:
+    inside the layer's checkpoint, so the backward gathers them again)."""
+    return unshard_batch(_layer(tree, *i))
 
 
 def _groups(cfg) -> tuple[int, int]:
@@ -255,21 +271,23 @@ def _run_stack(x, params, cfg, rt, *, cache=None, pos=None, enc=None):
         for i in range(cfg.num_layers):
             if cache is None:
                 x = _maybe_remat(lambda h, i=i: B.cross_block(
-                    h, _layer(blocks, i), cfg, rt, enc=enc)[0], rt)(x)
+                    h, _weights(blocks, i), cfg, rt, enc=enc)[0], rt)(x)
             else:
-                x, _ = B.cross_block(x, _layer(blocks, i), cfg, rt, enc=enc,
+                x, _ = B.cross_block(constrain_batch_model(x),
+                                     _weights(blocks, i), cfg, rt, enc=enc,
                                      cache=_layer(kv, i), pos=pos)
         return x, cache, aux
     if cfg.family == "vlm":
         n_groups, k_every = _groups(cfg)
 
         def group(h, g):
+            h = constrain_batch_model(h)
             for j in range(k_every - 1):
                 h, _ = B.dense_block(
-                    h, _layer(blocks["self"], g, j), cfg, rt,
+                    h, _weights(blocks["self"], g, j), cfg, rt,
                     cache=None if kv is None else _layer(kv, g, j),
                     pos=pos)
-            return B.cross_block(h, _layer(blocks["cross"], g), cfg, rt,
+            return B.cross_block(h, _weights(blocks["cross"], g), cfg, rt,
                                  enc=enc, gated=True)[0]
 
         for g in range(n_groups):
@@ -280,14 +298,16 @@ def _run_stack(x, params, cfg, rt, *, cache=None, pos=None, enc=None):
         for i in range(cfg.num_layers // 2):
             if cache is None:
                 def pair(h, i=i):
+                    h = constrain_batch_model(h)
                     for kind, name in ((0, "local"), (1, "global")):
-                        h, _ = B.dense_block(h, _layer(blocks[name], i), cfg,
-                                             rt, kind=kind)
+                        h, _ = B.dense_block(h, _weights(blocks[name], i),
+                                             cfg, rt, kind=kind)
                     return h
                 x = _maybe_remat(pair, rt)(x)
                 continue
+            x = constrain_batch_model(x)
             for kind, name in ((0, "local"), (1, "global")):
-                x, _ = B.dense_block(x, _layer(blocks[name], i), cfg, rt,
+                x, _ = B.dense_block(x, _weights(blocks[name], i), cfg, rt,
                                      kind=kind, cache=_layer(cache[name], i),
                                      pos=pos)
         return x, cache, aux
@@ -295,8 +315,8 @@ def _run_stack(x, params, cfg, rt, *, cache=None, pos=None, enc=None):
     moe = cfg.family == "moe"      # its block returns (y, (cache, aux))
 
     def body(h, i, layer_cache=None):
-        h, out = block_fn(h, _layer(blocks, i), cfg, rt, cache=layer_cache,
-                          pos=pos)
+        h, out = block_fn(constrain_batch_model(h), _weights(blocks, i), cfg,
+                          rt, cache=layer_cache, pos=pos)
         return h, (out[1] if moe else aux)
 
     auxs = []
@@ -316,13 +336,41 @@ def _encode(params, enc_input, cfg, rt):
     x = enc_input + params["enc_pos_embed"][None, :enc_input.shape[1]]
     for i in range(cfg.encoder_layers):
         x = _maybe_remat(lambda h, i=i: B.encoder_block(
-            h, _layer(params["enc_blocks"], i), cfg, rt), rt)(x)
+            constrain_batch_model(h), _weights(params["enc_blocks"], i), cfg,
+            rt), rt)(x)
     return layer_norm(x, params["enc_final_s"], params["enc_final_b"],
                       cfg.norm_eps)
 
 
+def _gather_embed(embed, tokens):
+    """embed[tokens]. On a mesh the lookup runs on each rank's tokens under
+    ``local_map``, on the table with its vocab whole (gathered where the
+    rules split it) and its feature dim as the rules place it on the
+    model axis: the backward's index_put has no working sharding strategy
+    in every torch release the port runs on (2.11 rejects its placements)."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = embed.device_mesh
+    names = mesh.mesh_dim_names
+    epl = [Shard(1) if n == "model" and p == Shard(1) else Replicate()
+           for n, p in zip(names, embed.placements)]
+    tpl = batch_rows(tokens)
+    embed = embed.redistribute(mesh, epl)
+    tokens = tokens.redistribute(mesh, tpl)
+    out = [Shard(2) if p == Shard(1) else q for p, q in zip(epl, tpl)]
+    # each rank's tokens add their rows to the table's gradient: a partial
+    # sum over the batch axes the tokens are split on
+    egrad = [Partial() if q == Shard(0) else p for p, q in zip(epl, tpl)]
+    return local_map(lambda e, t: e[t], out_placements=out,
+                     in_placements=(epl, tpl),
+                     in_grad_placements=(egrad, tpl),
+                     device_mesh=mesh)(embed, tokens)
+
+
 def _embed_tokens(params, tokens, cfg, *, pos0: int = 0):
-    x = params["embed"][tokens]
+    x = _gather_embed(params["embed"], tokens)
     if cfg.embed_scale:
         # scale in the residual dtype, as the JAX package does
         x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype,
@@ -371,9 +419,58 @@ def forward(params, tokens, cfg, rt: Runtime = Runtime(),
     """Full-sequence logits [B, S, V] (small vocabs / tests)."""
     _check_family(cfg)
     enc = _extra_enc(params, cfg, rt, extra)
-    x, _, _ = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
-                         rt, enc=enc)
+    x = constrain_batch_model(_embed_tokens(params, tokens, cfg))
+    x, _, _ = _run_stack(x, params, cfg, rt, enc=enc)
     return _logits(params, _final_hidden(x, params, cfg), cfg)
+
+
+def ce_sum(logits, labels):
+    """sum over rows of logsumexp(logits) - logits[label], logits [B, c, V]
+    fp32. Logits whose vocab is sharded on the model axis (the JAX
+    package's placement of a loss chunk's logits, d_threshold=1) stay
+    sharded: each rank takes the logsumexp and the gold logit of its
+    vocab slice under ``local_map`` (DTensor's gather has no strategy
+    over a sharded dim), the slices' logsumexps are gathered (one value
+    a row and rank) and combined by one more logsumexp, and the gold
+    logit is a partial sum over the model axis. On a model axis of one
+    rank that is the unsharded computation bit for bit: the logsumexp of
+    one value is the value, its gradient the incoming one."""
+    if isinstance(logits, DTensor) and "model" in \
+            logits.device_mesh.mesh_dim_names:
+        model = logits.device_mesh.mesh_dim_names.index("model")
+        if logits.placements[model] == Shard(2):
+            return _vocab_parallel_ce(logits, labels)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def _vocab_parallel_ce(logits, labels):
+    """ce_sum on logits whose vocab is Shard(2) on the model axis."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    rows = batch_rows(logits)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    labels = labels.redistribute(mesh, rows)
+    vocab = [Shard(2) if n == "model" else p for n, p in zip(names, rows)]
+    part = [Partial() if n == "model" else p for n, p in zip(names, rows)]
+
+    def local(lg, lb):
+        n = lg.shape[-1]
+        idx = lb.long() - mesh.get_local_rank("model") * n
+        inside = (idx >= 0) & (idx < n)
+        gold = torch.gather(lg, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return (torch.logsumexp(lg, dim=-1, keepdim=True),
+                torch.where(inside, gold, torch.zeros_like(gold)))
+
+    lse, gold = local_map(local, out_placements=(vocab, part),
+                          in_placements=(vocab, rows),
+                          device_mesh=mesh)(logits, labels)
+    lse = torch.logsumexp(lse.redistribute(mesh, rows), dim=-1)
+    return (lse - gold.redistribute(mesh, rows)).sum()
 
 
 def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
@@ -386,9 +483,9 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
     vlm families' memory input (module docstring)."""
     _check_family(cfg)
     enc = _extra_enc(params, cfg, rt, extra)
-    x, _, aux = _run_stack(_embed_tokens(params, tokens, cfg), params, cfg,
-                           rt, enc=enc)
-    h = _final_hidden(x, params, cfg)
+    x = constrain_batch_model(_embed_tokens(params, tokens, cfg))
+    x, _, aux = _run_stack(x, params, cfg, rt, enc=enc)
+    h = constrain_batch_model(_final_hidden(x, params, cfg))
     head = _head(params, cfg)
     bsz, s, _ = h.shape
     c = min(rt.loss_chunk, s)
@@ -396,9 +493,9 @@ def loss_fn(params, tokens, labels, cfg, rt: Runtime = Runtime(),
         c = s      # fallback: no chunking on ragged seqs (smoke sizes)
 
     def chunk_ce(hh, ll):
-        logits = softcap((hh @ head).float(), cfg.final_softcap)
-        gold = torch.gather(logits, -1, ll[..., None].long())[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+        hh = constrain_batch_model(hh)
+        logits = constrain_batch_model((hh @ head).float(), d_threshold=1)
+        return ce_sum(softcap(logits, cfg.final_softcap), ll)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(s // c):

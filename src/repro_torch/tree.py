@@ -15,17 +15,22 @@ from typing import Any, Callable
 PyTree = Any
 
 
-def flatten_with_path(tree: PyTree, prefix: str = "") -> list:
-    """[(keystr path, leaf)] in JAX's flattening order."""
+def flatten_with_path(tree: PyTree, prefix: str = "", *,
+                      is_leaf: Callable | None = None) -> list:
+    """[(keystr path, leaf)] in JAX's flattening order; a node for which
+    `is_leaf` is true is a leaf (a sharding spec, which is a tuple)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += flatten_with_path(tree[k], f"{prefix}[{k!r}]")
+            out += flatten_with_path(tree[k], f"{prefix}[{k!r}]",
+                                     is_leaf=is_leaf)
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out += flatten_with_path(v, f"{prefix}[{i}]")
+            out += flatten_with_path(v, f"{prefix}[{i}]", is_leaf=is_leaf)
         return out
     return [(prefix, tree)]
 
@@ -35,12 +40,15 @@ def leaves(tree: PyTree) -> list:
     return [leaf for _, leaf in flatten_with_path(tree)]
 
 
-def unflatten(like: PyTree, new_leaves) -> PyTree:
+def unflatten(like: PyTree, new_leaves, *,
+              is_leaf: Callable | None = None) -> PyTree:
     """`like`'s structure with its leaves, in flattening order, replaced;
     a dict comes back with its keys in sorted order."""
     it = iter(new_leaves)
 
     def build(node):
+        if is_leaf is not None and is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):

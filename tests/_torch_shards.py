@@ -485,3 +485,15 @@ def card_cases(group) -> dict:
                  digest=wv_digest(wb, vb))
         out[body] = r
     return out
+
+
+def sweep_cells_via_api(group, sweep: dict, out_dir: str) -> None:
+    """Each cell of a sweep matrix run on its own through the API on every
+    rank (its spec's run.shards ranks: this group); rank 0 writes each
+    RunResult as <out_dir>/<cell name>.jsonl, the sweep sink's layout."""
+    import os
+    from repro_torch.api import Experiment, SweepSpec
+    for cell in SweepSpec.from_dict(sweep).expand():
+        res = Experiment(cell.spec).run(device=group.device)
+        if group.rank == 0:
+            res.to_jsonl(os.path.join(out_dir, f"{cell.name}.jsonl"))

@@ -722,6 +722,8 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (2, 4096, 12, 12, 64, True, 0, 0.0),
     # llama-vision's self layers, g = 8, D 128: its 1024 bucket
     (1, 1024, 64, 8, 128, True, 0, 0.0),
+    # granite on 16 model ranks: 2 query heads on one repeated KV head
+    (4, 1024, 2, 1, 64, True, 0, 0.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -767,6 +769,7 @@ BWD_CASES = [
     (1, 2048, 8, 2, 64, True, 128, 0.0),      # a band across many tiles
     (2, 1024, 12, 12, 64, True, 0, 0.0),      # whisper's heads: g = 1
     (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's: g = 8
+    (4, 1024, 2, 1, 64, True, 0, 0.0),        # granite a model rank: g = 2
 ]
 
 
@@ -823,6 +826,7 @@ def _scaled_err(got, want) -> float:
     (1, 200, 8, 2, 64, False, 0, 0.0),        # ragged, no mask
     (4, 4096, 12, 12, 64, True, 0, 0.0),      # whisper's train layer, g = 1
     (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's heads, g = 8
+    (16, 4096, 2, 1, 64, True, 0, 0.0),       # rank 0's of granite, 16x16
 ])
 def test_flash_attention_bwd_bf16_at_each_outputs_scale(dev, b, s, hq, hkv,
                                                         d, causal, window,
@@ -1806,3 +1810,50 @@ def test_sharded_capture_split_block_equals_its_rounds(card_shards, body):
         assert m["graphs_captured"] >= 2 and m["graphs_captured"] % 2 == 0
         assert m["graphs_captured"] + m["graph_replays"] == 16
     assert card_shards[0][body]["digest"] == card_shards[1][body]["digest"]
+
+
+# -- the LM's sharded train step (sharding/rules.py on DTensor) -------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_step_on_a_one_by_one_mesh_is_the_unsharded_step(dev, dtype):
+    """Reduced granite (2 layers, d_model 256, heads of 64) under the
+    training runtime on the card: the step on DTensors over a 1 x 1 mesh
+    (a fake world of one rank; attention through local_map into kernel 8
+    and the backward) equals the unsharded step bit for bit, and each
+    step launches both kernels as many times (kernel 8 twice a layer,
+    remat)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import _torch_lm_shards as shards
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import INPUT_SHAPES
+    from repro_torch.kernels.counters import LAUNCHES, reset_launches
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(
+        layers=2, d_model=256), dtype=dtype)
+    cfg, rt = steps.specialize(cfg, INPUT_SHAPES["train_4k"])
+    rt = dataclasses.replace(rt, q_chunk=64, kv_chunk=64, loss_chunk=64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg, device=dev)
+    masks = tree_map(lambda w: (torch.rand(w.shape, generator=gen,
+                                           device=dev) > 0.3).to(
+        torch.uint8), params)
+    tok = torch.randint(0, cfg.vocab_size, (2, 257), generator=gen,
+                        device=dev, dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    reset_launches()
+    try:
+        loss_eq, params_eq, l1, l0 = shards.one_by_one(
+            cfg, rt, params, masks, batch, "cuda")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert loss_eq and params_eq, (l1, l0)
+    assert LAUNCHES["flash_attention"] == 2 * 2 * cfg.num_layers
+    assert LAUNCHES["flash_attention_bwd"] == 2 * cfg.num_layers

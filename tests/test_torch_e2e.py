@@ -246,7 +246,8 @@ for need in ("repro_torch.kernels._build", "repro_torch.configs.registry",
              "repro_torch.models.flash_vjp",
              "repro_torch.kernels.flash_attention_bwd",
              "repro_torch.launch.steps", "repro_torch.launch.train",
-             "repro_torch.models.moe", "repro_torch.launch.mesh"):
+             "repro_torch.models.moe", "repro_torch.launch.mesh",
+             "repro_torch.sharding.rules", "repro_torch.launch.dryrun"):
     assert need in sys.modules, need
 print(len(names))
 """
@@ -256,7 +257,7 @@ print(len(names))
                          text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 78
+    assert int(out.stdout.split()[-1]) >= 81
 
 
 def test_entry_points_default_to_cuda():
