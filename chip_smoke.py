@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
     python3 chip_smoke.py --sharded    # phase 1 and the sharded phase only
     python3 chip_smoke.py --lm-sharded # phase 1 and the sharded LM step only
+    python3 chip_smoke.py --warm-flex  # compile the flex_attention library
+                                       # calls into build/'s caches, exit
 
 Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
@@ -14,8 +16,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      each flash-attention (forward and backward) and SSD-chunk function in
      the built library's SASS (cuobjdump runs beside the later phases and
      is read before the result line): the run fails if a bf16 (wgmma)
-     instantiation has none, or if one of the four wgmma kernels (kernel
-     8, the backward's dk/dv and dq, the SSD chunk) is missing; ptxas's
+     instantiation has none, or if one of the six wgmma kernels (kernel
+     8, the backward's dk/dv and dq at D 64 / 128 and at D 256, where
+     the two warpgroups of a block split D, the SSD chunk) is missing;
+     ptxas's
      registers, spills and stack
      frames of the LM kernels and of the round's mask, histogram,
      aggregate and masked-update kernels (every instantiation);
@@ -141,13 +145,17 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      attention with
      ragged positions at granite's and gemma2's cache shapes, the SSD chunk
      at mamba2's shapes; times, bounds and the library call
-     (scaled_dot_product_attention) beside them, the device time summed
+     (scaled_dot_product_attention; under gemma2's softcap flex_attention,
+     compiled: a child process, `--warm-flex`, started after phase 2
+     compiles every softcapped row's call into build/'s caches beside
+     the federated phases and is waited for here) beside them, the device
+     time summed
      over every kernel the wrapper launches per call;
- 12. granite-3-2b at full width in bf16, its depth cut from 40 to 8
+ 12. granite-3-2b at full width in bf16, its depth cut from 40 to 4
      layers (random weights, seed 0), served by the continuous-batching
      engine through the flash kernel:
      16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
-     slots; flash launches == 8 x 16, engine tokens == a sequential
+     slots; flash launches == 4 x 16, engine tokens == a sequential
      generation over the same padded prefill (the first request of each
      bucket and one in a reused slot); the prefill's last-token
      logits in fp32 on the same weights within 1e-3 (relative L2) of the
@@ -156,13 +164,14 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      of the plain version on its own inputs; then a profiled window; and
      the decode kernel on the served caches, every
      layer, each row at its last request's position;
- 13. mamba2-130m at full size in bf16 served to 8 requests on 4 slots
+ 13. mamba2-130m at full width in bf16, 6 of its 24 layers, served to
+     8 requests on 4 slots
      (slots reused; tokens == a fresh sequential generation), and the SSD
      entry point on layer 0's real inputs for a 512-token prompt: its 4
      chunks in one ssd_chunk launch, within bf16 of the CPU's run and of
      the model's scan; the wgmma kernel timed on one real chunk and the
      whole entry call timed beside its bound;
-     then (16.) hymba-1.5b at full width, 6 of its 32 layers (25/5
+     then (16.) hymba-1.5b at full width, 2 of its 32 layers (25/5
      heads of 64, window 1,024 beside the SSM mixer) and (17.)
      mixtral-8x22b at full width, 2 of its 56 layers (48/8 heads of 128,
      8 experts of top 2), served as granite is: flash launches == layers
@@ -171,7 +180,8 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      state and conv window zero when its prefill starts (hymba prefills
      the exact, ragged length through kernel 8), the fp32 logits check
      (mixtral's on a copy of its first two layers); then (21.)
-     whisper-small at full size (12 + 12 layers, 12/12 heads of 64: kernel
+     whisper-small at full width, 12 encoder and 4 of its 12 decoder
+     layers (12/12 heads of 64: kernel
      8 at g = 1) on 8 slots, 16 requests of 32 tokens, prompts of 130-440
      tokens padded to (256, 512), and (22.) llama-3.2-vision-90b at full
      width on one group of 5 of its 100 layers (4 self layers of 64/8
@@ -180,8 +190,18 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      nothing); each with one memory shared by every request (an encoder
      input [1, 1500, 768], a vision input [1, 1601, 8192], numpy seed 1),
      served and checked as granite is (flash launches == self layers x
-     16), and another memory must move the prefill's logits;
- 14. granite-3-2b trained at full width and depth in bf16 (random
+     16), and another memory must move the prefill's logits; then (26.)
+     gemma2-9b at full width on 4 of its 42 layers (2 local with a 4,096
+     ring, 2 global; 16/8 heads of 256, softcap 50 in kernel 8, 30 on the
+     logits, a tied 256,000 x 3,584 embedding) on granite's traffic cut to
+     15 requests plus one of exactly 4,609 tokens, whose 4,608-token
+     prefill fills its bucket with no padding, passes the window (kernel 8
+     masks keys on the local layers) and wraps the local ring by 512
+     positions before decode: flash launches == 4 x 16, engine ==
+     sequential for each bucket's first request (the long one included)
+     and one in a reused slot, the fp32 logits check on the long prompt,
+     every bf16 flash launch within 2e-2 of the plain version;
+ 14. granite-3-2b trained at full width, 10 of its 40 layers, in bf16 (random
      weights, seed 0) with masked FedSGD under the train_4k runtime
      (flash_vjp: kernel 8 with the rows' log-sum-exp forward, the
      hand-written backward kernel; chunks 512, loss chunks 256, remat):
@@ -197,19 +217,27 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      0's real inputs against the blocked plain scans (bf16 2e-2; the
      backward's dq, dk, dv at their own scale, a planted fault above),
      timed beside their bounds and SDPA (forward; forward and backward;
-     backward alone); the backward at gemma2-9b's head dim 256 (its
-     CUDA-core kernels) on random bf16 inputs, checked and timed the same
-     way;
- 15. mamba2-130m trained at full size the same way: finite losses,
+     backward alone);
+ 15. mamba2-130m trained the same way (6 of 24 layers): finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
-     then (18.) hymba-1.5b at full width, 8 of its 32 layers, (19.) mixtral-8x22b
+     then (18.) hymba-1.5b at full width, 4 of its 32 layers, (19.) mixtral-8x22b
      at full width on one layer (its deepest that trains on one card; 4
      microbatches) and (23.) whisper-small at full size (an encoder input
-     [4, 1500, 768] beside each batch) trained with phase 14's checks,
+     [4, 1500, 768] beside each batch) and (27.) gemma2-9b at full width
+     on 8 of its 42 layers (4 local + 4 global, 2.50e9 parameters,
+     masks over the tied embedding too) trained with phase 14's checks,
      the kernel rows on layer 0's inputs of the last microbatch (hymba's
-     SDPA given the same band as a boolean mask), the gradient check on a
-     depth-2 copy (whisper's encoder cut to 2 layers with it). Training
+     SDPA given the same band as a boolean mask; under gemma2's softcap
+     the library call is flex_attention, compiled, with the cap as its
+     score_mod), the gradient check on a depth-2 copy (whisper's
+     encoder cut to 2 layers with it; gemma2's one local and one global
+     layer); then the bf16 backward at gemma2's head dim 256 on random
+     inputs at [1, 16/8, 4096, 256], cap 50, globally and under a window
+     of 1,024 (its band path at full size): dq, dk, dv within 2e-2 of
+     their peaks against the blocked plain scan, dO one position late
+     above, a rerun bit for bit, the D 256 wgmma kernels in the device
+     trace, timed beside its bound and flex_attention. Training
      llama-vision is left out: one group at full width (6.5e9 parameters)
      would take ~150 GB at mixtral's ~23 bytes a parameter;
  25. the sharded LM train step (sharding/rules.py on DTensor): (a)
@@ -235,7 +263,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  20. one JSON line listing the kernels (the ten TPU kernels' ports and
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
-     phase 9's streamed run), then the result line.
+     phase 9's streamed run; kernel 8's and the backward's launches on
+     every served and trained LM path, gemma2-9b's included, and the D
+     256 backward rows), then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -244,6 +274,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -263,6 +294,13 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 os.environ["CUDA_VISIBLE_DEVICES"] = \
     os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+# torch.compile (only flex_attention's library rows use it) compiles in this
+# process and keeps its caches under the checkout's build/
+for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                   ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(_var, str(
+        pathlib.Path(__file__).resolve().parent / "build" / _sub))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -279,6 +317,8 @@ from repro_torch.data import make_dataset, partition_by_dirichlet  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    CORE_KERNELS as BWD_CORE, WGMMA_KERNELS as BWD_WGMMA)
 from repro_torch.models import (lenet_apply, lenet_init, make_eval_fn,  # noqa: E402
                                 make_loss_fn, resnet_init)
 from repro_torch.wireless import (ChannelModel,  # noqa: E402
@@ -492,13 +532,16 @@ def sass_hgmma_counts() -> dict:
 
 def hgmma_problems(hgmma) -> list:
     """Prints sass_hgmma_counts()'s result; a problem when a bf16 wgmma
-    kernel is missing or has no HGMMA instruction."""
+    kernel is missing (kernel 8's, the backward's of every head dim as
+    BWD_WGMMA names them, the SSD chunk's) or one has no HGMMA
+    instruction."""
     print(json.dumps({"sass_hgmma": hgmma}))
     wgmma_fns = [k for k in hgmma if "wgmma" in k]
-    missing = [kern for kern in ("flash_attention_wgmma_kernel",
-                                 "flash_bwd_dkdv_wgmma_kernel",
-                                 "flash_bwd_dq_wgmma_kernel",
-                                 "ssd_chunk_wgmma_kernel")
+    expected = ("flash_attention_wgmma_kernel",
+                *sorted({kern for pair in BWD_WGMMA.values()
+                         for kern in pair}),
+                "ssd_chunk_wgmma_kernel")
+    missing = [kern for kern in expected
                if not any(k.startswith(kern) for k in wgmma_fns)]
     if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
         return [f"a bf16 wgmma kernel is missing ({missing}) or has no "
@@ -2636,23 +2679,22 @@ BF16_TOL = 2e-2
 # logits_rel_l2: |kernel - naive| / |naive| over the last-token logits of
 # one fp32 prefill; fp32 rounding carried through the layers stays orders
 # below it, a kernel that reads the causal band one key off lands above it.
-# layers: the served model's depth, cut from 40 to 20 (full width kept) so
-# that the script, with the training phases, stays within half its limit,
-# and to 10 beside the hybrid and MoE phases. n_sequential: how many prefill
+# layers: the served model's depth, cut from 40 to 4 (full width kept) so
+# that the whole script ends within half its limit (PERF.md section 4,
+# "Cuts"). n_sequential: how many prefill
 # lengths have their first request held to sequential generation (None:
 # every one)
 GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
                max_batch=8, max_seq=2048, buckets=(256, 512, 1024),
                len_lo=130, len_hi=1000, n_sequential=None,
-               logits_rel_l2=1e-3, layers=8)
+               logits_rel_l2=1e-3, layers=4)
 # hymba-1.5b at full width and depth on granite's traffic: the hybrid
 # family prefills the exact prompt length (no padding into its SSM state),
 # so its 16 lengths are all distinct; the first of them and a request in a
 # reused slot are held to sequential generation. Its depth is cut from 32
-# to 16 layers (full width kept) to make room for the audio and vlm phases,
-# and to 6 for the sharded LM phase (25: its in-process dry run and its
-# kernel rows at rank 0's local shapes)
-HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=6, n_sequential=1)
+# to 2 layers (full width kept) for the script's time; not below 2, as the
+# fp32 logits check needs two layers for its planted fault to show
+HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=2, n_sequential=1)
 # mixtral-8x22b at full width, 2 of its 56 layers (5.0 GB of bf16 a layer;
 # 4 until the sharded phase needed the time); padded buckets, so its
 # padding tokens share expert capacity with the prompt's, and the
@@ -2661,13 +2703,16 @@ HYMBA = dict(GRANITE, arch="hymba-1.5b", layers=6, n_sequential=1)
 # fault cannot show: the last query sees every key, and attention does
 # not see their order)
 MIXTRAL = dict(GRANITE, arch="mixtral-8x22b", layers=2, logit_layers=2)
-# whisper-small at full size: prompts under the source's 448-position
-# decoder cap, all past the 128-token naive rule, padded to (256, 512); one
-# random encoder input (numpy seed `memory_seed`) shared by every request.
+# whisper-small at full width, its encoder at full depth (12 layers) and
+# its decoder cut from 12 to 4 layers for the script's time (the decode
+# steps are host-bound a layer at a time): prompts under the source's
+# 448-position decoder cap, all past the
+# 128-token naive rule, padded to (256, 512); one random encoder input
+# (numpy seed `memory_seed`) shared by every request.
 # memory_rel_l2: another memory must move the bf16 prefill's logits by
 # more than this relative L2 (the fp32 gate's scale; a cross path that was
 # dropped moves them by exactly 0, the same bf16 ops on the same inputs)
-WHISPER = dict(GRANITE, arch="whisper-small", layers=None, len_lo=130,
+WHISPER = dict(GRANITE, arch="whisper-small", layers=4, len_lo=130,
                len_hi=440, buckets=(256, 512), max_seq=512, memory_seed=1,
                memory_rel_l2=1e-3)
 # llama-3.2-vision-90b at full width on one group (4 self layers and the
@@ -2676,8 +2721,21 @@ WHISPER = dict(GRANITE, arch="whisper-small", layers=None, len_lo=130,
 # check
 VISION = dict(GRANITE, arch="llama-3.2-vision-90b", layers=5, memory_seed=1,
               memory_rel_l2=1e-3, gate=1.0)
+# gemma2-9b at full width, 4 of its 42 layers (2 local + 2 global,
+# alternating as init_params builds them), granite's traffic cut to 15
+# requests and, last, one of exactly 4,609 tokens: its 4,608-token prefill
+# fills the 4,608 bucket with no padding (fill_ring keeps the last window
+# positions of the padded prefill, so a padded bucket past the window would
+# ring padding in both packages, ROADMAP section 3), passes the 4,096-token
+# window (kernel 8 masks keys on the local layers) and wraps their ring by
+# 512 positions before decode. Softcap 50 in kernel 8, 30 on the logits.
+GEMMA2 = dict(GRANITE, arch="gemma2-9b", layers=4, long_prompts=(4609,),
+              buckets=(256, 512, 1024, 4608), max_seq=4672)
+# mamba2-130m at full width, served and trained on 6 of its 24 layers
+# (cut for the script's time: its host-bound decode and plain-scan
+# training steps scale with depth)
 MAMBA = dict(n_requests=8, new_tokens=32, max_batch=4, max_seq=2048,
-             len_lo=100, len_hi=600, entry_len=512, chunk=128)
+             len_lo=100, len_hi=600, entry_len=512, chunk=128, layers=6)
 
 
 def bf16_close(a, b) -> bool:
@@ -2746,6 +2804,13 @@ def causal_pairs(s: int, window: int = 0) -> int:
     return int(np.minimum(q + 1, window).sum())
 
 
+# phase 11's softcapped rows: (s, hq, hkv, d, window, cap, q scale)
+GEMMA2_FLASH_ROWS = {
+    "gemma2 global S1024 cap 50": (1024, 16, 8, 256, 0, 50.0, 50.0),
+    "gemma2 local S1024 window 256 cap 50":
+        (1024, 16, 8, 256, 256, 50.0, 50.0)}
+
+
 def lm_kernel_phase(dev, card):
     """The three LM kernels against their plain versions on random bf16
     inputs at the served models' shapes: flash attention at granite's
@@ -2776,9 +2841,7 @@ def lm_kernel_phase(dev, card):
             "granite S256": (256, 32, 8, 64, 0, 0.0, 1.0),
             "granite S512": (512, 32, 8, 64, 0, 0.0, 1.0),
             "granite S1024": (1024, 32, 8, 64, 0, 0.0, 1.0),
-            "gemma2 global S1024 cap 50": (1024, 16, 8, 256, 0, 50.0, 50.0),
-            "gemma2 local S1024 window 256 cap 50":
-                (1024, 16, 8, 256, 256, 50.0, 50.0),
+            **GEMMA2_FLASH_ROWS,
             "whisper S512": (512, 12, 12, 64, 0, 0.0, 1.0),
             "llama-vision S1024": (1024, 64, 8, 128, 0, 0.0, 1.0)}.items():
         q, k, v = rand((1, hq, s, d), q_scale), rand((1, hkv, s, d)), \
@@ -2795,10 +2858,15 @@ def lm_kernel_phase(dev, card):
                     fa.flash_attention_plain(q, k, v, **off), ref):
                 problems.append(f"flash_attention {label}: the {branch} "
                                 "changes nothing at these inputs")
-        lib = None
+        # the library call: SDPA, or under a softcap flex_attention
+        lib, lib_row = None, {}
         if not cap:
             lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            lib, _, lib_row = flex_library(q, k, v, out, None, True, window,
+                                           cap)
+            lib_row.pop("library_bwd_ms", None)
         nbytes = 2 * (2 * hq + 2 * hkv) * s * d
         flash_rows[label] = measure(
             "flash_attention", ok, _abs_err(out, ref),
@@ -2807,7 +2875,7 @@ def lm_kernel_phase(dev, card):
                                                                   **kw),
             LM_SYMBOLS["flash_attention"], nbytes,
             4 * d * hq * causal_pairs(s, window), card, library_call=lib,
-            shape=label)
+            shape=label, **lib_row)
         syms = flash_rows[label]["device_symbols"]
         if syms and not all("flash_attention_wgmma_kernel" in x
                             for x in syms):
@@ -2952,7 +3020,8 @@ def serve_phase(dev, card, smi, c):
     on the card, by the engine with the flash kernel: c["n_requests"]
     greedy requests of c["new_tokens"] tokens on c["max_batch"] slots
     (slots reused), prompts of c["len_lo"]-c["len_hi"] tokens (numpy seed
-    0), every prefill above 128 tokens, so each goes through kernel 8. The
+    0) and, last, one of each length in c["long_prompts"] (if any), every
+    prefill above 128 tokens, so each goes through kernel 8. The
     exact-length families (ssm, hybrid) prefill the prompt as it is; the
     others pad to c["buckets"]. The audio and vlm families serve every
     request with one memory input (`memory_input`, c["memory_seed"]),
@@ -2987,7 +3056,10 @@ def serve_phase(dev, card, smi, c):
     init_s = time.perf_counter() - t
     rng = np.random.default_rng(0)
     exact = cfg.family in ("ssm", "hybrid")
-    lens = rng.integers(c["len_lo"], c["len_hi"] + 1, size=c["n_requests"])
+    long = tuple(c.get("long_prompts", ()))
+    lens = np.concatenate([rng.integers(
+        c["len_lo"], c["len_hi"] + 1,
+        size=c["n_requests"] - len(long)), np.array(long, dtype=np.int64)])
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in lens]
     eng = ServingEngine(params, cfg, max_batch=c["max_batch"],
@@ -3282,8 +3354,9 @@ def decode_entry_phase(dev, card, eng, occupants):
 
 
 def mamba_phase(dev, card):
-    """mamba2-130m at full width and depth in bf16 (random weights, seed
-    0 on the card): 8 greedy requests on 4 slots, so slots are reused;
+    """mamba2-130m at full width in bf16, MAMBA["layers"] deep (random
+    weights, seed 0 on the card): 8 greedy requests on 4 slots, so slots
+    are reused;
     tokens equal a fresh-cache sequential generation. Then the SSD entry
     point, ops.ssd_chunked_pallas, on layer 0's real (x, B, C, dt) for a
     512-token prompt, held to the plain version and to the model's
@@ -3299,7 +3372,8 @@ def mamba_phase(dev, card):
     from repro_torch.models.layers import rms_norm
     from repro_torch.serving import ServingEngine
     c = MAMBA
-    cfg = get_config("mamba2-130m")
+    cfg = dataclasses.replace(get_config("mamba2-130m"),
+                              num_layers=c["layers"])
     rt = Runtime(attn_impl="cuda")
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
@@ -3429,9 +3503,9 @@ def mamba_phase(dev, card):
     return problems, launches, row
 
 
-# the training phase: granite-3-2b at full width and depth, train_4k's
-# length at a batch of 4 (its global batch of 256 cut to one card and the
-# run's limit), masks at lambda 0.3 from one warm-up gradient, 3 steps
+# the training phase: granite-3-2b at full width, train_4k's length at a
+# batch of 4 (its global batch of 256 cut to one card and the run's
+# limit), masks at lambda 0.3 from one warm-up gradient, 3 steps
 TRAIN = dict(shape="train_4k", batch=4, lam=0.3, eta=1e-2, steps=3,
              grad_depth=2, grad_batch=1, grad_rel_l2=1e-3, block=512)
 TRAIN_CKPT = pathlib.Path(__file__).resolve().parent / "build" / \
@@ -3619,15 +3693,160 @@ def flash_grad_check(dev, cfg, rt):
     return problems, row
 
 
+FLEX_CALL = ("flex_attention (compiled): score_mod cap * tanh(s / cap), "
+             "causal band block mask, enable_gqa")
+
+
+@functools.cache
+def _compiled_flex():
+    from torch.nn.attention.flex_attention import flex_attention
+    return torch.compile(flex_attention, dynamic=False)
+
+
+def _flex_calls(q, k, v, do, causal, window, cap):
+    """flex_attention under torch.compile with cap * tanh(s / cap) as its
+    score_mod, the causal band (kpos <= qpos, kpos > qpos - window) as its
+    block mask and GQA, on kernel layout [B, H, S, D] inputs. Returns
+    (forward, forward and backward, kept): kept() runs the forward once
+    with its graph kept and returns (its output, the backward alone from
+    that graph); it compiles the backward without donated buffers, which a
+    compiled backward would free after its first call."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    flex = _compiled_flex()
+    s = q.shape[2]
+
+    def score_mod(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi if causal else ki >= 0
+        return keep & (ki > qi - window) if window else keep
+
+    kw = dict(score_mod=score_mod, enable_gqa=True,
+              block_mask=create_block_mask(mask_mod, None, None, s, s,
+                                           device=q.device))
+    req = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return flex(q, k, v, **kw)
+
+    def fwd_bwd():
+        return torch.autograd.grad(flex(*req, **kw), req, do)
+
+    def kept():
+        with torch._functorch.config.patch(donated_buffer=False):
+            out = flex(*req, **kw)
+
+            def bwd():
+                return torch.autograd.grad(out, req, do, retain_graph=True)
+            bwd()
+        return out, bwd
+
+    return fwd, fwd_bwd, kept
+
+
+def flex_library(q, k, v, o, do, causal, window, cap):
+    """The library call of a softcapped row: flex_attention compiled
+    (_flex_calls; the port never calls it) on the row's inputs. Returns
+    (forward, forward and backward, extra row fields): the fields name the
+    call, its forward's max |flex - o| (o: kernel 8's output on the same
+    inputs, so that the call is seen to compute the same function) and,
+    given the output gradient do, its backward alone, like with like as
+    SDPA's (one forward with its graph kept, the gradient taken again and
+    again). Without do (a forward row) the second call is None. Where
+    compiling or launching fails, both calls are None and the fields hold
+    the error."""
+    try:
+        fwd, fwd_bwd, kept = _flex_calls(q, k, v, do, causal, window, cap)
+        if do is None:
+            return fwd, None, dict(
+                library=FLEX_CALL, library_o_max_abs_err=_abs_err(fwd(), o))
+        out, bwd = kept()
+        err = _abs_err(out.detach(), o)
+        bwd_ms = time_ms(bwd, reps=50)
+        del out, bwd
+    except Exception as e:            # noqa: BLE001 - printed in the row
+        return None, None, dict(
+            library=FLEX_CALL, library_bwd_ms=None,
+            library_error=f"{type(e).__name__}: {str(e)[:400]}")
+    return fwd, fwd_bwd, dict(library=FLEX_CALL, library_o_max_abs_err=err,
+                              library_bwd_ms=bwd_ms)
+
+
+def warm_flex(dev):
+    """--warm-flex: compiles the softcapped rows' flex_attention calls
+    (phase 11's gemma2 rows, gemma2's train layer 0, the D 256 rows) at
+    their shapes, layouts and settings, so that inductor's and triton's
+    caches under build/ hold them when the main run compiles the same
+    calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import INPUT_SHAPES
+
+    def rand(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.bfloat16)
+
+    torch.use_deterministic_algorithms(False)           # as phase 11
+    for s, hq, hkv, d, window, cap, _ in GEMMA2_FLASH_ROWS.values():
+        _flex_calls(rand(1, hq, s, d), rand(1, hkv, s, d),
+                    rand(1, hkv, s, d), None, True, window, cap)[0]()
+    torch.use_deterministic_algorithms(True, warn_only=True)   # training
+    cfg = get_config("gemma2-9b")
+    c = GEMMA2_BWD
+    for b, s, window, both in (
+            (TRAIN["batch"], INPUT_SHAPES[TRAIN["shape"]].seq_len,
+             cfg.sliding_window, True),
+            *((c["b"], c["s"], w, False) for w in c["windows"])):
+        q, k, v, do = (rand(b, s, h, cfg.head_dim).transpose(1, 2) for h in (
+            cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads, cfg.num_heads))
+        fwd, _, kept = _flex_calls(q, k, v, do, True, window,
+                                   cfg.attn_softcap)
+        kept()
+        if both:                 # the train layer's forward row too
+            fwd()
+    torch.cuda.synchronize()
+
+
+def start_flex_warmup():
+    """Runs warm_flex in a child process beside the federated phases
+    (started after phase 2's timings), its log in build/; returns (the
+    process, its start time). stop_flex_warmup waits for it."""
+    import atexit
+    log = pathlib.Path(__file__).resolve().parent / "build" / \
+        "flex_warmup.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--warm-flex"], stdout=f, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)
+    return proc, time.perf_counter()
+
+
+def stop_flex_warmup(warm, timeout_s: float = 120.0) -> None:
+    """Waits for the warm-up (killed after timeout_s) and prints its exit
+    code and seconds. A failed warm-up costs only time: the main run then
+    compiles the calls itself."""
+    proc, t0 = warm
+    t = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    print(json.dumps({"flex_warmup": {
+        "rc": rc, "s": time.perf_counter() - t0,
+        "waited_s": time.perf_counter() - t}}))
+
+
 def train_kernel_rows(captured, card, smi, name):
     """Kernel 8 with lse and the backward kernel on layer 0's real bf16
     inputs of the training run, each against its plain version (the
     blocked flash_vjp_plain_fwd / _bwd, the JAX scans' translation; a
     materialised [4, 32, 4096, 4096] score tensor would not fit), timed
     beside its bound (live FLOPs at the bf16 tensor-core peak: 4 D a pair
-    and head forward, 10 D backward) and SDPA (forward; forward and
-    backward). The forward is held within bf16 2e-2 (o of order 1, lse of
-    order log S). A window shorter than the sequence (hymba's) gives SDPA
+    and head forward, 10 D backward) and the library call (forward;
+    forward and backward; backward alone): SDPA, or under a softcap
+    flex_attention (flex_library). The forward is held within bf16 2e-2
+    (o of order 1, lse of order log S). A window shorter than the sequence (hymba's) gives SDPA
     the same band as a boolean mask. dq, dk and dv of a mean loss lie far
     below that absolute term (their peaks are printed), so each is held at
     its own scale, max |kernel - plain| <= 2e-2 max |plain|; the kernel
@@ -3646,6 +3865,10 @@ def train_kernel_rows(captured, card, smi, name):
     lse_k = lse.reshape(b, hq, s)
     kw = dict(causal=causal, window=window, cap=cap)
     pairs = b * hq * causal_pairs(s, window)
+    # the library call: SDPA without a softcap, flex_attention with one
+    lib = not cap
+    flex_fwd, flex_fwd_bwd, flex_row = (None, None, {}) if lib else \
+        flex_library(*kt[:4], kt[4], causal, window, cap)
     sdpa_kw = dict(is_causal=True, enable_gqa=True)
     if window and window < s:           # the same band, as a boolean mask
         pos = torch.arange(s, device=q.device)
@@ -3669,10 +3892,11 @@ def train_kernel_rows(captured, card, smi, name):
                                        blk),
         LM_SYMBOLS["flash_attention"],
         2 * (2 * hq + 2 * hkv) * b * s * d + 4 * b * hq * s, 4 * d * pairs,
-        card, library_call=lambda: F.scaled_dot_product_attention(
-            *kt[:3], **sdpa_kw),
+        card, library_call=(lambda: F.scaled_dot_product_attention(
+            *kt[:3], **sdpa_kw)) if lib else flex_fwd,
         shape=f"{name} train layer 0 [{b}, {hq}/{hkv}, {s}, {d}], window "
-              f"{window}, with lse",
+              f"{window}, cap {cap}, with lse",
+        **{k: x for k, x in flex_row.items() if k != "library_bwd_ms"},
         nvidia_smi=smi)
 
     got = fab.flash_attention_bwd(*kt, lse_k, **kw)
@@ -3698,10 +3922,12 @@ def train_kernel_rows(captured, card, smi, name):
 
     # SDPA's backward alone, like with like: one forward with its graph
     # kept, then the gradient taken again and again from it
-    sdpa_out = F.scaled_dot_product_attention(*req, **sdpa_kw)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, req, kt[4], retain_graph=True), reps=50)
-    del sdpa_out
+    sdpa_bwd_ms = None
+    if lib:
+        sdpa_out = F.scaled_dot_product_attention(*req, **sdpa_kw)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, req, kt[4], retain_graph=True), reps=50)
+        del sdpa_out
     bwd = measure(
         "flash_attention_bwd", ok_b,
         max(_abs_err(g.transpose(1, 2), w) for g, w in zip(got, want)),
@@ -3710,43 +3936,69 @@ def train_kernel_rows(captured, card, smi, name):
                                         window, cap, blk, blk),
         LM_SYMBOLS["flash_attention_bwd"],
         2 * ((4 * hq + 4 * hkv) * b * s * d) + 4 * b * hq * s,
-        10 * d * pairs, card, library_call=sdpa_fwd_bwd, per_call=3,
+        10 * d * pairs, card,
+        library_call=sdpa_fwd_bwd if lib else flex_fwd_bwd,
+        per_call=3,
         shape=f"{name} train layer 0 [{b}, {hq}/{hkv}, {s}, {d}], window "
-              f"{window}",
+              f"{window}, cap {cap}",
         scaled_err_dq_dk_dv=sound_err, planted_fault_scaled_err=fault_err,
         scaled_limit=BF16_TOL,
         peak_abs_dq_dk_dv=[float(w.float().abs().max()) for w in want],
-        library="scaled_dot_product_attention forward + backward",
-        library_bwd_ms=sdpa_bwd_ms, nvidia_smi=smi)
-    syms = bwd["device_symbols"]
-    if syms and not all(any(kern in x for x in syms) for kern in (
-            "flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel")):
-        problems.append(f"{name}: flash_attention_bwd on layer 0's training "
-                        f"inputs: bf16 device time from {syms}, not the "
-                        f"wgmma kernels")
+        **({"library": "scaled_dot_product_attention forward + backward",
+            "library_bwd_ms": sdpa_bwd_ms} if lib else
+           {**flex_row, "library": f"{flex_row['library']}, forward + "
+                                   "backward"}),
+        nvidia_smi=smi)
+    problems += bwd_symbol_problems(f"{name}: flash_attention_bwd on layer "
+                                    "0's training inputs", bwd, d)
     return problems, fwd, bwd
+
+
+def bwd_symbol_problems(label, row, d) -> list:
+    """A problem unless the device trace of a bf16 backward row shows the
+    wgmma kernels of its head dim (and no CUDA-core pass)."""
+    syms = row["device_symbols"]
+    kernels = BWD_WGMMA[d]
+    if syms and not (all(any(f"{kern}<" in x for x in syms)
+                         for kern in kernels)
+                     and not any(kern in x for kern in BWD_CORE
+                                 for x in syms)):
+        return [f"{label}: bf16 device time from {list(syms)}, not "
+                f"{kernels}"]
+    return []
 
 
 # mixtral-8x22b trains at full width on this many of its 56 layers: the
 # deepest whole number whose peak stays under ~70 GiB on one card
 MIXTRAL_TRAIN_LAYERS = 1
-# hymba trains 8 of its 32 layers (full width) since the sharded LM phase
-# (25) needed the time
-HYMBA_TRAIN_LAYERS = 8
+# hymba-1.5b and granite-3-2b train at full width on 4 of 32 and 10 of 40
+# layers: depth cut so that the whole script ends in half its time limit
+# (PERF.md section 4, "Cuts")
+HYMBA_TRAIN_LAYERS = 4
+GRANITE_TRAIN_LAYERS = 10
+# gemma2-9b trains at full width on 8 of its 42 layers (4 local + 4
+# global): 2.50e9 parameters with the tied 256,000 x 3,584 embedding,
+# granite-3-2b's size
+GEMMA2_TRAIN_LAYERS = 8
 
 
 # gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
-# 256, causal, softcap 50 (its window, 4096, binds nowhere at 4096 tokens)
-GEMMA2_BWD = dict(b=1, s=4096, hq=16, hkv=8, d=256, cap=50.0)
+# 256, causal, softcap 50. At train_4k its window (4,096) binds nowhere, so
+# the row is also taken under a window of 1,024, which masks keys: the band
+# path of the D 256 kernels at full size
+GEMMA2_BWD = dict(b=1, s=4096, hq=16, hkv=8, d=256, cap=50.0,
+                  windows=(0, 1024))
 
 
-def d256_bwd_row(dev, card, smi):
-    """The attention backward at head dim 256, which stays on the CUDA-core
-    kernels in bf16 (csrc/flash_attention_bwd.cu), on random bf16 inputs
-    (numpy seed 0) at gemma2-9b's shape with kernel 8's o and lse: dq, dk,
-    dv each within 2e-2 of its own peak against the blocked plain scan,
-    dO one position late above that, timed beside its bound. No library
-    call computes the softcapped function, so library_ms is null."""
+def d256_bwd_row(dev, card, smi, window):
+    """The bf16 attention backward at head dim 256 (the wgmma kernels that
+    split D across two warpgroups, csrc/flash_attention_bwd.cu) on random
+    bf16 inputs (numpy seed 0) at gemma2-9b's shape, under `window` (0:
+    none), with kernel 8's o and lse: dq, dk, dv each within 2e-2 of its
+    own peak against the blocked plain scan, dO one position late above
+    that, a rerun bit for bit, timed beside its bound and its device
+    symbols those kernels'; the library call is flex_attention on the same
+    inputs (flex_library: forward and backward, and backward alone)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     c = GEMMA2_BWD
@@ -3755,18 +4007,25 @@ def d256_bwd_row(dev, card, smi):
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(
         np.float32)).to(dev, torch.bfloat16).transpose(1, 2)
         for h in (hq, hkv, hkv, hq))
-    kw = dict(causal=True, window=0, cap=c["cap"])
+    kw = dict(causal=True, window=window, cap=c["cap"])
     o, lse = fa.flash_attention(q, k, v, lse=True, **kw)
     want = fab.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
     got = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fab.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    rerun = all(bits_equal(x.view(torch.int16), y.view(torch.int16))
+                for x, y in zip(got, again))
+    del again
     late = fab.flash_attention_bwd(q, k, v, o, do.roll(1, dims=2), lse, **kw)
     sound = [scaled_err(x, w) for x, w in zip(got, want)]
     fault = [scaled_err(x, w) for x, w in zip(late, want)]
     del late
-    ok = max(sound) <= BF16_TOL < min(fault)
+    ok = max(sound) <= BF16_TOL < min(fault) and rerun
+    label = f"flash_attention_bwd at D 256, window {window}"
+    _, flex_fwd_bwd, flex_row = flex_library(q, k, v, o, do, True, window,
+                                             c["cap"])
     problems = [] if ok else [
-        f"flash_attention_bwd at D 256: dq, dk, dv at {sound} of their "
-        f"scale, the planted fault at {fault}, limit {BF16_TOL}"]
+        f"{label}: dq, dk, dv at {sound} of their scale, the planted fault "
+        f"at {fault}, limit {BF16_TOL}, rerun bit for bit {rerun}"]
     row = measure(
         "flash_attention_bwd", ok,
         max(_abs_err(x, w) for x, w in zip(got, want)),
@@ -3774,11 +4033,15 @@ def d256_bwd_row(dev, card, smi):
         lambda: fab.flash_attention_bwd_plain(q, k, v, o, do, lse, **kw),
         LM_SYMBOLS["flash_attention_bwd"],
         2 * ((4 * hq + 4 * hkv) * b * s * d) + 4 * b * hq * s,
-        10 * d * b * hq * causal_pairs(s), card, per_call=3,
+        10 * d * b * hq * causal_pairs(s, window), card, per_call=3,
         shape=f"gemma2-9b head dim 256 [{b}, {hq}/{hkv}, {s}, {d}], cap "
-        f"{c['cap']}, random inputs", scaled_err_dq_dk_dv=sound,
-        planted_fault_scaled_err=fault, scaled_limit=BF16_TOL,
-        nvidia_smi=smi)
+        f"{c['cap']}, window {window}, random inputs",
+        scaled_err_dq_dk_dv=sound, planted_fault_scaled_err=fault,
+        scaled_limit=BF16_TOL, rerun_bitwise=rerun,
+        library_call=flex_fwd_bwd,
+        **{**flex_row, "library": f"{flex_row['library']}, forward + "
+                                  "backward"}, nvidia_smi=smi)
+    problems += bwd_symbol_problems(label, row, d)
     return problems, row
 
 
@@ -3878,8 +4141,9 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
 
 
 def mamba_train_phase(dev, smi):
-    """mamba2-130m at full size in bf16 trained at the same shape (4 x 4096
-    tokens, specialize's train runtime, lambda 0.3, eta 1e-2): 3 steps,
+    """mamba2-130m at full width in bf16, MAMBA["layers"] deep, trained at
+    the same shape (4 x 4096 tokens, specialize's train runtime, lambda
+    0.3, eta 1e-2): 3 steps,
     finite losses, pruned coordinates unchanged bit for bit, and a
     checkpoint after step 2 restored and step 3 rerun from it bit for
     bit."""
@@ -3889,7 +4153,8 @@ def mamba_train_phase(dev, smi):
     from repro_torch.models import transformer as T
     c = TRAIN
     shape = INPUT_SHAPES[c["shape"]]
-    cfg, rt = specialize(get_config("mamba2-130m"), shape)
+    cfg, rt = specialize(dataclasses.replace(
+        get_config("mamba2-130m"), num_layers=MAMBA["layers"]), shape)
     seq, batch = shape.seq_len, c["batch"]
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
@@ -4205,7 +4470,8 @@ def _row_summary(row: dict) -> dict:
     return {k: row[k] for k in (
         "ok", "ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
         "library_ms", "max_abs_err", "shape", "scaled_err_dq_dk_dv",
-        "library_bwd_ms") if k in row}
+        "library_bwd_ms", "library_o_max_abs_err", "library_error")
+        if k in row}
 
 
 def main() -> int:
@@ -4219,6 +4485,10 @@ def main() -> int:
     parser.add_argument("--lm-sharded", action="store_true",
                         help="set-up and the sharded LM train step (phase "
                              "25) only; no result line")
+    parser.add_argument("--warm-flex", action="store_true",
+                        help="compile the flex_attention library calls "
+                             "into build/'s caches (warm_flex) and exit; "
+                             "the full run starts it itself")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4239,6 +4509,9 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    if args.warm_flex:
+        warm_flex(dev)
+        return 0
 
     walls = {"imports_and_setup": time.perf_counter() - T_START}
     t = time.perf_counter()
@@ -4285,6 +4558,9 @@ def main() -> int:
         if sass:
             print("chip_smoke FAILED: " + "; ".join(sass), file=sys.stderr)
         return 1 if sass else 0
+    # the softcapped rows' library calls compile beside the federated
+    # phases, in a child process that fills the compile caches
+    flex_warm = start_flex_warmup()
 
     # the pruned-FedSGD path, packed backend: counts from this run only
     t = time.perf_counter()
@@ -4403,6 +4679,7 @@ def main() -> int:
     # engine == sequential rests on the same ops at the same shapes
     torch.use_deterministic_algorithms(False)
     t = time.perf_counter()
+    stop_flex_warmup(flex_warm)
     lm_problems, flash_rows = lm_kernel_phase(dev, name)
     problems += lm_problems
     walls["lm_kernels"] = time.perf_counter() - t
@@ -4422,7 +4699,7 @@ def main() -> int:
     problems += m_problems
     walls["mamba2_serving"] = time.perf_counter() - t
     serve_launches = {}
-    for conf in (HYMBA, MIXTRAL, WHISPER, VISION):
+    for conf in (HYMBA, MIXTRAL, WHISPER, VISION, GEMMA2):
         t = time.perf_counter()
         s_problems, s_eng, serve_launches[conf["arch"]], _ = serve_phase(
             dev, name, card, conf)
@@ -4437,10 +4714,8 @@ def main() -> int:
     torch.use_deterministic_algorithms(True, warn_only=True)
     t = time.perf_counter()
     tr_problems, train_launches, (train_fwd, train_bwd) = lm_train_phase(
-        dev, name, card, "granite-3-2b")
+        dev, name, card, "granite-3-2b", GRANITE_TRAIN_LAYERS)
     problems += tr_problems
-    d_problems, train_bwd["d256"] = d256_bwd_row(dev, name, card)
-    problems += d_problems
     torch.cuda.empty_cache()
     walls["granite_train"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -4449,13 +4724,25 @@ def main() -> int:
     new_train = {}
     for arch, layers in (("hymba-1.5b", HYMBA_TRAIN_LAYERS),
                          ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
-                         ("whisper-small", None)):
+                         ("whisper-small", None),
+                         ("gemma2-9b", GEMMA2_TRAIN_LAYERS)):
         t = time.perf_counter()
         tr_problems, tr_launches, tr_rows = lm_train_phase(
             dev, name, card, arch, layers)
         problems += tr_problems
         new_train[arch] = (tr_launches, *tr_rows)
         walls[f"{arch}_train"] = time.perf_counter() - t
+    # the D 256 backward at gemma2's shape on random inputs, globally (the
+    # row PERF.md has kept since the CUDA-core kernels) and under a window
+    # of 1,024
+    t = time.perf_counter()
+    d256 = {}
+    for window in GEMMA2_BWD["windows"]:
+        d_problems, d256[f"window {window}"] = d256_bwd_row(dev, name, card,
+                                                            window)
+        problems += d_problems
+    torch.cuda.empty_cache()
+    walls["d256_bwd_rows"] = time.perf_counter() - t
     t = time.perf_counter()
     sh_problems, sharded_launches, sharded_rows = lm_sharded_phase(
         dev, name, card)
@@ -4550,9 +4837,8 @@ def main() -> int:
                             for a, r in new_train.items()}}
                         if kname == "flash_attention_bwd" else {}),
                      **({"library_bwd_ms": res["library_bwd_ms"],
-                         "d256": {k: res["d256"][k] for k in (
-                             "ok", "ms", "plain_ms", "device_ms", "bound_ms",
-                             "max_abs_err", "scaled_err_dq_dk_dv", "shape")}}
+                         "d256": {label: _row_summary(row)
+                                  for label, row in d256.items()}}
                         if kname == "flash_attention_bwd" else {})})
     print(json.dumps({"kernels": rows}))
     problems += hgmma_problems(sass_job.result())

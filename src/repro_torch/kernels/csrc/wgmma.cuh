@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the bf16 tensor-core kernels
 // (flash attention forward and backward, the SSD chunk): cp.async into
 // 128-byte-swizzled shared tiles, wgmma shared-memory descriptors, the
-// m64n64k16 bf16 products with fp32 accumulation, their fences, and a few
-// conversions.
+// m64n64k16 and m64n32k16 bf16 products with fp32 accumulation, their
+// fences, and a few conversions.
 //
 // Shared tiles are stored as [cols / 64 panels][rows][64 bf16]: 16-byte
 // chunk c of row r at chunk c ^ (r % 8) of its 128-byte row, the swizzle
@@ -90,9 +90,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Pin registers after a wait: their reads may not move above it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A B, m64n64k16, A and B K-major in shared memory.
@@ -132,6 +133,41 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (+)= A B, m64n32k16, A and B K-major in shared memory: the fragment
+// of 16 floats a thread is the m64n64 one's first 32 columns (element i at
+// the same row and column as element i of an m64n64 accumulator).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, m64n64k16, A K-major and B MN-major in shared memory (the
+// transpose bit of B set).
+__device__ __forceinline__ void wgmma_ss_kmn(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d += A B, m64n64k16, A from registers (bf16 pairs in the accumulator's
 // row / column order), B MN-major in shared memory (transpose bit set).
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -153,6 +189,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
+
+// one 32-bit word to shared memory (a generic-proxy store: fence it with
+// fence_proxy_async before a wgmma reads it)
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
 
 // rows [0, nvalid) of a [ROWS, D] tile at g (row stride rs elements) into
 // the swizzled layout at s, by NT threads (tid of them); rows past nvalid

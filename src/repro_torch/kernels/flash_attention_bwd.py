@@ -14,9 +14,10 @@ scores), NEG_INF = -2^30 as the forward. Kernel layout q, o, dO
 k, v. Source: ``csrc/flash_attention_bwd.cu``, which states its bound and
 design: three launches (D = rowsum(dO o), then dk/dv, then dq; no
 atomics, so a rerun is bit for bit). Storage type and head dim pick the
-kernels: bf16 at D 64 and 128 runs the five products on the tensor cores
-(``wgmma``; P and dS rounded to bf16 before their products), fp32 and bf16
-at D 256 the CUDA-core kernels. bf16 rows must start on 16 bytes.
+kernels: bf16 runs the five products on the tensor cores (``wgmma``; P
+and dS rounded to bf16 before their products; at D 256 the two warpgroups
+of a block split D), fp32 the CUDA-core kernels. bf16 rows must start on
+16 bytes.
 
 The plain version is `flash_vjp_plain_bwd`, the line-for-line translation
 of ``_bwd_scan`` blocked by (bq, bk) in the model layout; the wrapper takes
@@ -37,6 +38,18 @@ from repro_torch.kernels.flash_attention import (NEG_INF, _blocks,
                                                  _check_attention_inputs,
                                                  _check_rows_aligned, _mask,
                                                  plain_block)
+
+# The kernels a CUDA call launches after the delta pass (dk/dv, then dq),
+# as csrc/flash_attention_bwd.cu's `launch_all` picks them: bf16 on the
+# tensor cores by head dim (at D 256 the kernels whose two warpgroups split
+# D), fp32 on the CUDA cores at every head dim.
+WGMMA_KERNELS = {
+    64: ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
+    128: ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"),
+    256: ("flash_bwd_dkdv_wgmma_split_kernel",
+          "flash_bwd_dq_wgmma_split_kernel"),
+}
+CORE_KERNELS = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def flash_vjp_plain_bwd(res, do, causal, window, cap, bq, bk):

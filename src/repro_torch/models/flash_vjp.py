@@ -15,9 +15,8 @@ with GQA, causal, sliding-window (banded) masks and the softcap's tanh
 chain rule. On CUDA tensors the forward is the flash-attention kernel
 (kernel 8, ``kernels/flash_attention.py``) asked for the rows' log-sum-exp,
 and the backward the hand-written ``kernels/flash_attention_bwd.py`` (three
-launches, no atomics: in bf16 at D 64 and 128 the products run on the
-tensor cores with P and dS rounded to bf16, in fp32 and at D 256 on the
-CUDA cores); on
+launches, no atomics: in bf16 the products run on the tensor cores with
+P and dS rounded to bf16, in fp32 on the CUDA cores); on
 CPU tensors both are those kernels' plain versions, `flash_vjp_plain_fwd`
 and `flash_vjp_plain_bwd`, line-for-line translations of the JAX
 package's ``_fwd_scan`` and ``_bwd_scan`` blocked by (bq, bk), which the

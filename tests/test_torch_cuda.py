@@ -770,6 +770,16 @@ BWD_CASES = [
     (2, 1024, 12, 12, 64, True, 0, 0.0),      # whisper's heads: g = 1
     (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's: g = 8
     (4, 1024, 2, 1, 64, True, 0, 0.0),        # granite a model rank: g = 2
+    # gemma2's heads at D 256 over grids that fill the split-D blocks: 32
+    # key blocks a kv head, a window of 256 across many tiles at batch 2,
+    # and a ragged length (the last query and key tiles part empty)
+    (1, 2048, 16, 8, 256, True, 0, 50.0),
+    (2, 1024, 16, 8, 256, True, 256, 50.0),
+    (1, 1000, 16, 8, 256, True, 0, 50.0),
+    # D 256 without a cap, and without a mask over ragged tiles: the
+    # uncapped scores and the non-causal tile bounds of the split-D kernels
+    (1, 1000, 16, 8, 256, True, 0, 0.0),
+    (2, 320, 16, 8, 256, False, 0, 0.0),
 ]
 
 
@@ -827,6 +837,11 @@ def _scaled_err(got, want) -> float:
     (4, 4096, 12, 12, 64, True, 0, 0.0),      # whisper's train layer, g = 1
     (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's heads, g = 8
     (16, 4096, 2, 1, 64, True, 0, 0.0),       # rank 0's of granite, 16x16
+    (1, 2048, 16, 8, 256, True, 0, 50.0),     # gemma2, D split in halves
+    (2, 1024, 16, 8, 256, True, 256, 50.0),   # gemma2 under a window
+    (1, 1000, 16, 8, 256, True, 0, 50.0),     # gemma2, ragged tiles
+    (1, 1000, 16, 8, 256, True, 0, 0.0),      # D 256 without a cap
+    (2, 320, 16, 8, 256, False, 0, 0.0),      # D 256, no mask, ragged
 ])
 def test_flash_attention_bwd_bf16_at_each_outputs_scale(dev, b, s, hq, hkv,
                                                         d, causal, window,
@@ -865,12 +880,14 @@ def test_flash_attention_bwd_rejects_unaligned_bf16_rows(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_attention_bwd_bf16_runs_the_wgmma_kernels(dev, d):
-    """A torch.profiler trace of bf16 backward calls at D 64 and 128 holds
-    the tensor-core kernels (dk/dv and dq on wgmma) beside the delta pass,
-    no CUDA-core backward kernel and nothing else. (The profiler may drop
-    events, so each kernel is asked to show at least once in 10 calls.)"""
+    """A torch.profiler trace of bf16 backward calls at D 64, 128 and 256
+    holds the tensor-core kernels of that head dim (dk/dv and dq on wgmma;
+    at D 256 the kernels that split D across two warpgroups) beside the
+    delta pass, no CUDA-core backward kernel and nothing else. (The
+    profiler may drop events, so each kernel is asked to show at least
+    once in 10 calls.)"""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention_bwd as fab
     kw = dict(causal=True, window=0, cap=0.0)
@@ -885,14 +902,14 @@ def test_flash_attention_bwd_bf16_runs_the_wgmma_kernels(dev, d):
              if str(getattr(ev, "device_type", "")).endswith("CUDA")]
     assert names, "the trace shows no device kernel"
     assert all("flash_bwd_" in n for n in names), names
-    for kern in ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd_dq_wgmma_kernel"):
+    for kern in fab.WGMMA_KERNELS[d]:
         assert any(kern in n for n in names), (kern, names)
-    assert not any("flash_bwd_dkdv_kernel" in n or "flash_bwd_dq_kernel" in n
+    assert not any(kern in n for kern in fab.CORE_KERNELS
                    for n in names), names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_rerun_is_bitwise(dev, dtype, d):
     """No atomics: two calls on the same inputs give the same bits."""

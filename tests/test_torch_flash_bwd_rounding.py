@@ -4,7 +4,9 @@ The port's bf16 backward kernels (csrc/flash_attention_bwd.cu, the wgmma
 design) run the five products of FlashAttention-2's backward on the
 tensor cores: bf16 q, k, v, o and dO, p and ds rounded to bf16 before the
 products that take them as an operand (dv += p^T dO; dq += ds k, dk +=
-ds^T q), fp32 accumulation, outputs rounded to bf16. The card's gates
+ds^T q), fp32 accumulation, outputs rounded to bf16; at D 256 (gemma2)
+the two warpgroups of a block pass p^T and ds^T to each other through
+shared memory in bf16, the same roundings. The card's gates
 (chip_smoke.py's phase 14, tests/test_torch_cuda.py) hold the kernel's dq,
 dk and dv against the fp32 plain scan within 2e-2 of each output's own
 peak, with dO one position late (a planted fault) above that limit.
@@ -17,6 +19,8 @@ planted fault lands above it, so the gates have room for the design before
 any card run.
 """
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -90,6 +94,7 @@ def _scaled_err(got, want) -> float:
     (1, 256, 4, 1, 128, False, 0, 30.0),     # qwen-like D 128, g 4, a cap
     (1, 256, 4, 2, 256, True, 0, 50.0),      # gemma2 global layer
     (1, 256, 4, 2, 256, True, 64, 50.0),     # gemma2 local layer
+    (1, 256, 4, 2, 256, False, 0, 0.0),      # D 256, no mask, no cap
 ])
 def test_bf16_backward_roundings_fit_the_gates(b, s, hq, hkv, d, causal,
                                                window, cap):
@@ -111,3 +116,41 @@ def test_bf16_backward_roundings_fit_the_gates(b, s, hq, hkv, d, causal,
     assert max(sound) <= LIMIT < min(late), (sound, late)
     # the design's roundings use a small part of the limit
     assert max(sound) < LIMIT / 4, sound
+
+
+def _launcher_body(src: str, fn: str) -> str:
+    start = src.index(f"int {fn}(")
+    return src[start:src.index("\n}\n", start)]
+
+
+def _launched(src: str, fn: str) -> set:
+    """The kernels a host launcher of the .cu file starts (each
+    `name<...>` before a `<<<`), through the launchers it calls."""
+    body = _launcher_body(src, fn)
+    kernels = set(re.findall(r"(\w+)<[^<>]*>\s*<<<", body))
+    for callee in set(re.findall(r"\b(launch_\w+)<", body)):
+        kernels |= _launched(src, callee)
+    return kernels
+
+
+def test_backward_kernel_table_is_the_sources_dispatch():
+    """WGMMA_KERNELS and CORE_KERNELS, which chip_smoke.py's symbol checks
+    and the card tests read, are what csrc/flash_attention_bwd.cu's
+    `launch_all` starts after the delta pass: bf16 at D 64 and 128 the
+    wgmma pair, at D 256 the split-D pair, fp32 the CUDA-core pair at
+    every head dim."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    src = (Path(fab.__file__).parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    dispatch = _launcher_body(src, "launch_all")
+    bf16 = dispatch[dispatch.index("if (bf16) {"):]
+    bf16, fp32 = bf16[:bf16.index("\n  }\n")], bf16[bf16.index("\n  }\n"):]
+    cases = {int(d) if d else 256: fn for d, fn in re.findall(
+        r"(?:case (\d+)|default): return (launch_\w+)<", bf16)}
+    assert set(cases) == set(fab.WGMMA_KERNELS), cases
+    for d, fn in cases.items():
+        assert _launched(src, fn) == set(fab.WGMMA_KERNELS[d]), (d, fn)
+    cores = re.findall(r"return (launch_\w+)<", fp32)
+    assert len(cores) == 3, cores
+    for fn in cores:
+        assert _launched(src, fn) == set(fab.CORE_KERNELS), fn
