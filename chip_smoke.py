@@ -141,7 +141,8 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      granite's prefill buckets and at gemma2's head dim 256 with its
      softcap in its bend, globally and under a window of 256 that masks
      keys (each branch must change the result), at whisper's heads (12/12
-     of 64, g = 1) and llama-vision's (64/8 of 128, g = 8), decode
+     of 64, g = 1), llama-vision's (64/8 of 128, g = 8) and arctic's 1024
+     bucket (56/8 of 128, g = 7: one warpgroup a block), decode
      attention with
      ragged positions at granite's and gemma2's cache shapes, the SSD chunk
      at mamba2's shapes; times, bounds and the library call
@@ -200,7 +201,22 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      positions before decode: flash launches == 4 x 16, engine ==
      sequential for each bucket's first request (the long one included)
      and one in a reused slot, the fp32 logits check on the long prompt,
-     every bf16 flash launch within 2e-2 of the plain version;
+     every bf16 flash launch within 2e-2 of the plain version; then (28.)
+     qwen2.5-3b at full width on 4 of its 36 layers (16/2 heads of 128,
+     g = 8, its q/k/v biases drawn non-zero first: both packages
+     initialise them to 0; the tied 151,936-word head), and (30.) yi-9b
+     at full width on 2 of its 48 layers (32/4 heads of 128, the untied
+     64,000-word embedding and head), served as granite is, qwen's fp32
+     prefill with the biases zeroed moving the logits past the gate's
+     limit; then (32.) arctic-480b at full width on one of its 35 layers
+     (128 experts of top 2 beside the dense residual MLP, 56/8 heads of
+     128: g = 7; 28.1 GB of bf16), on padded buckets as mixtral's: engine
+     == sequential, flash launches == 16, the init's and the engine's
+     peak memory, and last the fp32 gate on the served model drawn again
+     in fp32 in place of the served tree (its values the served ones,
+     sampled bit for bit), comparing the logits at every prefill
+     position (at one layer the last position cannot show the planted
+     fault);
  14. granite-3-2b trained at full width, 10 of its 40 layers, in bf16 (random
      weights, seed 0) with masked FedSGD under the train_4k runtime
      (flash_vjp: kernel 8 with the rows' log-sum-exp forward, the
@@ -232,7 +248,10 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      the library call is flex_attention, compiled, with the cap as its
      score_mod), the gradient check on a depth-2 copy (whisper's
      encoder cut to 2 layers with it; gemma2's one local and one global
-     layer); then the bf16 backward at gemma2's head dim 256 on random
+     layer), and (29.) qwen2.5-3b on 8 of its 36 layers (its biases drawn
+     non-zero; the masks must keep some of them; [4, 16/2, 4096, 128] at
+     layer 0) and (31.) yi-9b on 4 of its 48 ([4, 32/4, 4096, 128]);
+     then the bf16 backward at gemma2's head dim 256 on random
      inputs at [1, 16/8, 4096, 256], cap 50, globally and under a window
      of 1,024 (its band path at full size): dq, dk, dv within 2e-2 of
      their peaks against the blocked plain scan, dO one position late
@@ -264,8 +283,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
      phase 9's streamed run; kernel 8's and the backward's launches on
-     every served and trained LM path, gemma2-9b's included, and the D
-     256 backward rows), then the result line.
+     every served and trained LM path, gemma2-9b's, qwen2.5-3b's, yi-9b's
+     and arctic-480b's included, and the D 256 backward rows), then the
+     result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -2731,6 +2751,32 @@ VISION = dict(GRANITE, arch="llama-3.2-vision-90b", layers=5, memory_seed=1,
 # 512 positions before decode. Softcap 50 in kernel 8, 30 on the logits.
 GEMMA2 = dict(GRANITE, arch="gemma2-9b", layers=4, long_prompts=(4609,),
               buckets=(256, 512, 1024, 4608), max_seq=4672)
+# qwen2.5-3b at full width (16/2 heads of 128, g = 8; the tied
+# 151,936-word head), 4 of its 36 layers, granite's traffic. Its QKV biases
+# are drawn non-zero before any check (`draw_qkv_bias`: both packages
+# initialise them to 0), and the fp32 prefill with them zeroed must move
+# the logits by more than the gate's limit (bias_check)
+QWEN = dict(GRANITE, arch="qwen2.5-3b", layers=4, bias_check=True)
+# yi-9b at full width (32/4 heads of 128, g = 8; the untied 64,000-word
+# embedding and head), 2 of its 48 layers, granite's traffic
+YI = dict(GRANITE, arch="yi-9b", layers=2)
+# arctic-480b at full width on one of its 35 layers (128 experts, top-2,
+# the dense residual MLP, 56/8 heads of 128: g = 7, kernel 8's
+# one-warpgroup layout at D 128; 1.41e10 parameters, 28.1 GB of bf16),
+# granite's traffic on padded buckets as mixtral's. Its fp32 gate runs
+# last, on the served model drawn again in fp32 in place of the served tree
+# (fp32_redraw, `_fp32_redrawn`: a 56.3 GB fp32 copy beside the bf16
+# weights would not fit), and compares
+# the logits at every prefill position (all_positions: at one layer the
+# last position's logits cannot show the late-band fault)
+ARCTIC = dict(GRANITE, arch="arctic-480b", layers=1, all_positions=True,
+              fp32_redraw=True)
+# qwen2.5-3b's q/k/v biases are drawn standard normal (times this scale)
+# on the card from a generator seeded with `QKV_BIAS_SEED`: the scale of
+# x @ wq's entries, an RMS-normed x against 1/sqrt(d_model) weights
+QKV_BIAS_SCALE = 1.0
+QKV_BIAS_SEED = 7
+QKV_BIASES = ("bq", "bk", "bv")
 # mamba2-130m at full width, served and trained on 6 of its 24 layers
 # (cut for the script's time: its host-bound decode and plain-scan
 # training steps scale with depth)
@@ -2815,8 +2861,9 @@ def lm_kernel_phase(dev, card):
     """The three LM kernels against their plain versions on random bf16
     inputs at the served models' shapes: flash attention at granite's
     prefill buckets, gemma2's head dim 256 with its softcap (global and
-    local layer), whisper's 512 bucket (12/12 heads of 64, g = 1) and
-    llama-vision's 1024 bucket (64/8 heads of 128, g = 8), decode
+    local layer), whisper's 512 bucket (12/12 heads of 64, g = 1),
+    llama-vision's 1024 bucket (64/8 heads of 128, g = 8) and arctic's
+    (56/8 heads of 128, g = 7: one warpgroup a block), decode
     attention at granite's [8, 2048, 8, 64] and gemma2's head dim with
     ragged positions, the SSD chunk at mamba2's. Returns (problems, the
     flash timing rows by shape label)."""
@@ -2843,7 +2890,9 @@ def lm_kernel_phase(dev, card):
             "granite S1024": (1024, 32, 8, 64, 0, 0.0, 1.0),
             **GEMMA2_FLASH_ROWS,
             "whisper S512": (512, 12, 12, 64, 0, 0.0, 1.0),
-            "llama-vision S1024": (1024, 64, 8, 128, 0, 0.0, 1.0)}.items():
+            "llama-vision S1024": (1024, 64, 8, 128, 0, 0.0, 1.0),
+            # arctic's served bucket: g = 7 takes the one-warpgroup layout
+            "arctic S1024": (1024, 56, 8, 128, 0, 0.0, 1.0)}.items():
         q, k, v = rand((1, hq, s, d), q_scale), rand((1, hkv, s, d)), \
             rand((1, hkv, s, d))
         kw = dict(causal=True, window=window, cap=cap)
@@ -3005,6 +3054,27 @@ def self_layers(cfg) -> int:
     return cfg.num_layers
 
 
+def draw_qkv_bias(params, dev, seed=QKV_BIAS_SEED) -> int:
+    """Fill the q/k/v bias leaves of a tree (qwen2.5-3b's; both packages
+    initialise them to 0, so random weights would compute nothing through
+    them) with QKV_BIAS_SCALE times a standard normal draw from a
+    generator on `dev` seeded with `seed`, in place. Returns the number of
+    bias coordinates drawn (0 for a model without them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 0
+    for leaf in bias_leaves(params):
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev)
+                   .mul_(QKV_BIAS_SCALE))
+        n += leaf.numel()
+    return n
+
+
+def bias_leaves(tree):
+    """Every q/k/v bias leaf of a tree."""
+    return (v for p, v in _paths(tree)
+            if p.rsplit("/", 1)[-1] in QKV_BIASES)
+
+
 def memory_input(cfg, dev, seed):
     """One memory input for every request: the audio family's encoder
     input [1, 1500, D] or the vlm's vision input [1, 1601, D], standard
@@ -3045,15 +3115,18 @@ def serve_phase(dev, card, smi, c):
     if c["layers"]:
         cfg = dataclasses.replace(cfg, num_layers=c["layers"])
     rt = Runtime(attn_impl="cuda")
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
     if "gate" in c:                      # open the cross layers' gates
         params["blocks"]["cross"]["gate"].fill_(c["gate"])
+    n_bias = draw_qkv_bias(params, dev)
     extra = memory_input(cfg, dev, c.get("memory_seed", 0))
     torch.cuda.synchronize()
     n_params = sum(int(np.prod(p.shape)) for p in _leaves(params))
     init_s = time.perf_counter() - t
+    init_peak = _peak_gib()
     rng = np.random.default_rng(0)
     exact = cfg.family in ("ssm", "hybrid")
     long = tuple(c.get("long_prompts", ()))
@@ -3116,8 +3189,9 @@ def serve_phase(dev, card, smi, c):
                             f"its prefill ({state_row})")
     print(json.dumps({
         "serving": arch, "card": smi, "layers": cfg.num_layers,
-        "params": n_params,
-        "init_s": init_s, "requests_finished": len(done),
+        "params": n_params, "qkv_bias_drawn": n_bias,
+        "init_s": init_s, "init_peak_gib": init_peak,
+        "requests_finished": len(done),
         "prompt_tokens": int(lens.sum()), "prefill_tokens_padded": padded,
         "prefill_s": t_pre, "prefill_tokens_per_s": padded / t_pre,
         "generated_tokens": generated, "decode_s": t_dec,
@@ -3171,6 +3245,53 @@ def _to_float(tree):
             for k, v in tree.items()}
 
 
+def _paths(tree, path=""):
+    """(path, leaf) of every leaf of a nested dict tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
+def _fp32_redrawn(params, cfg, dev, seed, sample: int = 4096):
+    """The served tree in fp32 with no second copy of it on the card: a
+    sample of each floating leaf is kept, the served tree is emptied in
+    place (the served weights are not used after the gate; the engine
+    shares this dict), the model is drawn again from `seed` (serve_phase's)
+    in fp32, and each leaf that was bf16 is rounded through bf16 in place,
+    a slice at a time: the served values, upcast. (Converting the 28.1 GB
+    of bf16 leaf by leaf on the card ran out of memory after the earlier
+    phases, 15.6 GiB of its cache reserved but unallocated; a round trip
+    through pinned host memory took ~18 s.) `params` ends up holding the
+    fp32 tree. Returns it and the paths whose sample differs from the
+    served one (none, or the draw is not the served model's)."""
+    from repro_torch.models import transformer as T
+    low = {p for p, v in _paths(params) if v.dtype == torch.bfloat16}
+    kept = {p: v.reshape(-1)[:sample].float() for p, v in _paths(params)
+            if v.is_floating_point()}
+    params.clear()
+    torch.cuda.empty_cache()
+    p32 = T.init_params(torch.Generator(device=dev).manual_seed(seed),
+                        dataclasses.replace(cfg, dtype="float32"),
+                        device=dev)
+    for p, v in _paths(p32):
+        if p in low:
+            for part in v.view(-1).split(1 << 28):
+                part.copy_(part.to(torch.bfloat16))
+    params.update(p32)
+    return params, [p for p, v in _paths(params)
+                    if not torch.equal(v.reshape(-1)[:sample], kept[p])]
+
+
+def _zero_bias(tree):
+    """A copy of a layer tree's dicts with the q/k/v bias leaves zeroed
+    (new tensors); every other leaf shared."""
+    return {k: _zero_bias(v) if isinstance(v, dict)
+            else torch.zeros_like(v) if k in QKV_BIASES else v
+            for k, v in tree.items()}
+
+
 def _rel_l2(a, b) -> float:
     return float((a - b).double().norm() / b.double().norm())
 
@@ -3196,20 +3317,35 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
     toks = torch.as_tensor(eng.prefill_tokens(prompt), device=dev).long()[None]
-    sound = kops.flash_attention
+    sound, run_stack = kops.flash_attention, T._run_stack
+    hidden = {}
 
-    def prefill(p, pcfg, impl, flash=sound, memory=eng.extra):
+    def keep_hidden(x, *args, **kw):     # the stack's output, every position
+        out = run_stack(x, *args, **kw)
+        hidden["x"] = out[0]
+        return out
+
+    def prefill(p, pcfg, impl, flash=sound, memory=eng.extra, every=False):
+        """The prefill's last-token logits [1, V], or with `every` the
+        logits at every prefill position [1, S, V] (the same prefill, its
+        stack's output read through the final norm and head)."""
         kops.flash_attention = flash
+        if every:
+            T._run_stack = keep_hidden
         try:
             cache = T.init_cache(pcfg, 1, c["max_seq"], device=dev)
             # chunks that divide the prompt (the chunked path's rule); a
             # ragged exact-length prompt runs as one chunk
             chunk = math.gcd(512, toks.shape[1])
             chunk = chunk if chunk >= 128 else toks.shape[1]
-            return T.prefill(p, toks, cache, pcfg, Runtime(
+            last = T.prefill(p, toks, cache, pcfg, Runtime(
                 attn_impl=impl, q_chunk=chunk, kv_chunk=chunk), memory)[0]
+            if not every:
+                return last
+            return T._logits(p, T._final_hidden(hidden.pop("x"), p, pcfg),
+                             pcfg)
         finally:
-            kops.flash_attention = sound
+            kops.flash_attention, T._run_stack = sound, run_stack
 
     layers = []
 
@@ -3230,17 +3366,39 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     if eng.extra is not None:
         mem_rel = _rel_l2(prefill(params, cfg, "cuda", memory=memory_input(
             cfg, dev, c["memory_seed"] + 1)), bf["cuda"])
-    p32, cfg32 = _to_float(params), dataclasses.replace(cfg, dtype="float32")
+    # the fp32 tree: a copy, or (fp32_redraw) the served model drawn
+    # again in fp32 in place of the served tree (serve_phase's seed, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    redraw_diff = []
+    if c.get("fp32_redraw"):
+        p32, redraw_diff = _fp32_redrawn(params, cfg, dev, seed=0)
+    else:
+        p32 = _to_float(params)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
     x32 = None if eng.extra is None else _to_float(eng.extra)
-    f32 = {impl: prefill(p32, cfg32, impl, memory=x32)
+    every = bool(c.get("all_positions"))
+    f32 = {impl: prefill(p32, cfg32, impl, memory=x32, every=every)
            for impl in ("naive", "cuda")}
-    f32["fault"] = prefill(p32, cfg32, "cuda", late_band, memory=x32)
+    f32["fault"] = prefill(p32, cfg32, "cuda", late_band, memory=x32,
+                           every=every)
+    bias_rel = None
+    if c.get("bias_check"):             # the biases zeroed: they must count
+        p0 = {**p32, "blocks": _zero_bias(p32["blocks"])}
+        bias_rel = _rel_l2(prefill(p0, cfg32, "cuda", memory=x32,
+                                   every=every), f32["naive"])
+        del p0
+    gate_peak = _peak_gib()
     del p32, x32
     torch.cuda.empty_cache()
     sound_rel = _rel_l2(f32["cuda"], f32["naive"])
     fault_rel = _rel_l2(f32["fault"], f32["naive"])
     row = {"prefill_logits": f"{c['arch']} {cfg.num_layers} layers, "
-                             f"{toks.shape[1]} tokens",
+                             f"{toks.shape[1]} tokens, "
+                             + ("every position" if every else
+                                "the last position"),
            "fp32_rel_l2_cuda_vs_naive": sound_rel,
            "fp32_rel_l2_planted_fault_vs_naive": fault_rel,
            "fp32_tolerance_rel_l2": c["logits_rel_l2"],
@@ -3252,8 +3410,18 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
            "bf16_rel_l2_cuda_vs_naive": _rel_l2(bf["cuda"], bf["naive"]),
            "bf16_rel_l2_chunked_vs_naive": _rel_l2(bf["chunked"], bf["naive"]),
            "bf16_same_argmax": bool(bf["cuda"].argmax()
-                                    == bf["naive"].argmax())}
+                                    == bf["naive"].argmax()),
+           "fp32_gate_peak_gib": gate_peak, "fp32_convert_s": convert_s}
     problems = []
+    if redraw_diff:
+        problems.append(f"{c['arch']}: the fp32 tree drawn again differs "
+                        f"from the served one in {redraw_diff}")
+    if bias_rel is not None:
+        row["fp32_rel_l2_biases_zeroed_vs_naive"] = bias_rel
+        if not bias_rel > c["logits_rel_l2"]:
+            problems.append(f"{c['arch']}: zeroing the q/k/v biases moves "
+                            f"the fp32 prefill logits by {bias_rel} (rel "
+                            f"L2), not over {c['logits_rel_l2']}")
     if mem_rel is not None:
         row.update(bf16_rel_l2_other_memory=mem_rel,
                    other_memory_limit=c["memory_rel_l2"])
@@ -3631,7 +3799,9 @@ def flash_grad_check(dev, cfg, rt):
     late) must read above it. One gradient tree at a time sits on the card
     beside the parameters (mixtral's is 21.7 GB), and the distances are
     taken a slice at a time. Whisper's encoder is cut to the same depth,
-    and its batch carries an encoder input."""
+    and its batch carries an encoder input; qwen's q/k/v biases are drawn
+    non-zero (draw_qkv_bias), so their gradient leaves are compared on a
+    live bias path."""
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.launch.train import batch_extra, synthetic_batch
@@ -3645,6 +3815,7 @@ def flash_grad_check(dev, cfg, rt):
         encoder_layers=min(cfg.encoder_layers, c["grad_depth"]))
     params = T.init_params(torch.Generator(device=dev).manual_seed(1), cfg2,
                            device=dev)
+    n_bias = draw_qkv_bias(params, dev, QKV_BIAS_SEED + 1)
     seq = INPUT_SHAPES[c["shape"]].seq_len
     batch = synthetic_batch(np.random.default_rng(3), cfg2, c["grad_batch"],
                             seq, dev)
@@ -3684,7 +3855,8 @@ def flash_grad_check(dev, cfg, rt):
            "rel_l2_planted_fault_vs_naive": fault_rel,
            "limit": c["grad_rel_l2"],
            "loss_flash_vjp": losses["flash_vjp"],
-           "loss_naive": losses["naive"]}
+           "loss_naive": losses["naive"],
+           **({"qkv_bias_drawn": n_bias} if n_bias else {})}
     problems = []
     if not sound_rel <= c["grad_rel_l2"] < fault_rel:
         problems.append(f"{cfg.name} train: gradient rel L2 {sound_rel}, "
@@ -3980,6 +4152,12 @@ GRANITE_TRAIN_LAYERS = 10
 # global): 2.50e9 parameters with the tied 256,000 x 3,584 embedding,
 # granite-3-2b's size
 GEMMA2_TRAIN_LAYERS = 8
+# qwen2.5-3b trains at full width on 8 of its 36 layers (9.3e8 parameters
+# with the tied 151,936 x 2,048 embedding), yi-9b on 4 of its 48 (1.22e9
+# with the untied 64,000-word embedding and head): depth cut for the
+# script's time (PERF.md section 4, "Cuts")
+QWEN_TRAIN_LAYERS = 8
+YI_TRAIN_LAYERS = 4
 
 
 # gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
@@ -4057,7 +4235,9 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     attention kernels exact (kernel 8 twice a self-attention layer a
     gradient, remat; the backward once; a gradient for the warm-up and for
     each microbatch of each step); then the gradient check and the kernel
-    rows on layer 0's real inputs of the last microbatch. `card` is
+    rows on layer 0's real inputs of the last microbatch. A model with
+    q/k/v biases (qwen) has them drawn non-zero first (draw_qkv_bias), and
+    the masks must keep some of them. `card` is
     torch's device name (the peaks' key), `smi` nvidia-smi's name and
     power limit, printed beside every number. Returns (problems,
     launches, (forward row, backward row))."""
@@ -4076,6 +4256,7 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     seq, batch, mb = shape.seq_len, c["batch"], train_microbatches(cfg)
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
+    n_bias = draw_qkv_bias(params, dev)
     captured = {}
     sound = fv._kernel_bwd
 
@@ -4095,6 +4276,12 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     finally:
         fv._kernel_bwd = sound
     problems += mask_problems
+    # the q/k/v biases (qwen's) are prunable: drawn non-zero, some of them
+    # must survive the masks, or training keeps them at 0
+    bias_kept = sum(int(m.sum()) for m in bias_leaves(masks))
+    if n_bias and not bias_kept:
+        problems.append(f"{arch} train: the masks keep none of the "
+                        f"{n_bias} q/k/v bias coordinates")
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     peak = _peak_gib()
@@ -4121,7 +4308,10 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
         "params": T.param_count(cfg),
         "active_params": T.active_param_count(cfg),
         "runtime": dataclasses.asdict(rt), "batch": batch, "seq": seq,
-        "microbatches": mb, **mask_row, "losses": losses, "step_s": secs,
+        "microbatches": mb, **mask_row,
+        **({"qkv_bias_drawn": n_bias, "qkv_bias_kept": bias_kept}
+           if n_bias else {}),
+        "losses": losses, "step_s": secs,
         "ms_per_step": 1e3 * float(np.mean(secs[1:])),
         "tokens_per_s": tokens / float(np.mean(secs[1:])),
         "peak_gib": peak, "launches": {k: launches[k] for k in want},
@@ -4699,7 +4889,7 @@ def main() -> int:
     problems += m_problems
     walls["mamba2_serving"] = time.perf_counter() - t
     serve_launches = {}
-    for conf in (HYMBA, MIXTRAL, WHISPER, VISION, GEMMA2):
+    for conf in (HYMBA, MIXTRAL, WHISPER, VISION, GEMMA2, QWEN, YI, ARCTIC):
         t = time.perf_counter()
         s_problems, s_eng, serve_launches[conf["arch"]], _ = serve_phase(
             dev, name, card, conf)
@@ -4725,7 +4915,9 @@ def main() -> int:
     for arch, layers in (("hymba-1.5b", HYMBA_TRAIN_LAYERS),
                          ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
                          ("whisper-small", None),
-                         ("gemma2-9b", GEMMA2_TRAIN_LAYERS)):
+                         ("gemma2-9b", GEMMA2_TRAIN_LAYERS),
+                         ("qwen2.5-3b", QWEN_TRAIN_LAYERS),
+                         ("yi-9b", YI_TRAIN_LAYERS)):
         t = time.perf_counter()
         tr_problems, tr_launches, tr_rows = lm_train_phase(
             dev, name, card, arch, layers)
@@ -4813,7 +5005,8 @@ def main() -> int:
                         if "entry_call" in res else {}),
                      **({f"prefill_{label.replace(' ', '_')}":
                          _row_summary(flash_rows[label])
-                         for label in ("whisper S512", "llama-vision S1024")}
+                         for label in ("whisper S512", "llama-vision S1024",
+                                       "arctic S1024")}
                         if kname == "flash_attention" else {}),
                      **({"lm_sharded_launches": {
                          part: n[kname] for part, n in

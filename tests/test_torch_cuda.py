@@ -94,6 +94,54 @@ def assert_bitwise(a, b):
     assert torch.equal(_bits(a), _bits(b))
 
 
+# A device trace taken in a fresh process. torch.profiler's CUDA trace of a
+# few short kernels comes back whole in a new process, and empty or short
+# in one that has opened many profiler windows of other lengths
+# (scripts/trace_window_probe.py on the H100: none of 250 windows empty at
+# first, up to 46 of 50 after 250 windows of mixed lengths), whatever host
+# time the window holds at its edges; the tests that read a trace take it
+# in a child that opens no other window.
+_TRACE_CHILD = """
+import importlib, json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+target, path, calls = sys.argv[1], sys.argv[2], int(sys.argv[3])
+mod, name = target.split(":")
+fn = getattr(importlib.import_module(mod), name)
+args, kw = torch.load(path)
+args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
+fn(*args, **kw)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+print(json.dumps([(ev.key, ev.count) for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")]))
+"""
+
+
+def _fresh_trace(target: str, args, kw, calls: int, tmp_path):
+    """(name, count) of each CUDA kernel in torch.profiler's trace of
+    `calls` calls of `target` ("module:function") on `args` / `kw`, after
+    one untimed call, taken in a fresh Python process (the tensors go there
+    on the CPU through a file and back to the card, strides kept)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    path = tmp_path / "trace_inputs.pt"
+    torch.save(([a.cpu() if isinstance(a, torch.Tensor) else a
+                 for a in args], kw), path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _TRACE_CHILD, target,
+                          str(path), str(calls)], capture_output=True,
+                         text=True, env=env, timeout=600, check=True)
+    return [tuple(x) for x in json.loads(out.stdout.strip().splitlines()[-1])]
+
+
 def _inputs(dev, n_clients, rows=1024, seed=0):
     rng = np.random.default_rng(seed)
     shape = (rows, LANES)
@@ -405,21 +453,16 @@ def test_exponent_histogram_on_two_streams(dev):
 
 
 @pytest.mark.cuda
-def test_exponent_histogram_is_one_kernel_a_call(dev):
-    """A torch.profiler trace of histogram calls holds the ticket kernel
-    and nothing else: no fill of the output, no second pass. (The profiler
-    may drop events, so the count is at most one a call.)"""
-    from torch.profiler import ProfilerActivity, profile
+def test_exponent_histogram_is_one_kernel_a_call(dev, tmp_path):
+    """A torch.profiler trace of histogram calls (taken in a fresh
+    process, `_fresh_trace`) holds the ticket kernel and nothing else: no
+    fill of the output, no second pass. (The profiler may drop events, so
+    the count is at most one a call.)"""
     q, pr = _hist_inputs(dev, 1024, "random")
-    pm.exponent_histogram(q, pr)                 # the ticket, zeroed once
-    torch.cuda.synchronize()
     calls = 20
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            pm.exponent_histogram(q, pr)
-        torch.cuda.synchronize()
-    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
-               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    kernels = _fresh_trace("repro_torch.kernels.pruning_mask:"
+                           "exponent_histogram", (q, pr), {}, calls,
+                           tmp_path)
     assert kernels, "the trace shows no device kernel"
     assert all("exponent_histogram_ticket_kernel" in k for k, _ in kernels), \
         kernels
@@ -646,29 +689,22 @@ def test_masked_update_kernel_matches_plain(dev, rows, kind):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["weighted_aggregate", "masked_update"])
-def test_tail_kernel_is_one_kernel_a_call(dev, which):
-    """A torch.profiler trace of kernel 3's (or 7's) calls holds that kernel
-    and nothing else: no fill, no copy, no second pass. (The profiler may
-    drop events, so the count is at most one a call.)"""
-    from torch.profiler import ProfilerActivity, profile
+def test_tail_kernel_is_one_kernel_a_call(dev, which, tmp_path):
+    """A torch.profiler trace of kernel 3's (or 7's) calls (taken in a
+    fresh process, `_fresh_trace`) holds that kernel and nothing else: no
+    fill, no copy, no second pass. (The profiler may drop events, so the
+    count is at most one a call.)"""
     t = _inputs(dev, 8)
-    symbol, call = {
+    symbol, fn, args = {
         "weighted_aggregate": ("fedsgd_aggregate_weighted_kernel",
-                               lambda: pm.fedsgd_aggregate_weighted(
-                                   t["w"], t["grads"], t["cw"], t["inv"],
-                                   t["eta"])),
-        "masked_update": ("masked_update_kernel",
-                          lambda: pm.masked_update_2d(
-                              t["w"], t["grads"][0], t["pr"], 0.1))}[which]
-    call()
-    torch.cuda.synchronize()
+                               "fedsgd_aggregate_weighted",
+                               (t["w"], t["grads"], t["cw"], t["inv"],
+                                t["eta"])),
+        "masked_update": ("masked_update_kernel", "masked_update_2d",
+                          (t["w"], t["grads"][0], t["pr"], 0.1))}[which]
     calls = 20
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    kernels = [(ev.key, ev.count) for ev in prof.key_averages()
-               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    kernels = _fresh_trace(f"repro_torch.kernels.pruning_mask:{fn}", args,
+                           {}, calls, tmp_path)
     assert kernels, "the trace shows no device kernel"
     assert all(symbol in k for k, _ in kernels), kernels
     assert 1 <= sum(n for _, n in kernels) <= calls
@@ -724,6 +760,10 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     (1, 1024, 64, 8, 128, True, 0, 0.0),
     # granite on 16 model ranks: 2 query heads on one repeated KV head
     (4, 1024, 2, 1, 64, True, 0, 0.0),
+    # arctic's served bucket, g = 7 at D 128 (one warpgroup a block), and
+    # qwen's heads, g = 8 over two KV heads
+    (1, 1024, 56, 8, 128, True, 0, 0.0),
+    (2, 1024, 16, 2, 128, True, 0, 0.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -770,6 +810,8 @@ BWD_CASES = [
     (2, 1024, 12, 12, 64, True, 0, 0.0),      # whisper's heads: g = 1
     (1, 1024, 64, 8, 128, True, 0, 0.0),      # llama-vision's: g = 8
     (4, 1024, 2, 1, 64, True, 0, 0.0),        # granite a model rank: g = 2
+    (1, 1024, 56, 8, 128, True, 0, 0.0),      # arctic's heads: g = 7
+    (2, 1024, 16, 2, 128, True, 0, 0.0),      # qwen's: g = 8 on 2 KV heads
     # gemma2's heads at D 256 over grids that fill the split-D blocks: 32
     # key blocks a kv head, a window of 256 across many tiles at batch 2,
     # and a ragged length (the last query and key tiles part empty)
@@ -881,25 +923,20 @@ def test_flash_attention_bwd_rejects_unaligned_bf16_rows(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
-def test_flash_attention_bwd_bf16_runs_the_wgmma_kernels(dev, d):
+def test_flash_attention_bwd_bf16_runs_the_wgmma_kernels(dev, d,
+                                                        tmp_path):
     """A torch.profiler trace of bf16 backward calls at D 64, 128 and 256
-    holds the tensor-core kernels of that head dim (dk/dv and dq on wgmma;
+    (taken in a fresh process, `_fresh_trace`) holds the tensor-core kernels of that head dim (dk/dv and dq on wgmma;
     at D 256 the kernels that split D across two warpgroups) beside the
     delta pass, no CUDA-core backward kernel and nothing else. (The
     profiler may drop events, so each kernel is asked to show at least
     once in 10 calls.)"""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import flash_attention_bwd as fab
     kw = dict(causal=True, window=0, cap=0.0)
     args = _bwd_inputs(dev, torch.bfloat16, 1, 512, 8, 2, d, **kw)
-    fab.flash_attention_bwd(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fab.flash_attention_bwd(*args, **kw)
-        torch.cuda.synchronize()
-    names = [ev.key for ev in prof.key_averages()
-             if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    names = [key for key, _ in _fresh_trace(
+        "repro_torch.kernels.flash_attention_bwd:flash_attention_bwd", args,
+        kw, 10, tmp_path)]
     assert names, "the trace shows no device kernel"
     assert all("flash_bwd_" in n for n in names), names
     for kern in fab.WGMMA_KERNELS[d]:
@@ -944,7 +981,8 @@ def test_flash_attention_lse_leaves_o_unchanged(dev, dtype, s, hq, hkv, d,
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b", "hymba-1.5b",
                                   "mixtral-8x22b", "whisper-small",
-                                  "llama-3.2-vision-90b"])
+                                  "llama-3.2-vision-90b", "qwen2.5-3b",
+                                  "yi-9b", "arctic-480b"])
 def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
     """loss_fn's gradient on a reduced model in fp32 under the train
     runtime (flash_vjp: kernel 8 with lse, the backward kernel; remat)
@@ -952,7 +990,9 @@ def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
     launched as the layers and remat predict. Whisper and llama-vision
     take their memory input (random; llama-vision's gates opened to 0.7):
     the encoder's and the cross layers' attention stay on the naive path,
-    so only the decoder's self-attention layers launch the kernels."""
+    so only the decoder's self-attention layers launch the kernels.
+    Qwen's q/k/v biases are drawn non-zero (both packages initialise them
+    to 0)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.launch.train import add_extra
@@ -964,6 +1004,13 @@ def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
                            device=dev)
     if cfg.family == "vlm":
         params["blocks"]["cross"]["gate"].fill_(0.7)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    attn = params["blocks"].get("attn", {})
+    for name in ("bq", "bk", "bv"):
+        if name in attn:
+            attn[name].copy_(torch.randn(attn[name].shape, generator=gen,
+                                         device=dev))
+    assert ("bq" in attn) == cfg.qkv_bias
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 257)),
                            device=dev)
@@ -986,6 +1033,27 @@ def test_flash_vjp_training_gradient_through_the_kernels(dev, arch):
               zip(got, want))
     den = sum(float(b.double().square().sum()) for b in want)
     assert (num / den) ** 0.5 < 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_init_holds_one_fp32_draw(dev):
+    """dense_init draws fp32 and scales it in place: over the call the
+    card holds the fp32 draw and the bf16 result, no second fp32 copy (an
+    arctic-480b expert leaf draws 17.8 GB), and the bits are those of the
+    draw times the scale, cast."""
+    from repro_torch.models.layers import dense_init
+    shape, fan_in = (8, 1024, 1024), 1024
+    n = int(np.prod(shape))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w = dense_init(torch.Generator(device=dev).manual_seed(0), fan_in, shape,
+                   dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= n * (4 + 2)
+    draw = torch.randn(shape, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    assert_bitwise(w, (draw * (1.0 / np.sqrt(fan_in))).to(torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -228,7 +228,8 @@ def _leaf_pairs(t, j, path=()):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b",
                                   "mamba2-130m", "mixtral-8x22b",
-                                  "arctic-480b", "hymba-1.5b"])
+                                  "arctic-480b", "hymba-1.5b",
+                                  "qwen2.5-3b", "yi-9b"])
 def test_blocks_prefill_then_decode_match_jax(arch):
     """One block of each family with a cache: prefill 256 tokens (past
     the reduced window of 64 of gemma2, mixtral and hymba, so their rings
@@ -263,7 +264,8 @@ def test_blocks_prefill_then_decode_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-9b",
                                   "mamba2-130m", "mixtral-8x22b",
-                                  "arctic-480b", "hymba-1.5b"])
+                                  "arctic-480b", "hymba-1.5b",
+                                  "qwen2.5-3b", "yi-9b"])
 def test_forward_prefill_decode_match_jax(arch):
     jcfg, cfg, jp, tp = _model(arch)
     rt, jrt = B.Runtime(attn_impl="cuda"), JB.Runtime(attn_impl="pallas")

@@ -69,7 +69,7 @@ def one_torch_thread():
 
 RTOL = 1e-5
 ARCHS = ("granite-3-2b", "gemma2-9b", "mamba2-130m", "mixtral-8x22b",
-         "arctic-480b", "hymba-1.5b")
+         "arctic-480b", "hymba-1.5b", "qwen2.5-3b", "yi-9b")
 SEQ, BATCH, CHUNK = 128, 2, 32
 
 
@@ -322,7 +322,7 @@ def test_specialize_matches_jax():
             jsteps.train_microbatches(jax_get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("qwen2.5-3b", "whisper-small",
+@pytest.mark.parametrize("arch", ARCHS + ("whisper-small",
                                           "llama-3.2-vision-90b"))
 def test_param_count_matches_jax(arch):
     """param_count and active_param_count (MoE: the top-k experts' share)
