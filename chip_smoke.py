@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
     python3 chip_smoke.py --sharded    # phase 1 and the sharded phase only
     python3 chip_smoke.py --lm-sharded # phase 1 and the sharded LM step only
+    python3 chip_smoke.py --train llama-3.2-vision-90b,mixtral-8x22b
+                                       # phase 1 and those training phases
     python3 chip_smoke.py --warm-flex  # compile the flex_attention library
                                        # calls into build/'s caches, exit
 
@@ -217,18 +219,24 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      sampled bit for bit), comparing the logits at every prefill
      position (at one layer the last position cannot show the planted
      fault);
- 14. granite-3-2b trained at full width, 10 of its 40 layers, in bf16 (random
+ 14. granite-3-2b trained at full width, 6 of its 40 layers, in bf16 (random
      weights, seed 0) with masked FedSGD under the train_4k runtime
      (flash_vjp: kernel 8 with the rows' log-sum-exp forward, the
      hand-written backward kernel; chunks 512, loss chunks 256, remat):
      masks at lambda 0.3 from one warm-up gradient (threshold on the
      card; the pruned count is the count below the k-th smallest), 3
      steps at eta 1e-2 on packed batches of 4 x 4096 tokens (train_4k's
-     global batch of 256 cut to one card); finite losses, pruned
-     coordinates unchanged bit for bit, the last step rerun bit for bit,
-     both kernels' launches exact (the forward twice a layer under
-     remat); ms a step, tokens/s, peak memory; a depth-2 fp32 granite's
-     flash_vjp gradient within 1e-3 relative L2 of the naive path's, a
+     global batch of 256 cut to one card) by the train step that holds
+     only its state (weights, masks, the masked copy, the accumulator;
+     each leaf's gradient taken as backward completes it); finite losses,
+     pruned coordinates unchanged bit for bit (each step's against its
+     input's), the last step rerun bit for bit (the first result in
+     pinned host memory meanwhile), both kernels' launches exact (the
+     forward twice a layer under remat); ms a step, tokens/s, peak memory
+     beside the step's state; a depth-2 fp32 granite's
+     flash_vjp gradient within 1e-3 relative L2 of the naive path's (the
+     naive gradient streamed leaf by leaf to pinned host memory, the
+     flash one compared leaf by leaf as it comes), a
      planted fault (dO one position late) above it; both kernels on layer
      0's real inputs against the blocked plain scans (bf16 2e-2; the
      backward's dq, dk, dv at their own scale, a planted fault above),
@@ -237,28 +245,40 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  15. mamba2-130m trained the same way (6 of 24 layers): finite losses,
      pruned coordinates unchanged, a checkpoint after step 2 restored and
      step 3 rerun from it bit for bit;
-     then (18.) hymba-1.5b at full width, 4 of its 32 layers, (19.) mixtral-8x22b
-     at full width on one layer (its deepest that trains on one card; 4
-     microbatches) and (23.) whisper-small at full size (an encoder input
+     then (18.) hymba-1.5b at full width, 2 of its 32 layers, (19.) mixtral-8x22b
+     at full width on 2 layers (5.41e9 parameters, 48.7 GB of step state:
+     its deepest that trains on one card; 4 microbatches) and (23.)
+     whisper-small at full size (an encoder input
      [4, 1500, 768] beside each batch) and (27.) gemma2-9b at full width
-     on 8 of its 42 layers (4 local + 4 global, 2.50e9 parameters,
+     on 4 of its 42 layers (2 local + 2 global, 1.71e9 parameters,
      masks over the tied embedding too) trained with phase 14's checks,
      the kernel rows on layer 0's inputs of the last microbatch (hymba's
      SDPA given the same band as a boolean mask; under gemma2's softcap
      the library call is flex_attention, compiled, with the cap as its
      score_mod), the gradient check on a depth-2 copy (whisper's
      encoder cut to 2 layers with it; gemma2's one local and one global
-     layer), and (29.) qwen2.5-3b on 8 of its 36 layers (its biases drawn
+     layer), and (29.) qwen2.5-3b on 4 of its 36 layers (its biases drawn
      non-zero; the masks must keep some of them; [4, 16/2, 4096, 128] at
-     layer 0) and (31.) yi-9b on 4 of its 48 ([4, 32/4, 4096, 128]);
+     layer 0) and (31.) yi-9b on 2 of its 48 ([4, 32/4, 4096, 128]);
      then the bf16 backward at gemma2's head dim 256 on random
      inputs at [1, 16/8, 4096, 256], cap 50, globally and under a window
      of 1,024 (its band path at full size): dq, dk, dv within 2e-2 of
      their peaks against the blocked plain scan, dO one position late
      above, a rerun bit for bit, the D 256 wgmma kernels in the device
-     trace, timed beside its bound and flex_attention. Training
-     llama-vision is left out: one group at full width (6.5e9 parameters)
-     would take ~150 GB at mixtral's ~23 bytes a parameter;
+     trace, timed beside its bound and flex_attention; and last (33.)
+     llama-3.2-vision-90b at full width on one group of 5 of its 100
+     layers (4 self layers of 64/8 heads of 128 and the gated cross layer;
+     6.5e9 parameters, 58.5 GB of step state) with a vision input [4,
+     1601, 8192] beside each batch, 4 microbatches of 1 x 4096, its gates
+     opened to 1 before the warm-up (at 0 the masks would prune every
+     cross-attention coordinate and the gates), the warm-up gradient on
+     one sequence (4 x 4096 in one pass does not fit): phase 14's checks, the
+     masks keeping cross-attention coordinates and every gate, kernel 8
+     and the backward launched for the 4 self layers only (the cross
+     layer's attention stays naive, as in the JAX package), the gradient
+     check on one fp32 group at 1 x 2048 (its naive path's four layers
+     of fp32 scores are rematerialised together), the kernel rows at
+     [1, 64/8, 4096, 128];
  25. the sharded LM train step (sharding/rules.py on DTensor): (a)
      granite-3-2b at full width, 2 of its 40 layers, one masked-FedSGD
      step of 2 x 4096 tokens on a 1 x 1 (data, model) mesh (a fake world
@@ -283,9 +303,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      the attention backward; kernels 1-4 with their launches on spec C's
      blocked runs beside the slice's, every kernel with its launches on
      phase 9's streamed run; kernel 8's and the backward's launches on
-     every served and trained LM path, gemma2-9b's, qwen2.5-3b's, yi-9b's
-     and arctic-480b's included, and the D 256 backward rows), then the
-     result line.
+     every served and trained LM path, gemma2-9b's, qwen2.5-3b's, yi-9b's,
+     arctic-480b's and llama-3.2-vision-90b's training included, and the
+     D 256 backward rows), then the result line.
 
 Any failed phase exits non-zero without the result line. Without CUDA, or
 without the rest of the repository beside it, the script fails.
@@ -3675,7 +3695,8 @@ def mamba_phase(dev, card):
 # batch of 4 (its global batch of 256 cut to one card and the run's
 # limit), masks at lambda 0.3 from one warm-up gradient, 3 steps
 TRAIN = dict(shape="train_4k", batch=4, lam=0.3, eta=1e-2, steps=3,
-             grad_depth=2, grad_batch=1, grad_rel_l2=1e-3, block=512)
+             warm_batch_vlm=1, grad_depth=2, grad_batch=1, grad_seq_vlm=2048,
+             grad_rel_l2=1e-3, block=512)
 TRAIN_CKPT = pathlib.Path(__file__).resolve().parent / "build" / \
     "chip_smoke_train_ckpt"
 
@@ -3683,20 +3704,23 @@ TRAIN_CKPT = pathlib.Path(__file__).resolve().parent / "build" / \
 def train_masks(params, cfg, rt, dev, lam, seq, batch):
     """Masks at lam from Taylor importance of a warm-up gradient on a
     random batch (numpy seed 0), through launch/train.py's own
-    warmup_importance and build_masks (the threshold taken on the card,
-    the build timed). Returns (uint8 masks, row, problems): the pruned
+    warmup_importance (each leaf's importance taken as backward completes
+    its gradient) and build_masks (the threshold taken on the card, each
+    leaf made in uint8, the build timed). Returns (uint8 masks, row,
+    problems): the pruned
     count must be the count of importances below the k-th smallest, with
     k itself between that count and the count at or below it (bf16
     ties)."""
     from repro_torch.core import pruning
     from repro_torch.launch.train import synthetic_batch, warmup_importance
-    from repro_torch.tree import flatten_with_path, tree_map
+    from repro_torch.tree import flatten_with_path
     problems = []
     warm = synthetic_batch(np.random.default_rng(0), cfg, batch, seq, dev)
     imp = warmup_importance(params, warm, cfg, rt)
+    del warm
     torch.cuda.synchronize()
     t = time.perf_counter()
-    masks = pruning.build_masks(imp, lam)
+    masks = pruning.build_masks(imp, lam, dtype=torch.uint8)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
     thr = pruning.global_threshold(imp, lam)          # the check's own
@@ -3717,7 +3741,7 @@ def train_masks(params, cfg, rt, dev, lam, seq, batch):
            "threshold": thr, "kth_value": kth, "ties_at_kth": at - below,
            "realized_lambda": pruning.actual_ratio(masks),
            "mask_build_s_on_card": build_s}
-    return tree_map(lambda m: m.to(torch.uint8), masks), row, problems
+    return masks, row, problems
 
 
 def _pruned_moved(new, old, masks) -> int:
@@ -3739,12 +3763,17 @@ def _trees_equal(a, b) -> bool:
         for x, y in zip(leaves(a), leaves(b)))
 
 
-def run_train_steps(params, masks, cfg, rt, dev, seq, batch, n_steps, eta,
+def run_train_steps(box, masks, cfg, rt, dev, seq, batch, n_steps, eta,
                     ckpt_after=None):
     """n_steps masked-FedSGD steps on packed-pipeline batches (seed 0),
-    each timed on the host around a synchronised step. Returns (final
-    params, the state before the last step, the last batch, losses,
-    step seconds, the checkpoint path written after step `ckpt_after`)."""
+    each timed on the host around a synchronised step, from the tree
+    taken out of the list `box` (so that the caller holds none of it: the
+    initial tree is freed after the first step). Each step's pruned
+    coordinates are held to its input's, bit for bit, which over the run
+    holds them to the initial tree's. Returns (final params, the state
+    before the last step, the last batch, losses, step seconds, the step,
+    the checkpoint path written after step `ckpt_after`, the pruned bits
+    that moved)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data.lm_pipeline import (PackedLMIterator, ShardSpec,
                                               SyntheticDocumentSource)
@@ -3754,7 +3783,8 @@ def run_train_steps(params, masks, cfg, rt, dev, seq, batch, n_steps, eta,
                           ShardSpec(0, 1), batch=batch, seq=seq)
     step = make_train_step(cfg, rt, eta=eta,
                            microbatches=train_microbatches(cfg))
-    losses, secs, ckpt = [], [], None
+    losses, secs, ckpt, moved = [], [], None, 0
+    params = box.pop()
     before = last = None
     for i in range(n_steps):
         last = packed_batch(it, cfg, batch, dev)
@@ -3765,11 +3795,38 @@ def run_train_steps(params, masks, cfg, rt, dev, seq, batch, n_steps, eta,
         losses.append(float(loss))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
+        moved += _pruned_moved(params, before, masks)
         if ckpt_after == i + 1:
             shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
             ckpt = CheckpointManager(str(TRAIN_CKPT), keep=1)
             ckpt.save(i + 1, params)
-    return params, before, last, losses, secs, step, ckpt
+    return params, before, last, losses, secs, step, ckpt, moved
+
+
+def _to_host(tree) -> list:
+    """The leaves of a tree copied to pinned host memory."""
+    from repro_torch.tree import leaves
+    return [torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+            for x in leaves(tree)]
+
+
+def _equal_to_host(tree, host, chunk=1 << 26) -> bool:
+    """Every leaf of `tree` (on the card) bit for bit the host leaf beside
+    it, compared on the card a slice at a time."""
+    from repro_torch.tree import leaves
+    for x, h in zip(leaves(tree), host):
+        if x.shape != h.shape or x.dtype != h.dtype:
+            return False
+        x, h = _bits(x.reshape(-1)), _bits(h.reshape(-1))
+        for i in range(0, x.numel(), chunk):
+            if not torch.equal(x[i:i + chunk], h[i:i + chunk].to(x.device)):
+                return False
+    return True
+
+
+def _bits(x):
+    """A bf16 or fp32 tensor viewed as integers of its width."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
 
 
 def _sq_dist(a, b=None, chunk=1 << 26) -> float:
@@ -3788,74 +3845,87 @@ def _sq_dist(a, b=None, chunk=1 << 26) -> float:
 
 
 def flash_grad_check(dev, cfg, rt):
-    """A depth-2 copy of the trained model at full width in fp32, batch 1
-    at train_4k's length: the flash_vjp gradient (kernel 8 with lse and the
-    backward kernel, fp32 CUDA-core instantiations) against the naive
-    path's autograd gradient (its layers rematerialised as the flash
-    path's are: one layer's fp32 scores live at a time, where mixtral's
-    two held together left its peak within a few GiB of the card's 80),
-    relative L2 over the whole tree within
-    grad_rel_l2; a planted fault (the backward kernel fed dO one position
-    late) must read above it. One gradient tree at a time sits on the card
-    beside the parameters (mixtral's is 21.7 GB), and the distances are
-    taken a slice at a time. Whisper's encoder is cut to the same depth,
-    and its batch carries an encoder input; qwen's q/k/v biases are drawn
-    non-zero (draw_qkv_bias), so their gradient leaves are compared on a
-    live bias path."""
+    """A depth-2 copy of the trained model at full width in fp32 (the vlm:
+    one group, 4 self layers and the gated cross layer, its gates open),
+    batch 1 at train_4k's length (the vlm's naive path at 2,048: its
+    group's four layers of fp32 scores are rematerialised together): the
+    flash_vjp gradient (kernel 8 with lse and the backward kernel, fp32
+    CUDA-core instantiations) against the naive path's autograd gradient
+    (its layers rematerialised as the flash path's are), relative L2 over
+    the whole tree within grad_rel_l2; a planted fault (the backward
+    kernel fed dO one position late) must read above it. The naive
+    gradient goes leaf by leaf, as backward completes each, into pinned
+    host memory (its squares summed on the card first); the flash
+    gradients are compared leaf by leaf as they come, a slice at a time,
+    so no gradient tree sits on the card beside the parameters. Whisper's
+    encoder is cut to the same depth, and its batch carries an encoder
+    input; qwen's q/k/v biases are drawn non-zero (draw_qkv_bias), so
+    their gradient leaves are compared on a live bias path."""
     from repro_torch.configs.registry import INPUT_SHAPES
-    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.steps import loss_and_leaf_grads
     from repro_torch.launch.train import batch_extra, synthetic_batch
     from repro_torch.models import flash_vjp as fv
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
     from repro_torch.tree import leaves
     c = TRAIN
+    vlm = cfg.family == "vlm"
+    depth = cfg.cross_attn_every if vlm else c["grad_depth"]
     cfg2 = dataclasses.replace(
-        cfg, num_layers=c["grad_depth"], dtype="float32",
-        encoder_layers=min(cfg.encoder_layers, c["grad_depth"]))
+        cfg, num_layers=depth, dtype="float32",
+        encoder_layers=min(cfg.encoder_layers, depth))
     params = T.init_params(torch.Generator(device=dev).manual_seed(1), cfg2,
                            device=dev)
+    if vlm:
+        params["blocks"]["cross"]["gate"].fill_(VISION["gate"])
     n_bias = draw_qkv_bias(params, dev, QKV_BIAS_SEED + 1)
-    seq = INPUT_SHAPES[c["shape"]].seq_len
+    seq = c["grad_seq_vlm"] if vlm else INPUT_SHAPES[c["shape"]].seq_len
     batch = synthetic_batch(np.random.default_rng(3), cfg2, c["grad_batch"],
                             seq, dev)
     sound = fv._kernel_bwd
+    torch.cuda.reset_peak_memory_stats()
 
     def late(res, do, *args):
         return sound(res, do.roll(1, dims=1), *args)
 
-    def grad(bwd, rtx):
+    def grad(bwd, rtx, on_grad):
         fv._kernel_bwd = bwd
         try:
-            return value_and_grad(lambda p: T.loss_fn(
+            return float(loss_and_leaf_grads(lambda p: T.loss_fn(
                 p, batch["tokens"], batch["labels"], cfg2, rtx,
-                batch_extra(batch)), params)
+                batch_extra(batch)), params, on_grad))
         finally:
             fv._kernel_bwd = sound
 
-    naive_loss, g = grad(sound, Runtime(attn_impl="naive",
-                                        loss_chunk=rt.loss_chunk, remat=True))
-    # the naive gradient waits in pinned host memory: two fp32 trees of
-    # mixtral's beside its parameters do not fit on the card
-    naive = [torch.empty(x.shape, dtype=x.dtype,
-                         pin_memory=dev.type == "cuda").copy_(x)
-             for x in leaves(g)]
-    del g
-    den = sum(_sq_dist(b) for b in naive)
-    rel, losses = {}, {"naive": float(naive_loss)}
+    naive = [None] * len(leaves(params))
+    den = [0.0]
+
+    def keep(i, g):
+        den[0] += _sq_dist(g)
+        naive[i] = torch.empty(g.shape, dtype=g.dtype,
+                               pin_memory=True).copy_(g)
+
+    losses = {"naive": grad(sound, Runtime(
+        attn_impl="naive", loss_chunk=rt.loss_chunk, remat=True), keep)}
+    rel = {}
     for label, bwd in (("flash_vjp", sound), ("planted_fault", late)):
-        loss, g = grad(bwd, rt)
-        num = sum(_sq_dist(a, b) for a, b in zip(leaves(g), naive))
-        rel[label], losses[label] = (num / den) ** 0.5, float(loss)
-        del g
+        num = [0.0]
+
+        def dist(i, g, num=num):
+            num[0] += _sq_dist(g, naive[i])
+
+        losses[label] = grad(bwd, rt, dist)
+        rel[label] = (num[0] / den[0]) ** 0.5
+    del naive
     sound_rel, fault_rel = rel["flash_vjp"], rel["planted_fault"]
-    row = {"train_grad_check": f"{cfg.name} depth {c['grad_depth']} fp32, "
+    row = {"train_grad_check": f"{cfg.name} depth {depth} fp32, "
            f"batch {c['grad_batch']} x {seq}",
            "rel_l2_flash_vjp_vs_naive": sound_rel,
            "rel_l2_planted_fault_vs_naive": fault_rel,
            "limit": c["grad_rel_l2"],
            "loss_flash_vjp": losses["flash_vjp"],
            "loss_naive": losses["naive"],
+           "peak_gib": _peak_gib(),
            **({"qkv_bias_drawn": n_bias} if n_bias else {})}
     problems = []
     if not sound_rel <= c["grad_rel_l2"] < fault_rel:
@@ -4141,23 +4211,40 @@ def bwd_symbol_problems(label, row, d) -> list:
 
 
 # mixtral-8x22b trains at full width on this many of its 56 layers: the
-# deepest whole number whose peak stays under ~70 GiB on one card
-MIXTRAL_TRAIN_LAYERS = 1
-# hymba-1.5b and granite-3-2b train at full width on 4 of 32 and 10 of 40
-# layers: depth cut so that the whole script ends in half its time limit
+# deepest whole number whose peak stays under ~72 GiB on one card (the
+# step holds weights, masks, the masked copy and the fp32 accumulator,
+# 9 bytes a parameter: 48.7 GB at 2 layers, 71.1 GB at 3)
+MIXTRAL_TRAIN_LAYERS = 2
+# llama-3.2-vision-90b trains at full width on one group: 4 self layers and
+# the gated cross layer (6.5e9 parameters with the embedding, the head and
+# vision_proj; 58.5 GB of step state)
+VISION_TRAIN_LAYERS = VISION["layers"]
+# hymba-1.5b and granite-3-2b train at full width on 2 of 32 and 6 of 40
+# layers: depth cut so that the whole script ends within its 600 s
 # (PERF.md section 4, "Cuts")
-HYMBA_TRAIN_LAYERS = 4
-GRANITE_TRAIN_LAYERS = 10
-# gemma2-9b trains at full width on 8 of its 42 layers (4 local + 4
-# global): 2.50e9 parameters with the tied 256,000 x 3,584 embedding,
-# granite-3-2b's size
-GEMMA2_TRAIN_LAYERS = 8
-# qwen2.5-3b trains at full width on 8 of its 36 layers (9.3e8 parameters
-# with the tied 151,936 x 2,048 embedding), yi-9b on 4 of its 48 (1.22e9
+HYMBA_TRAIN_LAYERS = 2
+GRANITE_TRAIN_LAYERS = 6
+# gemma2-9b trains at full width on 4 of its 42 layers (2 local + 2
+# global): 1.71e9 parameters with the tied 256,000 x 3,584 embedding
+GEMMA2_TRAIN_LAYERS = 4
+# qwen2.5-3b trains at full width on 4 of its 36 layers (6.2e8 parameters
+# with the tied 151,936 x 2,048 embedding), yi-9b on 2 of its 48 (8.7e8
 # with the untied 64,000-word embedding and head): depth cut for the
 # script's time (PERF.md section 4, "Cuts")
-QWEN_TRAIN_LAYERS = 8
-YI_TRAIN_LAYERS = 4
+QWEN_TRAIN_LAYERS = 4
+YI_TRAIN_LAYERS = 2
+
+
+# the LM training phases in the order they run (granite-3-2b's first; mamba2
+# beside it has a phase of its own), each at its depth (None: the config's)
+TRAIN_LAYERS = (("granite-3-2b", GRANITE_TRAIN_LAYERS),
+                ("hymba-1.5b", HYMBA_TRAIN_LAYERS),
+                ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
+                ("whisper-small", None),
+                ("gemma2-9b", GEMMA2_TRAIN_LAYERS),
+                ("qwen2.5-3b", QWEN_TRAIN_LAYERS),
+                ("yi-9b", YI_TRAIN_LAYERS),
+                ("llama-3.2-vision-90b", VISION_TRAIN_LAYERS))
 
 
 # gemma2-9b's attention at train_4k's length (one sequence): 16 / 8 heads of
@@ -4229,24 +4316,30 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     under specialize's train_4k runtime (flash_vjp, chunks 512, loss_chunk
     256, remat) and its train_microbatches: masks at lambda 0.3 from one
     warm-up gradient, 3 steps at eta 1e-2 on packed batches of 4 x 4096
-    tokens (the audio family's with launch/train.py's encoder input
-    beside them); finite losses, pruned coordinates unchanged bit for bit,
-    the last step rerun from its state bit for bit, the launches of both
-    attention kernels exact (kernel 8 twice a self-attention layer a
-    gradient, remat; the backward once; a gradient for the warm-up and for
-    each microbatch of each step); then the gradient check and the kernel
-    rows on layer 0's real inputs of the last microbatch. A model with
-    q/k/v biases (qwen) has them drawn non-zero first (draw_qkv_bias), and
-    the masks must keep some of them. `card` is
-    torch's device name (the peaks' key), `smi` nvidia-smi's name and
-    power limit, printed beside every number. Returns (problems,
-    launches, (forward row, backward row))."""
+    tokens (the audio and vlm families' with launch/train.py's memory
+    input beside them); finite losses, pruned coordinates unchanged bit
+    for bit (each step's against its input's), the last step rerun from
+    its state bit for bit (the first result waits in pinned host memory
+    meanwhile), the launches of both attention kernels exact (kernel 8
+    twice a self-attention layer a gradient, remat; the backward once; a
+    gradient for the warm-up and for each microbatch of each step); then
+    the gradient check and the kernel rows on layer 0's real inputs of
+    the last microbatch. A model with q/k/v biases (qwen) has them drawn
+    non-zero first (draw_qkv_bias), and the masks must keep some of them.
+    The vlm's gates are opened to VISION["gate"] before the warm-up (at 0
+    the cross-attention projections get no gradient, so their importance
+    and the gates' own are 0 and the masks would prune them all, the
+    gates for good): the masks must keep some cross-attention coordinates
+    and every gate. `card` is torch's device name (the peaks' key), `smi`
+    nvidia-smi's name and power limit, printed beside every number.
+    Returns (problems, launches, (forward row, backward row))."""
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import INPUT_SHAPES
     from repro_torch.kernels.counters import LAUNCHES, reset_launches
     from repro_torch.launch.steps import specialize, train_microbatches
     from repro_torch.models import flash_vjp as fv
     from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
     c = TRAIN
     shape = INPUT_SHAPES[c["shape"]]
     base = get_config(arch)
@@ -4254,9 +4347,17 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
         base = dataclasses.replace(base, num_layers=layers)
     cfg, rt = specialize(base, shape)
     seq, batch, mb = shape.seq_len, c["batch"], train_microbatches(cfg)
+    # the vlm's warm-up gradient is taken on one sequence: at 4 x 4096 in
+    # one pass its group's rematerialised activations, with the cross
+    # layer's fp32 scores [4, 64, 4096, 1601], do not fit beside the model
+    warm_batch = c["warm_batch_vlm"] if cfg.family == "vlm" else batch
+    walls = {}
+    t = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                            device=dev)
     n_bias = draw_qkv_bias(params, dev)
+    if cfg.family == "vlm":
+        params["blocks"]["cross"]["gate"].fill_(VISION["gate"])
     captured = {}
     sound = fv._kernel_bwd
 
@@ -4270,9 +4371,13 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     fv._kernel_bwd = keep_last
     try:
         masks, mask_row, mask_problems = train_masks(
-            params, cfg, rt, dev, c["lam"], seq, batch)
-        final, before, last, losses, secs, step, _ = run_train_steps(
-            params, masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"])
+            params, cfg, rt, dev, c["lam"], seq, warm_batch)
+        walls["init_and_warmup"] = time.perf_counter() - t
+        # the steps take the tree over: nothing here holds the initial one
+        box = [params]
+        del params
+        final, before, last, losses, secs, step, _, moved = run_train_steps(
+            box, masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"])
     finally:
         fv._kernel_bwd = sound
     problems += mask_problems
@@ -4282,6 +4387,20 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
     if n_bias and not bias_kept:
         problems.append(f"{arch} train: the masks keep none of the "
                         f"{n_bias} q/k/v bias coordinates")
+    vlm_row = {}
+    if cfg.family == "vlm":
+        cross = masks["blocks"]["cross"]
+        vlm_row = {"gates_open_at": VISION["gate"],
+                   "cross_attn_kept": sum(int(m.sum()) for m in
+                                          leaves(cross["cross"])),
+                   "cross_attn_coordinates": sum(m.numel() for m in
+                                                 leaves(cross["cross"])),
+                   "gates_pruned": int((cross["gate"] == 0).sum())}
+        if not vlm_row["cross_attn_kept"] or vlm_row["gates_pruned"]:
+            problems.append(f"{arch} train: the masks keep "
+                            f"{vlm_row['cross_attn_kept']} cross-attention "
+                            f"coordinates and prune "
+                            f"{vlm_row['gates_pruned']} gates")
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     peak = _peak_gib()
@@ -4294,36 +4413,54 @@ def lm_train_phase(dev, card, smi, arch, layers=None):
                             f"{launches[kname]} times, expected {n}")
     if not all(np.isfinite(losses)):
         problems.append(f"{arch} train: losses {losses}")
-    moved = _pruned_moved(final, params, masks)
     if moved:
         problems.append(f"{arch} train: {moved} pruned coordinates moved")
+    walls["steps"] = float(np.sum(secs))
+    t = time.perf_counter()
+    # the rerun: the first result waits in host memory, so that the card
+    # holds one tree beside the step's state
+    final_host = _to_host(final)
+    del final
+    torch.cuda.reset_peak_memory_stats()
     _, again = step(before, masks, last)
-    rerun_equal = _trees_equal(again, final)
+    rerun_peak = _peak_gib()
+    rerun_equal = _equal_to_host(again, final_host)
     if not rerun_equal:
         problems.append(f"{arch} train: the last step rerun differs")
-    del again, before
+    del again, before, final_host
+    walls["rerun"] = time.perf_counter() - t
+    n_params = T.param_count(cfg)
+    acc_bytes = 2 if n_params > 100e9 else 4
     tokens = batch * seq
     print(json.dumps({
         "train": arch, "card": smi, "layers": cfg.num_layers,
-        "params": T.param_count(cfg),
+        "params": n_params,
         "active_params": T.active_param_count(cfg),
         "runtime": dataclasses.asdict(rt), "batch": batch, "seq": seq,
-        "microbatches": mb, **mask_row,
+        "microbatches": mb, "warm_batch": warm_batch, **mask_row,
         **({"qkv_bias_drawn": n_bias, "qkv_bias_kept": bias_kept}
-           if n_bias else {}),
+           if n_bias else {}), **vlm_row,
         "losses": losses, "step_s": secs,
         "ms_per_step": 1e3 * float(np.mean(secs[1:])),
         "tokens_per_s": tokens / float(np.mean(secs[1:])),
-        "peak_gib": peak, "launches": {k: launches[k] for k in want},
+        "peak_gib": peak, "rerun_peak_gib": rerun_peak,
+        # weights, masks, the masked copy and the accumulator
+        "step_state_gib": n_params * (2 + 1 + 2 + acc_bytes) / 2**30,
+        "launches": {k: launches[k] for k in want},
         "pruned_bits_moved": moved, "rerun_bitwise": rerun_equal}))
-    del final, params, masks, last
+    del masks, last
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     g_problems, g_row = flash_grad_check(dev, cfg, rt)
+    walls["grad_check"] = time.perf_counter() - t
     print(json.dumps({**g_row, "card": smi}))
     problems += g_problems
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     k_problems, fwd_row, bwd_row = train_kernel_rows(captured["args"], card,
                                                      smi, arch)
+    walls["kernel_rows"] = time.perf_counter() - t
+    print(json.dumps({"train_phase_s": arch, **walls}))
     problems += k_problems
     captured.clear()
     torch.cuda.empty_cache()
@@ -4351,13 +4488,13 @@ def mamba_train_phase(dev, smi):
     torch.cuda.reset_peak_memory_stats()
     masks, mask_row, problems = train_masks(params, cfg, rt, dev, c["lam"],
                                             seq, batch)
-    final, _, last, losses, secs, step, mgr = run_train_steps(
-        params, masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"],
+    final, _, last, losses, secs, step, mgr, moved = run_train_steps(
+        [params], masks, cfg, rt, dev, seq, batch, c["steps"], c["eta"],
         ckpt_after=c["steps"] - 1)
     peak = _peak_gib()
     if not all(np.isfinite(losses)):
         problems.append(f"mamba2 train: losses {losses}")
-    moved = _pruned_moved(final, params, masks)
+    moved += _pruned_moved(final, params, masks)
     if moved:
         problems.append(f"mamba2 train: {moved} pruned coordinates moved")
     restored, meta = mgr.restore(params)
@@ -4675,6 +4812,10 @@ def main() -> int:
     parser.add_argument("--lm-sharded", action="store_true",
                         help="set-up and the sharded LM train step (phase "
                              "25) only; no result line")
+    parser.add_argument("--train", metavar="ARCH[,ARCH]",
+                        help="set-up and the named LM training phases only "
+                             "(the kernels line of just those); no result "
+                             "line")
     parser.add_argument("--warm-flex", action="store_true",
                         help="compile the flex_attention library calls "
                              "into build/'s caches (warm_flex) and exit; "
@@ -4720,6 +4861,23 @@ def main() -> int:
         t = time.perf_counter()
         problems, _, _ = lm_sharded_phase(dev, name, card)
         walls["lm_sharded_train_step"] = time.perf_counter() - t
+        print(json.dumps({"phase_wall_s": walls}))
+        problems += hgmma_problems(sass_job.result())
+        if problems:
+            print("chip_smoke FAILED: " + "; ".join(problems),
+                  file=sys.stderr)
+        return 1 if problems else 0
+    if args.train:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        problems, depth = [], dict(TRAIN_LAYERS)
+        for arch in args.train.split(","):
+            t = time.perf_counter()
+            tr_problems, tr_launches, _ = lm_train_phase(
+                dev, name, card, arch, depth.get(arch))
+            problems += tr_problems
+            walls[f"{arch}_train"] = time.perf_counter() - t
+            print(json.dumps({"train_launches": arch, **{
+                k: tr_launches[k] for k in FLASH_KERNELS}}))
         print(json.dumps({"phase_wall_s": walls}))
         problems += hgmma_problems(sass_job.result())
         if problems:
@@ -4904,7 +5062,7 @@ def main() -> int:
     torch.use_deterministic_algorithms(True, warn_only=True)
     t = time.perf_counter()
     tr_problems, train_launches, (train_fwd, train_bwd) = lm_train_phase(
-        dev, name, card, "granite-3-2b", GRANITE_TRAIN_LAYERS)
+        dev, name, card, *TRAIN_LAYERS[0])
     problems += tr_problems
     torch.cuda.empty_cache()
     walls["granite_train"] = time.perf_counter() - t
@@ -4912,12 +5070,7 @@ def main() -> int:
     problems += mamba_train_phase(dev, card)
     walls["mamba2_train"] = time.perf_counter() - t
     new_train = {}
-    for arch, layers in (("hymba-1.5b", HYMBA_TRAIN_LAYERS),
-                         ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS),
-                         ("whisper-small", None),
-                         ("gemma2-9b", GEMMA2_TRAIN_LAYERS),
-                         ("qwen2.5-3b", QWEN_TRAIN_LAYERS),
-                         ("yi-9b", YI_TRAIN_LAYERS)):
+    for arch, layers in TRAIN_LAYERS[1:]:
         t = time.perf_counter()
         tr_problems, tr_launches, tr_rows = lm_train_phase(
             dev, name, card, arch, layers)

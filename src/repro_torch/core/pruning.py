@@ -202,14 +202,18 @@ def _leaf_threshold(thr: float, dtype: torch.dtype) -> float:
 
 
 def build_masks(importance: Params, lam: float,
-                spec: PruneSpec = PruneSpec()) -> Params:
+                spec: PruneSpec = PruneSpec(),
+                dtype: torch.dtype = torch.float32) -> Params:
     """Binary {0,1} masks: 0 = pruned. Non-prunable leaves get all-ones.
     The compare is q >= daz(thr) in q's type, as the JAX reference
-    evaluates it."""
+    evaluates it. The masks are fp32, as the JAX package's are, unless
+    `dtype` says otherwise: each leaf is made in it directly (uint8 for a
+    full-width model's step: 1 byte a parameter, with no fp32 tree
+    first)."""
     thr = global_threshold(importance, lam, spec)
-    masks = [torch.ones_like(q, dtype=torch.float32)
+    masks = [torch.ones_like(q, dtype=dtype)
              if thr == -np.inf or not spec.prunable(pth)
-             else (q >= _leaf_threshold(thr, q.dtype)).float()
+             else (q >= _leaf_threshold(thr, q.dtype)).to(dtype)
              for pth, q in flatten_with_path(importance)]
     return unflatten(importance, masks)
 

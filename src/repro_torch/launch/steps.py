@@ -94,6 +94,44 @@ def value_and_grad(loss_of, params: PyTree):
         _like(g, w) for g, w in zip(grads, req)])
 
 
+def backward_leaves(loss, req: list, on_grad) -> None:
+    """Backpropagate the scalar `loss` to the tensors `req` (leaves that
+    require grad) and hand each one's gradient to on_grad(i, g) as soon
+    as autograd has completed it, then drop it: no gradient tree is held
+    beside the model, only the gradients still being summed. A leaf the
+    loss does not read gets zeros. Each g is the sum autograd forms at
+    the leaf, so bit for bit what torch.autograd.grad returns for it."""
+    done = [False] * len(req)
+
+    def hook(i):
+        def take(t):
+            g, t.grad = t.grad, None
+            done[i] = True
+            on_grad(i, g)
+        return take
+
+    handles = [w.register_post_accumulate_grad_hook(hook(i))
+               for i, w in enumerate(req)]
+    try:
+        torch.autograd.backward(loss, inputs=req)
+    finally:
+        for h in handles:
+            h.remove()
+    for i, w in enumerate(req):
+        if not done[i]:
+            on_grad(i, torch.zeros_like(w))
+
+
+def loss_and_leaf_grads(loss_of, params: PyTree, on_grad) -> torch.Tensor:
+    """value_and_grad's gradients one leaf at a time: on_grad(i, g) gets
+    leaf i's gradient (at its parameter's placements) as backward
+    completes it (backward_leaves). Returns the detached loss."""
+    req = [w.detach().requires_grad_() for w in leaves(params)]
+    loss = loss_of(unflatten(params, req))
+    backward_leaves(loss, req, lambda i, g: on_grad(i, _like(g, req[i])))
+    return loss.detach()
+
+
 def _like(g, w):
     """A DTensor gradient at its parameter's placements (the reduce-scatter
     of FSDP), as the JAX package keeps gradients at the parameter
@@ -101,6 +139,63 @@ def _like(g, w):
     if isinstance(w, DTensor) and tuple(g.placements) != tuple(w.placements):
         return g.redistribute(w.device_mesh, w.placements)
     return g
+
+
+# values of a plain leaf read at once when a gradient is masked into the
+# accumulator and when a leaf is updated (their transients are a slice's:
+# the head of a 128,256-word vocabulary is 1.05e9 values)
+UPDATE_CHUNK = 1 << 26
+
+
+def _slices(*ts):
+    """Aligned slices of tensors of one shape, UPDATE_CHUNK values each,
+    for plain contiguous tensors; else the tensors whole (a DTensor works
+    on its shards)."""
+    if ts[0].numel() <= UPDATE_CHUNK or any(
+            isinstance(t, DTensor) or not t.is_contiguous() for t in ts):
+        return [ts]
+    return zip(*(t.view(-1).split(UPDATE_CHUNK) for t in ts))
+
+
+def _masked(g, m, w):
+    """The VJP of w * m.to(w.dtype) for the gradient g of the product:
+    g m in w's type, at w's placements on a mesh."""
+    return _like(g * m.to(w.dtype), w)
+
+
+def _update(w, g, m, eta: float, mb: int, vjp: bool = False):
+    """The server step on one leaf, w - eta (g m) in g's type cast to w's
+    (pruned coordinates neither upload nor update, eq. 5-7), g first
+    divided in place by mb when mb > 1 (the microbatch mean); with `vjp`,
+    g is the gradient of the masked copy, turned into w's first
+    (`_masked`). A slice at a time (`_slices`), the same elementwise
+    expression."""
+    def one(w, g, m):
+        if vjp:
+            g = _masked(g, m, w)
+        if mb > 1:
+            g.div_(mb)
+        return w - eta * (g * m.to(g.dtype)).to(w.dtype)
+
+    parts = list(_slices(w, g, m))
+    if len(parts) == 1:
+        return one(*parts[0])
+    out = torch.empty_like(w)
+    for o, part in zip(out.view(-1).split(UPDATE_CHUNK), parts):
+        o.copy_(one(*part))
+    return out
+
+
+def _release(ts) -> None:
+    """Free the storage of the masked copy once its last backward has run.
+    The loss's checkpoints leave a reference cycle through autograd's
+    graph, whose AccumulateGrad nodes hold their leaves: without this the
+    copy (12 GiB for llama-vision's group) would live on until the
+    garbage collector ran, into the next step."""
+    with torch.no_grad():
+        for t in ts:
+            local = t.to_local() if isinstance(t, DTensor) else t
+            local.untyped_storage().resize_(0)
 
 
 def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
@@ -115,55 +210,71 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, *, eta: float = 1e-2,
     place of ``lax.scan``), dividing activation memory; gradients
     accumulate in fp32 (bf16 above 100e9 parameters). structured_lambda
     > 0 also width-prunes the FFNs (structured_slice). Returns new
-    tensors; the inputs are left as they are."""
+    tensors; the inputs are left as they are.
+
+    The step holds only its state: the weights, the masks, the masked
+    copy w * m the forward reads (made once a step, as leaves of their
+    own) and the accumulator, beside one microbatch's activations. Each
+    leaf's gradient is taken as backward completes it (backward_leaves):
+    the VJP of w * m, g m in w's type, goes into the accumulator (with
+    one microbatch, straight into the leaf's update) and is dropped; the
+    update runs leaf by leaf, each accumulator leaf freed once its new
+    leaf exists. The results are those of autograd over w * m, bit for
+    bit."""
     mb = train_microbatches(cfg) if microbatches is None else microbatches
     # >= 100B params: bf16 gradient accumulation (an fp32 accumulator is
     # 7.5 GB/device for arctic-480b at the JAX package's FSDP sharding)
     acc_dtype = torch.bfloat16 if T.param_count(cfg) > 100e9 \
         else torch.float32
 
-    def masked_loss(p, masks, tokens, labels, extra):
-        pm = tree_map(lambda w, m: w * m.to(w.dtype), p, masks)
-        if structured_lambda > 0:
-            pm, _ = structured_slice(pm, structured_lambda)
-        return T.loss_fn(pm, tokens, labels, cfg, rt, extra or None)
-
-    def loss_and_grad(params, masks, tokens, labels, extra):
-        return value_and_grad(
-            lambda p: masked_loss(p, masks, tokens, labels, extra), params)
-
     def train_step(params, masks, batch):
         extra = {k: v for k, v in batch.items()
                  if k not in ("tokens", "labels")}
+        ws, ms = leaves(params), leaves(masks)
+        with torch.no_grad():
+            pm = [(w * m.to(w.dtype)).requires_grad_()
+                  for w, m in zip(ws, ms)]
+        tree = unflatten(params, pm)
+        if structured_lambda > 0:
+            tree, _ = structured_slice(tree, structured_lambda)
+        new = [None] * len(ws)
+
+        def grad_pass(tokens, labels, xtra, on_grad):
+            loss = T.loss_fn(tree, tokens, labels, cfg, rt, xtra or None)
+            backward_leaves(loss, pm, on_grad)
+            return loss.detach()
+
         if mb == 1:
-            loss, grads = loss_and_grad(params, masks, batch["tokens"],
-                                        batch["labels"], extra)
+            def apply(i, g):
+                new[i] = _update(ws[i], g, ms[i], eta, 1, vjp=True)
+
+            loss = grad_pass(batch["tokens"], batch["labels"], extra, apply)
+            _release(pm)
         else:
             parts = {k: _chunks(v, mb) for k, v in batch.items()}
             # the accumulator sits at each parameter's placements on a
-            # mesh, and is added to in place: a + g would hold a second
-            # fp32 copy of the widest leaf (mixtral's experts, 3 GiB)
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype),
-                             params)
+            # mesh and starts at +0.0 (a pruned coordinate's sum of
+            # masked gradients stays +0.0); each gradient is added in
+            # place as backward completes it
+            acc = [torch.zeros_like(w, dtype=acc_dtype) for w in ws]
+
+            def add(i, g):
+                for a, gc, mc in _slices(acc[i], g, ms[i]):
+                    a.add_(_masked(gc, mc, ws[i]))
+
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(mb):
-                li, gi = loss_and_grad(
-                    params, masks, parts["tokens"][i], parts["labels"][i],
-                    {k: parts[k][i] for k in extra})
-                for a, g in zip(leaves(grads), leaves(gi)):
-                    a.add_(g)
-                del gi
-                loss = loss + li
-            for g in leaves(grads):
-                g.div_(mb)
+                loss = loss + grad_pass(
+                    parts["tokens"][i], parts["labels"][i],
+                    {k: parts[k][i] for k in extra}, add)
             loss = loss / mb
-        # pruned coordinates neither upload nor update (eq. 5-7)
-        with torch.no_grad():
-            new_params = tree_map(
-                lambda w, g, m: w - eta * (g * m.to(g.dtype)).to(w.dtype),
-                params, grads, masks)
-        return constrain(loss), new_params
+            _release(pm)
+            with torch.no_grad():
+                for i, w in enumerate(ws):
+                    new[i] = _update(w, acc[i], ms[i], eta, mb)
+                    acc[i] = None
+        return constrain(loss), unflatten(params, new)
 
     return train_step
 

@@ -28,10 +28,10 @@ import torch
 from repro_torch.configs.registry import get_config, list_configs
 from repro_torch.core import pruning
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_step, value_and_grad
+from repro_torch.launch.steps import loss_and_leaf_grads, make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.models.blocks import Runtime
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, unflatten
 
 
 def packed_batch(it, cfg, batch, device) -> dict:
@@ -72,19 +72,26 @@ def batch_extra(batch) -> dict | None:
 
 def warmup_importance(params, batch, cfg, rt):
     """Taylor importance (eq. 4) of `params` with the loss gradient on
-    `batch` as the warm-up v^(s-1)."""
-    _, g0 = value_and_grad(lambda p: T.loss_fn(
+    `batch` as the warm-up v^(s-1): each leaf's importance is taken from
+    its gradient as backward completes it (steps.loss_and_leaf_grads), so
+    no gradient tree is held beside it."""
+    ws = leaves(params)
+    imp = [None] * len(ws)
+
+    def take(i, g):
+        imp[i] = pruning.taylor_importance(ws[i], g)
+
+    loss_and_leaf_grads(lambda p: T.loss_fn(
         p, batch["tokens"], batch["labels"], cfg, rt, batch_extra(batch)),
-        params)
-    return pruning.taylor_importance(params, g0)
+        params, take)
+    return unflatten(params, imp)
 
 
 def warmup_masks(params, batch, cfg, rt, lam):
     """uint8 masks at `lam` from the warm-up importance, the global
-    threshold taken where the tree lies."""
-    masks = pruning.build_masks(warmup_importance(params, batch, cfg, rt),
-                                lam)
-    return tree_map(lambda m: m.to(torch.uint8), masks)
+    threshold taken where the tree lies, each leaf made in uint8."""
+    return pruning.build_masks(warmup_importance(params, batch, cfg, rt),
+                               lam, dtype=torch.uint8)
 
 
 def main(argv=None):

@@ -109,19 +109,23 @@ def naive_attention(q, k, v, *, causal: bool = True, window: int = 0,
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qr = q.reshape(b, sq, hkv, g, d)
+    # scaled in place, and no mask where none applies (cross-attention to a
+    # memory): the same values with one [B, H, S, T] fp32 buffer fewer in
+    # the forward and in the backward
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qr.float(),
-                          k.float()) / math.sqrt(d)
+                          k.float()).div_(math.sqrt(d))
     scores = softcap(scores, cap)
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    if kv_len is not None:
-        mask &= kpos < kv_len
-    scores = torch.where(mask, scores, NEG_INF)
+    if causal or window or kv_len is not None:
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        if kv_len is not None:
+            mask &= kpos < kv_len
+        scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return o.reshape(b, sq, hq, d).to(q.dtype)

@@ -1942,3 +1942,80 @@ def test_lm_step_on_a_one_by_one_mesh_is_the_unsharded_step(dev, dtype):
     assert loss_eq and params_eq, (l1, l0)
     assert LAUNCHES["flash_attention"] == 2 * 2 * cfg.num_layers
     assert LAUNCHES["flash_attention_bwd"] == 2 * cfg.num_layers
+
+
+# -- the train step that holds only its state (launch/steps.py) -------------------
+
+@pytest.mark.cuda
+def test_train_step_holds_only_its_state(dev):
+    """granite-3-2b at full width, 2 of its 40 layers, bf16, 2 x 4,096
+    tokens in 2 microbatches under specialize's train runtime (kernel 8
+    with lse and the backward): the step equals the straightforward
+    reference step (tests/_torch_train_step_reference.py) bit for bit,
+    and its peak allocation above what the caller holds (weights, masks,
+    batch) stays under the step's state, the masked copy (2 bytes a
+    parameter) and the fp32 accumulator (4), plus an activation
+    allowance: the peak of a forward-only run of one microbatch with its
+    graph kept and remat off (every activation the backward could hold
+    at once; under remat it holds a layer's at a time, which leaves room
+    for the gradients autograd still sums). The reference, which holds
+    the whole gradient tree beside its accumulator, peaks above that
+    bound (PERF.md has the measured peaks)."""
+    import dataclasses
+    import json
+
+    import _torch_train_step_reference as reference
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import INPUT_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2)
+    cfg, rt = steps.specialize(cfg, INPUT_SHAPES["train_4k"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg, device=dev)
+    masks = tree_map(lambda w: (torch.rand(w.shape, generator=gen,
+                                           device=dev) > 0.3).to(
+        torch.uint8), params)
+    tok = torch.randint(0, cfg.vocab_size, (2, 4097), generator=gen,
+                        device=dev)
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    n = sum(w.numel() for w in leaves(params))
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        floor = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - floor
+
+    with torch.no_grad():
+        req = tree_map(lambda w, m: (w * m.to(w.dtype)).requires_grad_(),
+                       params, masks)
+    loss, fwd = peak_of(lambda: T.loss_fn(
+        req, batch["tokens"][:1], batch["labels"][:1], cfg,
+        dataclasses.replace(rt, remat=False)))
+    del loss, req
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got, step_peak = peak_of(lambda: steps.make_train_step(
+            cfg, rt, microbatches=2)(params, masks, batch))
+        want, ref_peak = peak_of(lambda: reference.make_train_step(
+            cfg, rt, microbatches=2)(params, masks, batch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    state = n * (2 + 4)
+    allowance = fwd
+    print(json.dumps({"train_step_memory": "granite-3-2b 2 layers, 2 x 4096, "
+                      "2 microbatches", "params": n,
+                      "state_gib": state / 2**30,
+                      "forward_only_gib": fwd / 2**30,
+                      "step_peak_gib": step_peak / 2**30,
+                      "reference_peak_gib": ref_peak / 2**30}))
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert step_peak <= state + allowance < ref_peak, (
+        step_peak, state, allowance, ref_peak)
