@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, then the result line
     python3 chip_smoke.py --kernels    # phases 1 and 2 only, no result line
     python3 chip_smoke.py --sharded    # phase 1 and the sharded phase only
+    python3 chip_smoke.py --sec5       # phase 1 and the Sec. V phase only
     python3 chip_smoke.py --lm-sharded # phase 1 and the sharded LM step only
     python3 chip_smoke.py --train llama-3.2-vision-90b,mixtral-8x22b
                                        # phase 1 and those training phases
@@ -81,22 +82,38 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      bit for bit, v as values, equal histories, no batch uploaded by the
      blocks, graph replays (with the eager round each capture follows)
      equal to the block rounds, each round kernel once a round on both
-     packed paths; a timed 4-round window of each packed path, its first
+     packed paths; a timed 2-round window of each packed path, its first
      round profiled (device busy, idle share, the host's CUDA calls a
      round); kill
      after round 20's checkpoint and `resume_from_checkpoint`, bit for bit
      the uninterrupted blocked run;
+     then (34.) the paper's Sec. V comparison (benchmarks/common.py's six
+     SCHEMES at examples/feel_paper_reproduction.py's settings: 10
+     clients, sigma = 1, E0 = 4 J, T0 = 40 s, LeNet, 60 rounds, evaluation
+     every 25) at seed 0 as one sweep through repro_torch.api.run_sweep,
+     32-round blocks on CUDA graphs: every scheme's schedule as run, rounds
+     completed and budgets spent bit for bit the JAX reference's
+     (tests/torch_fixtures/sec5_jax.json), kernels 1-4 read for each cell
+     (histogram and aggregate once a round, the two mask kernels once a
+     round together), fixed_pruning (lambda = 0) and fixed_selection also
+     one round a dispatch and on the reference backend, bit for bit the
+     blocked run; fixed_selection from seed 0's weights times (1 + 2^-22)
+     over 21 rounds beside seed 0 (the chaos: rounds 0-4 within 1e-5); the
+     seed-0 table beside JAX's seed 0 and JAX's 8-seed mean;
   8. the paper's CIFAR-10 path through the experiment API, spec C
      (benchmarks/common.py's synthetic-cifar10 cell: 10 clients, sigma = 1,
      ResNet-20 at 272,250 coordinates packed [2304, 128], `proposed` at
-     E0 = 4 J, T0 = 40 s, eta 0.1, batch 32): first ResNet-20's gradient
-     against an fp64 one (within 1e-3 relative L2 under the engine's
-     scope; TF32, the planted fault, outside it); FedSGD over 50 rounds (its
-     schedule spends past the budget, so the budget stop is off), FedProx
-     (E = 2, mu 0.01) and FedAvg at E = 3 over 10 and FedDyn (E = 2, alpha
-     0.01) over 12, each three ways as in phase 7; parameters and FedDyn's
+     E0 = 4 J, T0 = 40 s, eta 0.1, batch 32): first ResNet-20's and
+     LeNet's gradients against fp64 ones (within 1e-3 relative L2 under
+     the engine's scope; TF32, the planted fault, outside it), the ReLUs
+     whose input took the other sign than in fp64 beside each, and the
+     engines cuDNN runs for each convolution, named from its API log (a
+     child with the log on, started after phase 2); FedSGD over 50 rounds
+     (its schedule spends past the budget, so the budget stop is off),
+     FedProx (E = 2, mu 0.01) and FedAvg at E = 3 over 6 and FedDyn (E = 2,
+     alpha 0.01) over 12, each three ways as in phase 7; parameters and FedDyn's
      state bit for bit, v as values, equal histories, the last round's
-     train loss below round 0's; steady 4-round windows of FedSGD and
+     train loss below round 0's; steady 2-round windows of FedSGD and
      FedDyn, blocked and per round (one round of each profiled); kill
      after round 10's checkpoint of the blocked FedDyn run and resume, bit
      for bit with h;
@@ -157,7 +174,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
  12. granite-3-2b at full width in bf16, its depth cut from 40 to 4
      layers (random weights, seed 0), served by the continuous-batching
      engine through the flash kernel:
-     16 greedy requests of 32 tokens, prompts of 130-1000 tokens, on 8
+     16 greedy requests of 16 tokens, prompts of 130-1000 tokens, on 8
      slots; flash launches == 4 x 16, engine tokens == a sequential
      generation over the same padded prefill (the first request of each
      bucket and one in a reused slot); the prefill's last-token
@@ -185,7 +202,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      (mixtral's on a copy of its first two layers); then (21.)
      whisper-small at full width, 12 encoder and 4 of its 12 decoder
      layers (12/12 heads of 64: kernel
-     8 at g = 1) on 8 slots, 16 requests of 32 tokens, prompts of 130-440
+     8 at g = 1) on 8 slots, 16 requests of 16 tokens, prompts of 130-440
      tokens padded to (256, 512), and (22.) llama-3.2-vision-90b at full
      width on one group of 5 of its 100 layers (4 self layers of 64/8
      heads of 128: g = 8, and a gated cross layer) on granite's traffic,
@@ -301,8 +318,9 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      versions and timed as phase 14's kernel rows are;
  20. one JSON line listing the kernels (the ten TPU kernels' ports and
      the attention backward; kernels 1-4 with their launches on spec C's
-     blocked runs beside the slice's, every kernel with its launches on
-     phase 9's streamed run; kernel 8's and the backward's launches on
+     blocked runs and on each of phase 34's six schemes beside the
+     slice's, every kernel with its launches on phase 9's streamed run;
+     kernel 8's and the backward's launches on
      every served and trained LM path, gemma2-9b's, qwen2.5-3b's, yi-9b's,
      arctic-480b's and llama-3.2-vision-90b's training included, and the
      D 256 backward rows), then the result line.
@@ -1409,7 +1427,7 @@ QUICK_SPECS = {"A": dict(scheme="proposed_exact", e0=250.0, t0=150.0,
                          eval_every=10),
                "B": dict(scheme="proposed", e0=25.0, t0=15.0,
                          eval_every=40)}
-QUICK_WINDOW = 4          # rounds of each timed window (once 8)
+QUICK_WINDOW = 2          # rounds of each timed window (once 8, then 4)
 # rounds of it under each profiler (CUDA, then CPU): the traces' host-side
 # processing grows with their events, ~12,000 a per-round FedDyn round;
 # over 8 rounds it took 111 of spec C's 240 s on an H100's host (PERF.md)
@@ -1713,12 +1731,12 @@ CIFAR = dict(n_clients=10, sigma=1.0, n_train=4000, n_test=800, e0=4.0,
 # would end it early: it runs all its rounds; the others are feasible and
 # keep the stop. Rounds cut beside the hybrid and MoE phases:
 # FedSGD 60 -> 50 (at 40 its schedule takes one client a round, not 4),
-# FedProx and FedAvg at E = 3 20 -> 10, FedDyn 20 -> 12 (its kill after
-# round 10 and resume)
+# FedProx and FedAvg at E = 3 20 -> 10 -> 6 (PR 30, beside the Sec. V
+# phase), FedDyn 20 -> 12 (its kill after round 10 and resume)
 CIFAR_RUNS = (("fedsgd", "fedavg", 1, {}, 50),
-              ("fedprox", "fedprox", 2, {"mu": 0.01}, 10),
+              ("fedprox", "fedprox", 2, {"mu": 0.01}, 6),
               ("feddyn", "feddyn", 2, {"alpha": 0.01}, 12),
-              ("fedavg_e3", "fedavg", 3, {}, 10))
+              ("fedavg_e3", "fedavg", 3, {}, 6))
 
 
 def cifar_spec(label: str, **run):
@@ -1752,34 +1770,160 @@ def _h_bits(ta, tb) -> int:
     return int((ta._h.view(torch.int32) != tb._h.view(torch.int32)).sum())
 
 
-def resnet_grad_accuracy(dev) -> dict:
-    """ResNet-20's gradient on a CIFAR-shaped batch of 32 against an fp64
-    reference taken on the CPU, as relative L2: under the engine's scope
-    (fp32, deterministic cuDNN), with cuDNN off (torch's native
-    convolution), on the CPU in fp32, and, the planted fault, without the
-    scope under global TF32."""
+CUDNN_LOG = pathlib.Path(__file__).resolve().parent / "build" / \
+    "cudnn_api.log"
+# one ResNet-20 forward and backward of a CIFAR-shaped batch of 32 in the
+# engine's scope (exact_fp32: cuDNN's deterministic fp32 engines)
+CUDNN_CHILD = r"""
+import sys, numpy as np, torch
+sys.path.insert(0, "src")
+from repro_torch.device import exact_fp32
+from repro_torch.models import cnn, make_loss_fn
+from repro_torch.tree import leaves, unflatten
+torch.use_deterministic_algorithms(True)
+params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cuda")
+rng = np.random.default_rng(0)
+x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
+ps = [t.requires_grad_(True) for t in leaves(params)]
+with exact_fp32():
+    loss = make_loss_fn(cnn.resnet_apply)(unflatten(params, ps), x.cuda(),
+                                          y.cuda())
+    torch.autograd.grad(loss, ps)
+torch.cuda.synchronize()
+print(torch.backends.cudnn.version())
+"""
+
+
+def start_cudnn_log():
+    """Start a child that runs CUDNN_CHILD with cuDNN's API log on (info
+    level, into CUDNN_LOG); `cudnn_engines` reads it. It runs beside the
+    earlier phases: with the log on the child takes ~20 s."""
+    CUDNN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    CUDNN_LOG.unlink(missing_ok=True)
+    env = {**os.environ, "CUDNN_LOGLEVEL_DBG": "3",
+           "CUDNN_LOGDEST_DBG": str(CUDNN_LOG)}
+    return subprocess.Popen([sys.executable, "-c", CUDNN_CHILD], env=env,
+                            cwd=str(pathlib.Path(__file__).resolve().parent),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def cudnn_engines(job, timeout_s: float = 300.0) -> dict:
+    """The engines cuDNN ran for each of ResNet-20's convolutions in the
+    engine's scope, from its API log: each cudnnBackendExecute's
+    operation, input and filter shapes, engine id and knobs, with the
+    numerical notes cuDNN's heuristics reported for that engine (FFT,
+    TENSOR_CORE, ...); grouped, with the count of executions."""
+    try:
+        out, err = job.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        job.kill()
+        job.communicate()
+        return {"error": f"the logged child ran past {timeout_s:g} s"}
+    if job.returncode != 0 or not CUDNN_LOG.exists():
+        return {"error": f"the logged child failed ({job.returncode}): "
+                         f"{err.strip()[-400:]}"}
+    text = CUDNN_LOG.read_text(errors="replace")
+    CUDNN_LOG.unlink()
+    notes: dict = {}
+    ops = {"CONVOLUTION_FORWARD": "forward",
+           "CONVOLUTION_BACKWARD_DATA": "backward data",
+           "CONVOLUTION_BACKWARD_FILTER": "backward filter",
+           "CONV_FORWARD": "forward", "CONV_BWD_DATA": "backward data",
+           "CONV_BWD_FILTER": "backward filter"}
+    runs: dict = {}
+    for rec in re.split(r"\n(?=[IWE]! CuDNN)", text):
+        for m in re.finditer(
+                r"OPERATION_(\w+)_DESCRIPTOR:.*?engine_id: type=int; "
+                r"val=(-?\d+);\n(.*?)behaviorNotes", rec, re.S):
+            found = re.findall(r"CUDNN_NUMERICAL_NOTE_(\w+): type=bool; "
+                               r"val=true", m.group(3))
+            if m.group(1) in ops:
+                notes.setdefault((ops[m.group(1)], m.group(2)),
+                                 set()).update(found)
+        if "cudnnBackendExecuteInternal() called" not in rec:
+            continue
+        op = re.search(r"operation: type=internalType; val=(\w+)", rec)
+        eng = re.search(r"engine_id: type=int; val=(-?\d+)", rec)
+        if op is None or eng is None or op.group(1) not in ops:
+            continue
+        dims = re.findall(r"dimA: type=int; val=\[([\d,]+)\]", rec)
+        knobs = re.findall(r"CUDNN_KNOB_TYPE_(\w+): type=int; val=(-?\d+)",
+                           rec)
+        key = (ops[op.group(1)], eng.group(1),
+               ",".join(f"{k}={v}" for k, v in knobs), dims[0] if dims
+               else "", dims[1] if len(dims) > 1 else "")
+        runs[key] = runs.get(key, 0) + 1
+    rows = [{"op": op, "engine": int(eng), "knobs": knobs, "x": x, "w": w,
+             "executions": n,
+             "numerical_notes": sorted(notes.get((op, eng), ()))}
+            for (op, eng, knobs, x, w), n in sorted(runs.items())]
+    fft = sorted({f"{r['op']} engine {r['engine']}" for r in rows
+                  if "FFT" in r["numerical_notes"]})
+    return {"cudnn": out.strip(), "convolutions": rows,
+            "fft_engines": fft, "fft_executions": sum(
+                r["executions"] for r in rows
+                if "FFT" in r["numerical_notes"])}
+
+
+def resnet_grad_accuracy(dev, cudnn_job=None) -> dict:
+    """ResNet-20's gradient on a CIFAR-shaped batch of 32 and LeNet's on an
+    MNIST-shaped one against fp64 references taken on the CPU, as relative
+    L2: under the engine's scope (exact_fp32: fp32, cuDNN's deterministic
+    engines), with cuDNN off (torch's native convolution), on the CPU in
+    fp32, and, the planted fault, without the scope under global TF32.
+    Beside each, the ReLUs whose input took the other sign than in fp64
+    (a kink flip zeroes or keeps a gradient element outright, and sets the
+    reading: one flip among ~500,000 activations reads ~1e-4 to 1e-3 on
+    any path; scripts/conv_scope_probe.py over six batches). With
+    `cudnn_job` (`start_cudnn_log`), also the engines cuDNN ran for each
+    convolution (`cudnn_engines`)."""
     import contextlib
     from repro_torch.device import exact_fp32
     from repro_torch.models import cnn
-    from repro_torch.tree import leaves, tree_map, unflatten
-    params = resnet_init(torch.Generator().manual_seed(0), device="cpu")
-    rng = np.random.default_rng(0)
-    x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
-    y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
+    from repro_torch.tree import leaves, unflatten
 
-    def grad(d, dtype, ctx):
+    def batch(shape):
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=shape).astype(np.float32)
+        return (torch.as_tensor(x),
+                torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32)))
+
+    models = {
+        "": (resnet_init(torch.Generator().manual_seed(0), device="cpu"),
+             cnn.resnet_apply, *batch((32, 32, 32, 3))),
+        "lenet_": (lenet_init(torch.Generator().manual_seed(0),
+                              device="cpu"), lenet_apply,
+                   *batch((32, 28, 28, 1)))}
+
+    def grad(model, d, dtype, ctx):
+        """(gradient as fp64 on the CPU, the ReLUs' input signs)."""
+        params, apply, x, y = models[model]
         ps = [t.to(d, dtype).requires_grad_(True) for t in leaves(params)]
-        with ctx():
-            loss = make_loss_fn(cnn.resnet_apply)(unflatten(params, ps),
-                                                  x.to(d, dtype), y.to(d))
-            g = torch.autograd.grad(loss, ps)
-        return torch.cat([t.reshape(-1).double().cpu() for t in g])
+        signs, relu = [], torch.relu
+
+        def recorded(t):
+            signs.append((t.detach() > 0).cpu())
+            return relu(t)
+        torch.relu = recorded
+        try:
+            with ctx():
+                loss = make_loss_fn(apply)(unflatten(params, ps),
+                                           x.to(d, dtype), y.to(d))
+                g = torch.autograd.grad(loss, ps)
+        finally:
+            torch.relu = relu
+        return torch.cat([t.reshape(-1).double().cpu() for t in g]), signs
 
     @contextlib.contextmanager
     def native():
         with exact_fp32():
             torch.backends.cudnn.enabled = False
-            yield
+            try:
+                yield
+            finally:
+                torch.backends.cudnn.enabled = True
 
     @contextlib.contextmanager
     def tf32():
@@ -1792,20 +1936,29 @@ def resnet_grad_accuracy(dev) -> dict:
             conv.fp32_precision = prev
 
     cpu = torch.device("cpu")
-    g64 = grad(cpu, torch.float64, contextlib.nullcontext)
     rel = {}
-    for name, d, ctx in (("cuda_scoped", dev, exact_fp32),
-                         ("cuda_native_conv", dev, native),
-                         ("cpu_fp32", cpu, contextlib.nullcontext),
-                         ("cuda_tf32_unscoped", dev, tf32)):
-        rel[name] = float((grad(d, torch.float32, ctx) - g64).norm()
-                          / g64.norm())
+    for model in models:
+        g64, s64 = grad(model, cpu, torch.float64, contextlib.nullcontext)
+        rows = (("cuda_scoped", dev, exact_fp32),
+                ("cpu_fp32", cpu, contextlib.nullcontext))
+        if not model:
+            rows += (("cuda_native_conv", dev, native),
+                     ("cuda_tf32_unscoped", dev, tf32))
+        for name, d, ctx in rows:
+            g, signs = grad(model, d, torch.float32, ctx)
+            rel[model + name] = float((g - g64).norm() / g64.norm())
+            rel[model + name + "_relu_flips"] = sum(
+                int((a != b).sum()) for a, b in zip(signs, s64))
+    if cudnn_job is not None:
+        rel["cudnn_engines"] = cudnn_engines(cudnn_job)
     return rel
 
 
-def cifar_phase(dev, card):
-    """First ResNet-20's gradient against fp64 (`resnet_grad_accuracy`:
-    within 1e-3 relative L2, TF32 outside it). Then spec C through
+def cifar_phase(dev, card, cudnn_job=None):
+    """First ResNet-20's and LeNet's gradients against fp64
+    (`resnet_grad_accuracy`: within 1e-3 relative L2 under the engine's
+    scope, TF32 outside it above; the engines cuDNN's deterministic mode
+    runs, from its API log). Then spec C through
     repro_torch.api: FedSGD over 50 rounds, FedProx (E = 2) and FedAvg at
     E = 3 over 10 and FedDyn (E = 2) over 12, each three ways ("auto": 32-round
     blocks on CUDA graphs, one round a dispatch, the reference backend).
@@ -1816,7 +1969,7 @@ def cifar_phase(dev, card):
     batch; kernels 2, 3 and 4 launch once a round on both packed runs
     (the masks: kernel 2 or, where a round's clients have different
     lambdas, kernel 1). Then the
-    steady 4-round windows of FedSGD and FedDyn, blocked and per round,
+    steady 2-round windows of FedSGD and FedDyn, blocked and per round,
     and kill after round 10's checkpoint of the blocked FedDyn run and
     `resume_from_checkpoint`: bit for bit, h included. Returns (problems,
     launches of each packed run)."""
@@ -1826,11 +1979,14 @@ def cifar_phase(dev, card):
     # the phase's wall by part, host clock (where its time goes)
     parts = {}
     t = time.perf_counter()
-    acc = resnet_grad_accuracy(dev)
+    acc = resnet_grad_accuracy(dev, cudnn_job)
     parts["grad_accuracy"] = time.perf_counter() - t
     print(json.dumps({"resnet20_grad_rel_l2_vs_fp64": acc, "card": card}))
-    if not acc["cuda_scoped"] < 1e-3 < acc["cuda_tf32_unscoped"]:
-        problems.append(f"ResNet-20's gradient against fp64: {acc}")
+    engines = acc.get("cudnn_engines", {})
+    if not (acc["cuda_scoped"] < 1e-3 < acc["cuda_tf32_unscoped"]
+            and acc["lenet_cuda_scoped"] < 1e-3) or "error" in engines:
+        problems.append(f"ResNet-20's and LeNet's gradients against fp64: "
+                        f"{acc}")
     t = time.perf_counter()
     env = build_environment(cifar_spec("fedsgd"), device=dev)
     parts["environment"] = time.perf_counter() - t
@@ -2327,6 +2483,198 @@ def sweep_phase(dev, card):
     return problems
 
 
+# -- phase 34: the paper's Sec. V comparison, the six schemes -------------------
+
+# the schemes that also run one round a dispatch and on the reference
+# backend: lambda = 0 (the k <= 0 path the card had not run) and every
+# client every round (the bucket of 10)
+SEC5_PATHS = ("fixed_pruning", "fixed_selection")
+SEC5_KERNELS = ("importance_mask_batched", "importance_mask_2d",
+                "fedsgd_aggregate_weighted", "exponent_histogram")
+SEC5_CHAOS_ROUNDS = 21                     # rounds 0..20
+SEC5_CHAOS_SCALE = float(np.float32(1 + 2 ** -22))
+
+
+def sec5_module():
+    """examples/torch_feel_paper_reproduction.py: the matrix, the records
+    and the JAX reference's reader."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "examples"))
+    import torch_feel_paper_reproduction as sec5
+    return sec5
+
+
+def sec5_phase(dev, card):
+    """The paper's Sec. V comparison through repro_torch.api: the six
+    SCHEMES at seed 0, 60 rounds each (fixed_power stops at 5 on its
+    energy budget), as one SweepSpec through run_sweep, 32-round blocks on
+    CUDA graphs ("auto"), one pooled trainer re-seeded between cells. Each
+    scheme's schedule as run, rounds completed and cumulative energy and
+    delay equal the JAX reference's (tests/torch_fixtures/sec5_jax.json)
+    bit for bit; kernels 1-4's launches are read for each cell (from 0 as
+    the cell starts) and must be once a round (the masks' two kernels
+    together); fixed_pruning and fixed_selection also run one round a
+    dispatch and on the reference backend, equal to the blocked run bit
+    for bit (parameters, v as values, history). Prints the seed-0 table
+    beside JAX's seed 0 and JAX's 8-seed mean. Returns (problems,
+    {scheme: launches})."""
+    from repro_torch.api import (Experiment, RunSink, build_environment,
+                                 run_sweep)
+    sec5 = sec5_module()
+    reference = sec5.load_reference()
+    problems, launches, state, graphs = [], {}, {}, {}
+    grab = Grab()
+
+    class CellSink(RunSink):
+        """Reads each finished cell's launches and final state; the sweep
+        runs its cells in order on one thread, so the counts set to 0 here
+        are the next cell's from its start."""
+
+        def begin(self, cells, *, resume=False):
+            pm.reset_launches()
+
+        def write(self, name, result):
+            scheme = result.spec["scheme"]["name"]
+            launches[scheme] = {k: pm.LAUNCHES[k] for k in SEC5_KERNELS}
+            tr = grab.trainer
+            state[scheme] = (
+                {k: v.clone() for k, v in tr.params.items()},
+                {k: v.clone() for k, v in tr.global_grad.items()})
+            graphs[scheme] = {"rounds_per_dispatch": tr.rounds_per_dispatch,
+                              "block_dispatches": tr.n_block_dispatches,
+                              "graphs_captured": tr.engine.graphs_captured,
+                              "graph_replays": tr.engine.graph_replays}
+            pm.reset_launches()
+
+    sweep = sec5.sec5_sweep([0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run_sweep(sweep, sink=CellSink(), callbacks=[grab], device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    if res.errors:
+        return [f"Sec. V sweep: {e['name']}: {e['error']}"
+                for e in res.errors], launches
+    port = sec5.collect(res.cells, res.results)
+    sched_problems = sec5.schedule_problems(port, reference)
+    problems += [f"Sec. V: {p}" for p in sched_problems]
+    for name, entry in port.items():
+        rec = entry["runs"]["0"]
+        n = rec["rounds_completed"]
+        got = launches[name]
+        if got["exponent_histogram"] != n or \
+                got["fedsgd_aggregate_weighted"] != n or \
+                got["importance_mask_2d"] + got["importance_mask_batched"] \
+                != n:
+            problems.append(f"Sec. V {name}: launches {got} over {n} rounds")
+        losses = np.asarray(rec["train_loss"])
+        if not np.isfinite(losses).all():
+            problems.append(f"Sec. V {name}: non-finite train losses")
+        elif n >= 20 and not losses[-5:].mean() < losses[:5].mean():
+            problems.append(f"Sec. V {name}: the train loss did not fall")
+        g = graphs[name]
+        if g["rounds_per_dispatch"] != 32 or g["block_dispatches"] < 1:
+            problems.append(f"Sec. V {name}: not 32-round blocks ({g})")
+    replays = graphs[sec5.SCHEMES[-1]]["graph_replays"]
+    if replays < 1:
+        problems.append("Sec. V: no CUDA graph was replayed")
+    for kname in SEC5_KERNELS:
+        if not any(c[kname] for c in launches.values()):
+            problems.append(f"Sec. V: {kname} never launched")
+
+    # fixed_pruning and fixed_selection one round a dispatch and on the
+    # reference backend: the blocked run's bits
+    paths = {}
+    env = build_environment(res.cells[0].spec, device=dev)
+    keys = ("round", "train_loss", "selected", "delay", "energy",
+            "cumulative_delay", "cumulative_energy", "test_loss",
+            "test_accuracy")
+    for cell, blocked in zip(res.cells, res.results):
+        name = cell.spec.scheme.name
+        if name not in SEC5_PATHS:
+            continue
+        wb, vb = state[name]
+        for path, run_kw in (("per_round", dict(rounds_per_dispatch=1)),
+                             ("reference", dict(backend="reference"))):
+            spec = dataclasses.replace(cell.spec, run=dataclasses.replace(
+                cell.spec.run, **run_kw))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run = Experiment(spec).build(env=env)
+            out = run.run()
+            torch.cuda.synchronize()
+            paths[f"{name} {path}"] = time.perf_counter() - t
+            wo, vo = run.trainer.params, run.trainer.global_grad
+            bits = sum(int((wb[k].view(torch.int32)
+                            != wo[k].view(torch.int32)).sum()) for k in wb)
+            if bits or not all(torch.equal(vb[k], vo[k]) for k in vb):
+                problems.append(f"Sec. V {name}: blocked != {path} "
+                                f"({bits} parameter bits)")
+            if [[getattr(m, k) for k in keys] for m in blocked.history] != \
+                    [[getattr(m, k) for k in keys] for m in out.history]:
+                problems.append(f"Sec. V {name}: blocked history != {path}")
+
+    # the chaos on the card: fixed_selection from seed 0's weights times
+    # (1 + 2^-22), blocked, to round SEC5_CHAOS_ROUNDS - 1, against the
+    # sweep's seed-0 run (tests/test_torch_paper_sec5.py pins it on the CPU)
+    cell = next(c for c in res.cells
+                if c.spec.scheme.name == "fixed_selection")
+    base = res.results[res.cells.index(cell)].history
+    spec = dataclasses.replace(cell.spec, run=dataclasses.replace(
+        cell.spec.run, evaluate=False))
+    run = Experiment(spec).build(env=env)
+    n = SEC5_CHAOS_ROUNDS
+    run.schedule = dataclasses.replace(
+        run.schedule, a=run.schedule.a[:n], lam=run.schedule.lam[:n],
+        power=run.schedule.power[:n], freq=run.schedule.freq[:n])
+    scale = torch.tensor(SEC5_CHAOS_SCALE, dtype=torch.float32, device=dev)
+    run.trainer.reset({k: v * scale for k, v in env.init_fn(
+        torch.Generator().manual_seed(0), device=dev).items()}, 0)
+    chaos = [abs(a.train_loss - b.train_loss) / abs(b.train_loss)
+             for a, b in zip(run.run().history, base)]
+    print(json.dumps({"sec5_chaos": "fixed_selection, seed 0's weights x "
+                      "(1 + 2^-22) against seed 0, blocked",
+                      "card": card, "train_loss_rel_diff": chaos}))
+    # before a mask flips the runs differ by float noise (up to ~1e-6
+    # relative on the CPU at round 4); a flip moves the loss ~1e-3
+    if len(chaos) != n or not max(chaos[:5]) <= 1e-5:
+        problems.append(f"Sec. V: rounds 0-4 from the scaled weights "
+                        f"differ from seed 0's past 1e-5 ({chaos[:5]})")
+
+    # the seed-0 table beside JAX's seed 0 and JAX's 8-seed mean
+    rows = {}
+    for name, entry in port.items():
+        mine = entry["runs"]["0"]
+        ref = reference["schemes"][name]
+        j0, jall = ref["runs"]["0"], sec5.summarize(ref)
+        rows[name] = {
+            "rounds": mine["rounds_completed"],
+            "energy": mine["cumulative_energy"],
+            "delay": mine["cumulative_delay"],
+            "final_accuracy": mine["final_accuracy"],
+            "jax_seed0_final_accuracy": j0["final_accuracy"],
+            "jax_mean_final_accuracy": jall["final_accuracy"],
+            "jax_std_final_accuracy": jall["final_accuracy_std"],
+            "last10_train_loss": mine["last10_train_loss"],
+            "jax_seed0_last10_train_loss": j0["last10_train_loss"],
+            "jax_mean_last10_train_loss": jall["last10_train_loss"],
+            "launches": launches[name]}
+        print(f"sec5 {name:16s} rounds {mine['rounds_completed']:2d} "
+              f"E {mine['cumulative_energy']:.6f} J "
+              f"D {mine['cumulative_delay']:.6f} s | acc "
+              f"{mine['final_accuracy']:.3f} (JAX seed 0 "
+              f"{j0['final_accuracy']:.3f}, 8 seeds "
+              f"{jall['final_accuracy']:.3f} +- "
+              f"{jall['final_accuracy_std']:.3f}) | last-10 loss "
+              f"{mine['last10_train_loss']:.4f} (JAX seed 0 "
+              f"{j0['last10_train_loss']:.4f}, 8 seeds "
+              f"{jall['last10_train_loss']:.4f})")
+    print(json.dumps({"sec5": rows, "card": card, "sweep_s": sweep_s,
+                      "graphs": graphs, "paths_s": paths,
+                      "schedules": sched_problems or "bit for bit JAX's"}))
+    return problems, launches
+
+
 # -- phase 24: the sharded client axis, two gloo ranks sharing the card --------
 
 SHARDS = 2
@@ -2724,7 +3072,7 @@ BF16_TOL = 2e-2
 # "Cuts"). n_sequential: how many prefill
 # lengths have their first request held to sequential generation (None:
 # every one)
-GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=32,
+GRANITE = dict(arch="granite-3-2b", n_requests=16, new_tokens=16,
                max_batch=8, max_seq=2048, buckets=(256, 512, 1024),
                len_lo=130, len_hi=1000, n_sequential=None,
                logits_rel_l2=1e-3, layers=4)
@@ -2800,7 +3148,7 @@ QKV_BIASES = ("bq", "bk", "bv")
 # mamba2-130m at full width, served and trained on 6 of its 24 layers
 # (cut for the script's time: its host-bound decode and plain-scan
 # training steps scale with depth)
-MAMBA = dict(n_requests=8, new_tokens=32, max_batch=4, max_seq=2048,
+MAMBA = dict(n_requests=8, new_tokens=16, max_batch=4, max_seq=2048,
              len_lo=100, len_hi=600, entry_len=512, chunk=128, layers=6)
 
 
@@ -4850,6 +5198,9 @@ def main() -> int:
                         help="set-up and the named LM training phases only "
                              "(the kernels line of just those); no result "
                              "line")
+    parser.add_argument("--sec5", action="store_true",
+                        help="set-up and the Sec. V comparison (phase 34) "
+                             "only; no result line")
     parser.add_argument("--warm-flex", action="store_true",
                         help="compile the flex_attention library calls "
                              "into build/'s caches (warm_flex) and exit; "
@@ -4918,6 +5269,16 @@ def main() -> int:
             print("chip_smoke FAILED: " + "; ".join(problems),
                   file=sys.stderr)
         return 1 if problems else 0
+    if args.sec5:
+        t = time.perf_counter()
+        problems, _ = sec5_phase(dev, card)
+        walls["sec5_comparison"] = time.perf_counter() - t
+        print(json.dumps({"phase_wall_s": walls}))
+        sass_job.result()
+        if problems:
+            print("chip_smoke FAILED: " + "; ".join(problems),
+                  file=sys.stderr)
+        return 1 if problems else 0
     if args.sharded:
         t = time.perf_counter()
         problems = sharded_phase(dev, card)
@@ -4943,6 +5304,9 @@ def main() -> int:
     # the softcapped rows' library calls compile beside the federated
     # phases, in a child process that fills the compile caches
     flex_warm = start_flex_warmup()
+    # cuDNN's engines for ResNet-20, named from its API log in a child
+    # that runs beside the federated phases (read in spec C's phase)
+    cudnn_job = start_cudnn_log()
 
     # the pruned-FedSGD path, packed backend: counts from this run only
     t = time.perf_counter()
@@ -5026,7 +5390,13 @@ def main() -> int:
     problems += quick_problems
     walls["quickstart_api"] = time.perf_counter() - t
     t = time.perf_counter()
-    cifar_problems, cifar_launches, _ = cifar_phase(dev, card)
+    sec5_problems, sec5_launches = sec5_phase(dev, card)
+    problems += sec5_problems
+    walls["sec5_comparison"] = time.perf_counter() - t
+    print(json.dumps({"phase_wall_s": {"sec5_comparison":
+                                       walls["sec5_comparison"]}}))
+    t = time.perf_counter()
+    cifar_problems, cifar_launches, _ = cifar_phase(dev, card, cudnn_job)
     problems += cifar_problems
     walls["cifar10_resnet20"] = time.perf_counter() - t
     print(json.dumps({"phase_wall_s": {"cifar10_resnet20":
@@ -5149,6 +5519,10 @@ def main() -> int:
                      "launches": counts[kname], "path": path,
                      **({"spec_c_launches": spec_c}
                         if any(spec_c.values()) else {}),
+                     **({"sec5_launches": {
+                         scheme: c[kname] for scheme, c in
+                         sec5_launches.items()}}
+                        if kname in SEC5_KERNELS else {}),
                      "fleet_launches": fleet_launches.get(kname, 0),
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                      "plain_ms": res["plain_ms"], "device_ms": res["device_ms"],

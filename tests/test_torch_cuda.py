@@ -2019,3 +2019,40 @@ def test_train_step_holds_only_its_state(dev):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     assert step_peak <= state + allowance < ref_peak, (
         step_peak, state, allowance, ref_peak)
+
+
+@pytest.mark.cuda
+def test_sec5_distributions_match_jax(dev):
+    """The paper's Sec. V comparison on the card: benchmarks/common.py's six
+    SCHEMES x run.seed 0-7 at examples/feel_paper_reproduction.py's settings
+    through the port's sweep service (32-round blocks on CUDA graphs, one
+    pooled trainer), each run from the port's own initial weights. Every
+    scheme's schedule as run (selected ids, per-client lambda, delay and
+    energy a round, rounds completed, the budgets spent) equals JAX's bit
+    for bit, and each scheme's mean final accuracy and mean train loss over
+    the last 10 rounds lie within 3 standard errors of JAX's 8 seeds:
+    |m_port - m_jax| <= 3 sqrt(s_port^2 / 8 + s_jax^2 / 8). JAX's numbers
+    come from tests/torch_fixtures/sec5_jax.json
+    (scripts/make_sec5_jax_reference.py, on the CPU); one seed's outcome
+    is a draw (tests/test_torch_paper_sec5.py), so only the distributions
+    are compared."""
+    import json
+    import os
+    import sys
+    from repro_torch.api import run_sweep
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    import torch_feel_paper_reproduction as sec5
+    reference = sec5.load_reference()
+    res = run_sweep(sec5.sec5_sweep(8), device=dev)
+    assert not res.errors, res.errors
+    port = sec5.collect(res.cells, res.results)
+    cmp = sec5.compare(port, reference)
+    print("\n" + "\n".join(sec5.table(cmp["port"], cmp["jax"],
+                                      cmp["checks"])))
+    print(json.dumps({"sec5_distributions": cmp["checks"],
+                      "port": cmp["port"], "jax": cmp["jax"]}))
+    assert not cmp["schedule_problems"], cmp["schedule_problems"]
+    outside = {name: {stat: r for stat, r in c.items() if not r["ok"]}
+               for name, c in cmp["checks"].items()}
+    assert not any(outside.values()), outside

@@ -258,6 +258,26 @@ print(len(names))
                          env={**os.environ, "PYTHONPATH": src})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 81
+    # the Sec. V example and the card's smoke script, imported as modules
+    # (neither runs its main)
+    root = os.path.dirname(src)
+    for script in ("examples/torch_feel_paper_reproduction.py",
+                   "chip_smoke.py"):
+        code = f"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("m", {script!r})
+sys.modules["m"] = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(sys.modules["m"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+assert "repro_torch.api.sweep" in sys.modules
+"""
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, timeout=120, cwd=root,
+                             env={**os.environ, "PYTHONPATH": src})
+        assert out.returncode == 0, (script, out.stderr)
 
 
 def test_entry_points_default_to_cuda():
