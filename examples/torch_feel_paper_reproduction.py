@@ -25,7 +25,8 @@ equals JAX's bit for bit, and each mean lies within three standard errors
 of JAX's, |m_port - m_jax| <= 3 sqrt(s_port^2 / n + s_jax^2 / n). One
 seed's outcome is a draw: a keep-mask that flips at a near-tie sends the
 trajectory elsewhere (tests/test_torch_paper_sec5.py pins that), so the
-runs are compared as distributions. Exit status 1 if a check fails.
+runs are compared as distributions (not with fewer than two seeds, where
+no standard deviation is estimated). Exit status 1 if a check fails.
 
 The module is also imported, by chip_smoke.py's Sec. V phase and by the
 card and CPU tests, for the matrix and the records.
@@ -230,14 +231,16 @@ def schedule_problems(port: dict, reference: dict) -> list[str]:
 def distribution_check(port: dict, jax: dict, n_port: int, n_jax: int,
                        sigmas: float = SIGMAS) -> dict:
     """For each statistic, |mean_port - mean_jax| against sigmas standard
-    errors of the difference."""
+    errors of the difference; "ok" is None (not checked) when either side
+    has fewer than two seeds, where no standard deviation is estimated."""
     out = {}
     for stat in ("final_accuracy", "last10_train_loss"):
         diff = abs(port[stat] - jax[stat])
         se = math.sqrt(port[stat + "_std"] ** 2 / n_port
                        + jax[stat + "_std"] ** 2 / n_jax)
         out[stat] = {"diff": diff, "bound": sigmas * se,
-                     "ok": bool(diff <= sigmas * se)}
+                     "ok": bool(diff <= sigmas * se)
+                     if min(n_port, n_jax) >= 2 else None}
     return out
 
 
@@ -273,8 +276,9 @@ def table(port: dict, jax: dict, checks: dict | None = None) -> list[str]:
         p, j = port[name], jax[name]
         mark = ""
         if checks:
-            mark = "  " + ("ok" if all(c["ok"] for c in
-                                       checks[name].values()) else "OUT")
+            oks = [c["ok"] for c in checks[name].values()]
+            mark = "  " + ("-" if None in oks else "ok" if all(oks)
+                           else "OUT")
         lines.append(
             f"{name:16s} {p['final_accuracy']:.3f} +- "
             f"{p['final_accuracy_std']:.3f}  {j['final_accuracy']:.3f} +- "
@@ -343,11 +347,17 @@ def main() -> int:
           f"{jv['best_baseline']} {jv['best_baseline_accuracy']:.3f} "
           f"({jv['result']})")
     out_of = [f"{name} {stat}" for name, c in cmp["checks"].items()
-              for stat, r in c.items() if not r["ok"]]
+              for stat, r in c.items() if r["ok"] is False]
+    unchecked = any(r["ok"] is None for c in cmp["checks"].values()
+                    for r in c.values())
     print("schedules: " + ("bit for bit JAX's" if not cmp["schedule_problems"]
                            else "; ".join(cmp["schedule_problems"])))
-    print(f"distributions: {'all within' if not out_of else 'OUTSIDE'} "
-          f"{SIGMAS:g} standard errors" + (f": {out_of}" if out_of else ""))
+    if unchecked:
+        print("distributions: not checked (fewer than two seeds)")
+    else:
+        print(f"distributions: {'all within' if not out_of else 'OUTSIDE'} "
+              f"{SIGMAS:g} standard errors"
+              + (f": {out_of}" if out_of else ""))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": card, "device": str(device),
