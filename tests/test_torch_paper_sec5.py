@@ -144,17 +144,6 @@ def port_trainer(env, params):
                                   device="cpu")
 
 
-def jax_trainer(case, params):
-    """The module's one JAX trainer, reset to `params` and seed 0 (the
-    sweep's pooled-trainer reset, a cold build's bits): its compiled
-    rounds serve every test."""
-    env, pool = case[3], case[-1]
-    if not pool:
-        pool.append(jcore.FederatedTrainer(
-            env.loss_fn, params, env.clients, eta=0.1, batch_size=32,
-            seed=0, backend="packed", rounds_per_dispatch="auto"))
-    pool[0].reset(params, 0)
-    return pool[0]
 
 
 def run_rounds(tr, env, sched, e0=4.0, t0=40.0):
@@ -191,8 +180,8 @@ def _jax_solves() -> dict:
 @pytest.fixture(scope="module")
 def sec5_case():
     """The example's spec in both packages, their environments and every
-    scheme's fresh schedules from each (JAX's at 60 rounds in `scheds`,
-    both packages' at FIRST_ROUNDS in `short`). The solves are host
+    scheme's fresh schedules from each, (port, JAX) at 60 rounds in
+    `scheds` and at FIRST_ROUNDS in `shorts`. The solves are host
     Python (golden-section searches, ~3 s a 60-round schedule), so JAX's
     run in a forked child beside the port's: the child calls no XLA."""
     spec = sec5.spec_from_config(sec5.ExpConfig(), eval_every=sec5.EVAL_EVERY)
@@ -217,11 +206,28 @@ def sec5_case():
               for name in sec5.SCHEMES}
     shorts = {name: (ours[name, short], theirs[name, short])
               for name in sec5.SCHEMES}
-    return spec, jspec, tenv, jenv, scheds, shorts, []
+    return spec, jspec, tenv, jenv, scheds, shorts
+
+
+@pytest.fixture(scope="module")
+def jax_trainer(sec5_case):
+    """`fresh(params)`: the module's one JAX trainer, reset to `params` and
+    seed 0 (the sweep's pooled-trainer reset, a cold build's bits), so its
+    compiled rounds serve every test."""
+    env, box = sec5_case[3], []
+
+    def fresh(params):
+        if not box:
+            box.append(jcore.FederatedTrainer(
+                env.loss_fn, params, env.clients, eta=0.1, batch_size=32,
+                seed=0, backend="packed", rounds_per_dispatch="auto"))
+        box[0].reset(params, 0)
+        return box[0]
+    return fresh
 
 
 def test_sec5_schedules_match_jax(sec5_case):
-    spec, _, tenv, jenv, scheds, _ = sec5_case[:6]
+    spec, _, tenv, jenv, scheds, _ = sec5_case
     np.testing.assert_array_equal(tenv.phi, jenv.phi)
     e0, t0 = spec.wireless.e0, spec.wireless.t0
     n_rounds = {}
@@ -246,8 +252,8 @@ def test_sec5_schedules_match_jax(sec5_case):
     assert (ts["fixed_power"].power[ts["fixed_power"].a > 0] == 0.5).all()
 
 
-def test_sec5_reference_is_current(sec5_case):
-    spec, jspec, _, jenv, scheds, _ = sec5_case[:6]
+def test_sec5_reference_is_current(sec5_case, jax_trainer):
+    spec, jspec, _, jenv, scheds, _ = sec5_case
     ref = sec5.load_reference()
     assert ref["sweep"] == sec5.sec5_sweep(8).to_dict()
     assert ref["eval_every"] == sec5.EVAL_EVERY
@@ -263,23 +269,23 @@ def test_sec5_reference_is_current(sec5_case):
     # JAX's own initial weights, through JAX's Run
     spec_p = with_scheme(jspec, "fixed_power")
     js = scheds["fixed_power"][1]
-    run = japi.Run(spec_p, jenv, js, jax_trainer(
-        sec5_case, jenv.init_fn(jax.random.key(0))))
+    run = japi.Run(spec_p, jenv, js,
+                   jax_trainer(jenv.init_fn(jax.random.key(0))))
     res = run.run()
     assert sec5.schedule_record(res) == ref["schemes"]["fixed_power"][
         "schedule"]
     assert sec5.run_record(res) == ref["schemes"]["fixed_power"]["runs"]["0"]
 
 
-def test_sec5_first_rounds_match_jax_from_its_init(sec5_case):
-    _, _, tenv, jenv, _, shorts = sec5_case[:6]
+def test_sec5_first_rounds_match_jax_from_its_init(sec5_case, jax_trainer):
+    _, _, tenv, jenv, _, shorts = sec5_case
     jp, tp = jax_init()
     worst = {}
     for name, (ts, js) in shorts.items():
         np.testing.assert_array_equal(ts.lam, js.lam)
         np.testing.assert_array_equal(ts.a, js.a)
         ttr = port_trainer(tenv, {k: v.clone() for k, v in tp.items()})
-        jtr = jax_trainer(sec5_case, jp)
+        jtr = jax_trainer(jp)
         th, jh = run_rounds(ttr, tenv, ts), run_rounds(jtr, jenv, js)
         assert len(th) == len(jh) >= 5, name
         for a, b in zip(th, jh):
@@ -328,14 +334,15 @@ def _near_threshold(q: dict, thr: float) -> dict:
             for k, x in q.items()}
 
 
-def test_sec5_one_round_from_a_jax_checkpoint(sec5_case, tmp_path):
-    _, jspec, _, jenv, scheds, _ = sec5_case[:6]
+def test_sec5_one_round_from_a_jax_checkpoint(sec5_case, jax_trainer,
+                                              tmp_path):
+    _, jspec, _, jenv, scheds, _ = sec5_case
     ckpt = str(tmp_path / "jax_run")
     spec = dataclasses.replace(jspec, run=dataclasses.replace(
         jspec.run, checkpoint_every=20))
     js = scheds["proposed"][1]
-    run = japi.Run(spec, jenv, js, jax_trainer(
-        sec5_case, jenv.init_fn(jax.random.key(0))))
+    run = japi.Run(spec, jenv, js,
+                   jax_trainer(jenv.init_fn(jax.random.key(0))))
     snap = _Snap((20, 21, 40, 41), 41)
     with pytest.raises(_Stop):
         run.run(callbacks=[snap], checkpoint_dir=ckpt)
@@ -382,7 +389,7 @@ def test_sec5_trajectory_is_chaotic(sec5_case):
     """fixed_selection's 60-round schedule from JAX's initial weights and
     from them times (1 + 2^-22): the same trajectory until a keep-mask
     flips at a near-tie, then another one."""
-    _, _, tenv, _, scheds, _ = sec5_case[:6]
+    _, _, tenv, _, scheds, _ = sec5_case
     sched = cut(scheds["fixed_selection"][0], CHAOS_ROUNDS)
     _, tp = jax_init()
     scaled = {k: v * torch.tensor(CHAOS_SCALE) for k, v in tp.items()}
