@@ -82,7 +82,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      bit for bit, v as values, equal histories, no batch uploaded by the
      blocks, graph replays (with the eager round each capture follows)
      equal to the block rounds, each round kernel once a round on both
-     packed paths; a timed 2-round window of each packed path, its first
+     packed paths; a timed 4-round window of each packed path, its first
      round profiled (device busy, idle share, the host's CUDA calls a
      round); kill
      after round 20's checkpoint and `resume_from_checkpoint`, bit for bit
@@ -97,23 +97,21 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      (histogram and aggregate once a round, the two mask kernels once a
      round together), fixed_pruning (lambda = 0) and fixed_selection also
      one round a dispatch and on the reference backend, bit for bit the
-     blocked run; fixed_selection from seed 0's weights times (1 + 2^-22)
-     over 21 rounds beside seed 0 (the chaos: rounds 0-4 within 1e-5); the
-     seed-0 table beside JAX's seed 0 and JAX's 8-seed mean;
+     blocked run; the seed-0 table beside JAX's seed 0 and JAX's 8-seed
+     mean;
   8. the paper's CIFAR-10 path through the experiment API, spec C
      (benchmarks/common.py's synthetic-cifar10 cell: 10 clients, sigma = 1,
      ResNet-20 at 272,250 coordinates packed [2304, 128], `proposed` at
      E0 = 4 J, T0 = 40 s, eta 0.1, batch 32): first ResNet-20's and
      LeNet's gradients against fp64 ones (within 1e-3 relative L2 under
      the engine's scope; TF32, the planted fault, outside it), the ReLUs
-     whose input took the other sign than in fp64 beside each, and the
-     engines cuDNN runs for each convolution, named from its API log (a
-     child with the log on, started after phase 2); FedSGD over 50 rounds
-     (its schedule spends past the budget, so the budget stop is off),
-     FedProx (E = 2, mu 0.01) and FedAvg at E = 3 over 6 and FedDyn (E = 2,
-     alpha 0.01) over 12, each three ways as in phase 7; parameters and FedDyn's
+     whose input took the other sign than in fp64 beside each; FedSGD over
+     50 rounds (its schedule spends past the budget, so the budget stop is
+     off), FedProx (E = 2, mu 0.01) and FedAvg at E = 3 over 10 and FedDyn
+     (E = 2, alpha 0.01) over 12, each three ways as in phase 7; parameters
+     and FedDyn's
      state bit for bit, v as values, equal histories, the last round's
-     train loss below round 0's; steady 2-round windows of FedSGD and
+     train loss below round 0's; steady 4-round windows of FedSGD and
      FedDyn, blocked and per round (one round of each profiled); kill
      after round 10's checkpoint of the blocked FedDyn run and resume, bit
      for bit with h;
@@ -1427,7 +1425,7 @@ QUICK_SPECS = {"A": dict(scheme="proposed_exact", e0=250.0, t0=150.0,
                          eval_every=10),
                "B": dict(scheme="proposed", e0=25.0, t0=15.0,
                          eval_every=40)}
-QUICK_WINDOW = 2          # rounds of each timed window (once 8, then 4)
+QUICK_WINDOW = 4          # rounds of each timed window (once 8)
 # rounds of it under each profiler (CUDA, then CPU): the traces' host-side
 # processing grows with their events, ~12,000 a per-round FedDyn round;
 # over 8 rounds it took 111 of spec C's 240 s on an H100's host (PERF.md)
@@ -1731,12 +1729,12 @@ CIFAR = dict(n_clients=10, sigma=1.0, n_train=4000, n_test=800, e0=4.0,
 # would end it early: it runs all its rounds; the others are feasible and
 # keep the stop. Rounds cut beside the hybrid and MoE phases:
 # FedSGD 60 -> 50 (at 40 its schedule takes one client a round, not 4),
-# FedProx and FedAvg at E = 3 20 -> 10 -> 6 (PR 30, beside the Sec. V
-# phase), FedDyn 20 -> 12 (its kill after round 10 and resume)
+# FedProx and FedAvg at E = 3 20 -> 10, FedDyn 20 -> 12 (its kill after
+# round 10 and resume)
 CIFAR_RUNS = (("fedsgd", "fedavg", 1, {}, 50),
-              ("fedprox", "fedprox", 2, {"mu": 0.01}, 6),
+              ("fedprox", "fedprox", 2, {"mu": 0.01}, 10),
               ("feddyn", "feddyn", 2, {"alpha": 0.01}, 12),
-              ("fedavg_e3", "fedavg", 3, {}, 6))
+              ("fedavg_e3", "fedavg", 3, {}, 10))
 
 
 def cifar_spec(label: str, **run):
@@ -1770,104 +1768,30 @@ def _h_bits(ta, tb) -> int:
     return int((ta._h.view(torch.int32) != tb._h.view(torch.int32)).sum())
 
 
-CUDNN_LOG = pathlib.Path(__file__).resolve().parent / "build" / \
-    "cudnn_api.log"
-# one ResNet-20 forward and backward of a CIFAR-shaped batch of 32 in the
-# engine's scope (exact_fp32: cuDNN's deterministic fp32 engines)
-CUDNN_CHILD = r"""
-import sys, numpy as np, torch
-sys.path.insert(0, "src")
-from repro_torch.device import exact_fp32
-from repro_torch.models import cnn, make_loss_fn
-from repro_torch.tree import leaves, unflatten
-torch.use_deterministic_algorithms(True)
-params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cuda")
-rng = np.random.default_rng(0)
-x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
-y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
-ps = [t.requires_grad_(True) for t in leaves(params)]
-with exact_fp32():
-    loss = make_loss_fn(cnn.resnet_apply)(unflatten(params, ps), x.cuda(),
-                                          y.cuda())
-    torch.autograd.grad(loss, ps)
-torch.cuda.synchronize()
-print(torch.backends.cudnn.version())
-"""
+def grad_and_relu_signs(params, apply, x, y, d, dtype, ctx):
+    """The loss gradient of `apply` at `params` on the batch (x, y), on
+    device `d` in `dtype` under the context `ctx`, as one fp64 vector on
+    the CPU, and the sign of every torch.relu input (a list of boolean
+    tensors on the CPU, in call order)."""
+    from repro_torch.tree import leaves, unflatten
+    ps = [t.to(d, dtype).requires_grad_(True) for t in leaves(params)]
+    signs, relu = [], torch.relu
 
-
-def start_cudnn_log():
-    """Start a child that runs CUDNN_CHILD with cuDNN's API log on (info
-    level, into CUDNN_LOG); `cudnn_engines` reads it. It runs beside the
-    earlier phases: with the log on the child takes ~20 s."""
-    CUDNN_LOG.parent.mkdir(parents=True, exist_ok=True)
-    CUDNN_LOG.unlink(missing_ok=True)
-    env = {**os.environ, "CUDNN_LOGLEVEL_DBG": "3",
-           "CUDNN_LOGDEST_DBG": str(CUDNN_LOG)}
-    return subprocess.Popen([sys.executable, "-c", CUDNN_CHILD], env=env,
-                            cwd=str(pathlib.Path(__file__).resolve().parent),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-
-
-def cudnn_engines(job, timeout_s: float = 300.0) -> dict:
-    """The engines cuDNN ran for each of ResNet-20's convolutions in the
-    engine's scope, from its API log: each cudnnBackendExecute's
-    operation, input and filter shapes, engine id and knobs, with the
-    numerical notes cuDNN's heuristics reported for that engine (FFT,
-    TENSOR_CORE, ...); grouped, with the count of executions."""
+    def recorded(t):
+        signs.append((t.detach() > 0).cpu())
+        return relu(t)
+    torch.relu = recorded
     try:
-        out, err = job.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        job.kill()
-        job.communicate()
-        return {"error": f"the logged child ran past {timeout_s:g} s"}
-    if job.returncode != 0 or not CUDNN_LOG.exists():
-        return {"error": f"the logged child failed ({job.returncode}): "
-                         f"{err.strip()[-400:]}"}
-    text = CUDNN_LOG.read_text(errors="replace")
-    CUDNN_LOG.unlink()
-    notes: dict = {}
-    ops = {"CONVOLUTION_FORWARD": "forward",
-           "CONVOLUTION_BACKWARD_DATA": "backward data",
-           "CONVOLUTION_BACKWARD_FILTER": "backward filter",
-           "CONV_FORWARD": "forward", "CONV_BWD_DATA": "backward data",
-           "CONV_BWD_FILTER": "backward filter"}
-    runs: dict = {}
-    for rec in re.split(r"\n(?=[IWE]! CuDNN)", text):
-        for m in re.finditer(
-                r"OPERATION_(\w+)_DESCRIPTOR:.*?engine_id: type=int; "
-                r"val=(-?\d+);\n(.*?)behaviorNotes", rec, re.S):
-            found = re.findall(r"CUDNN_NUMERICAL_NOTE_(\w+): type=bool; "
-                               r"val=true", m.group(3))
-            if m.group(1) in ops:
-                notes.setdefault((ops[m.group(1)], m.group(2)),
-                                 set()).update(found)
-        if "cudnnBackendExecuteInternal() called" not in rec:
-            continue
-        op = re.search(r"operation: type=internalType; val=(\w+)", rec)
-        eng = re.search(r"engine_id: type=int; val=(-?\d+)", rec)
-        if op is None or eng is None or op.group(1) not in ops:
-            continue
-        dims = re.findall(r"dimA: type=int; val=\[([\d,]+)\]", rec)
-        knobs = re.findall(r"CUDNN_KNOB_TYPE_(\w+): type=int; val=(-?\d+)",
-                           rec)
-        key = (ops[op.group(1)], eng.group(1),
-               ",".join(f"{k}={v}" for k, v in knobs), dims[0] if dims
-               else "", dims[1] if len(dims) > 1 else "")
-        runs[key] = runs.get(key, 0) + 1
-    rows = [{"op": op, "engine": int(eng), "knobs": knobs, "x": x, "w": w,
-             "executions": n,
-             "numerical_notes": sorted(notes.get((op, eng), ()))}
-            for (op, eng, knobs, x, w), n in sorted(runs.items())]
-    fft = sorted({f"{r['op']} engine {r['engine']}" for r in rows
-                  if "FFT" in r["numerical_notes"]})
-    return {"cudnn": out.strip(), "convolutions": rows,
-            "fft_engines": fft, "fft_executions": sum(
-                r["executions"] for r in rows
-                if "FFT" in r["numerical_notes"])}
+        with ctx():
+            loss = make_loss_fn(apply)(unflatten(params, ps),
+                                       x.to(d, dtype), y.to(d))
+            g = torch.autograd.grad(loss, ps)
+    finally:
+        torch.relu = relu
+    return torch.cat([t.reshape(-1).double().cpu() for t in g]), signs
 
 
-def resnet_grad_accuracy(dev, cudnn_job=None) -> dict:
+def resnet_grad_accuracy(dev) -> dict:
     """ResNet-20's gradient on a CIFAR-shaped batch of 32 and LeNet's on an
     MNIST-shaped one against fp64 references taken on the CPU, as relative
     L2: under the engine's scope (exact_fp32: fp32, cuDNN's deterministic
@@ -1876,13 +1800,10 @@ def resnet_grad_accuracy(dev, cudnn_job=None) -> dict:
     Beside each, the ReLUs whose input took the other sign than in fp64
     (a kink flip zeroes or keeps a gradient element outright, and sets the
     reading: one flip among ~500,000 activations reads ~1e-4 to 1e-3 on
-    any path; scripts/conv_scope_probe.py over six batches). With
-    `cudnn_job` (`start_cudnn_log`), also the engines cuDNN ran for each
-    convolution (`cudnn_engines`)."""
+    any path; scripts/conv_scope_probe.py over six batches)."""
     import contextlib
     from repro_torch.device import exact_fp32
     from repro_torch.models import cnn
-    from repro_torch.tree import leaves, unflatten
 
     def batch(shape):
         rng = np.random.default_rng(0)
@@ -1898,23 +1819,7 @@ def resnet_grad_accuracy(dev, cudnn_job=None) -> dict:
                    *batch((32, 28, 28, 1)))}
 
     def grad(model, d, dtype, ctx):
-        """(gradient as fp64 on the CPU, the ReLUs' input signs)."""
-        params, apply, x, y = models[model]
-        ps = [t.to(d, dtype).requires_grad_(True) for t in leaves(params)]
-        signs, relu = [], torch.relu
-
-        def recorded(t):
-            signs.append((t.detach() > 0).cpu())
-            return relu(t)
-        torch.relu = recorded
-        try:
-            with ctx():
-                loss = make_loss_fn(apply)(unflatten(params, ps),
-                                           x.to(d, dtype), y.to(d))
-                g = torch.autograd.grad(loss, ps)
-        finally:
-            torch.relu = relu
-        return torch.cat([t.reshape(-1).double().cpu() for t in g]), signs
+        return grad_and_relu_signs(*models[model], d, dtype, ctx)
 
     @contextlib.contextmanager
     def native():
@@ -1949,16 +1854,13 @@ def resnet_grad_accuracy(dev, cudnn_job=None) -> dict:
             rel[model + name] = float((g - g64).norm() / g64.norm())
             rel[model + name + "_relu_flips"] = sum(
                 int((a != b).sum()) for a, b in zip(signs, s64))
-    if cudnn_job is not None:
-        rel["cudnn_engines"] = cudnn_engines(cudnn_job)
     return rel
 
 
-def cifar_phase(dev, card, cudnn_job=None):
+def cifar_phase(dev, card):
     """First ResNet-20's and LeNet's gradients against fp64
     (`resnet_grad_accuracy`: within 1e-3 relative L2 under the engine's
-    scope, TF32 outside it above; the engines cuDNN's deterministic mode
-    runs, from its API log). Then spec C through
+    scope, TF32 outside it above). Then spec C through
     repro_torch.api: FedSGD over 50 rounds, FedProx (E = 2) and FedAvg at
     E = 3 over 10 and FedDyn (E = 2) over 12, each three ways ("auto": 32-round
     blocks on CUDA graphs, one round a dispatch, the reference backend).
@@ -1969,7 +1871,7 @@ def cifar_phase(dev, card, cudnn_job=None):
     batch; kernels 2, 3 and 4 launch once a round on both packed runs
     (the masks: kernel 2 or, where a round's clients have different
     lambdas, kernel 1). Then the
-    steady 2-round windows of FedSGD and FedDyn, blocked and per round,
+    steady 4-round windows of FedSGD and FedDyn, blocked and per round,
     and kill after round 10's checkpoint of the blocked FedDyn run and
     `resume_from_checkpoint`: bit for bit, h included. Returns (problems,
     launches of each packed run)."""
@@ -1979,12 +1881,11 @@ def cifar_phase(dev, card, cudnn_job=None):
     # the phase's wall by part, host clock (where its time goes)
     parts = {}
     t = time.perf_counter()
-    acc = resnet_grad_accuracy(dev, cudnn_job)
+    acc = resnet_grad_accuracy(dev)
     parts["grad_accuracy"] = time.perf_counter() - t
     print(json.dumps({"resnet20_grad_rel_l2_vs_fp64": acc, "card": card}))
-    engines = acc.get("cudnn_engines", {})
     if not (acc["cuda_scoped"] < 1e-3 < acc["cuda_tf32_unscoped"]
-            and acc["lenet_cuda_scoped"] < 1e-3) or "error" in engines:
+            and acc["lenet_cuda_scoped"] < 1e-3):
         problems.append(f"ResNet-20's and LeNet's gradients against fp64: "
                         f"{acc}")
     t = time.perf_counter()
@@ -2491,17 +2392,15 @@ def sweep_phase(dev, card):
 SEC5_PATHS = ("fixed_pruning", "fixed_selection")
 SEC5_KERNELS = ("importance_mask_batched", "importance_mask_2d",
                 "fedsgd_aggregate_weighted", "exponent_histogram")
-SEC5_CHAOS_ROUNDS = 21                     # rounds 0..20
-SEC5_CHAOS_SCALE = float(np.float32(1 + 2 ** -22))
 
 
 def sec5_module():
-    """examples/torch_feel_paper_reproduction.py: the matrix, the records
-    and the JAX reference's reader."""
+    """scripts/sec5_records.py: the matrix, the records and the JAX
+    reference's reader."""
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
-                           / "examples"))
-    import torch_feel_paper_reproduction as sec5
-    return sec5
+                           / "scripts"))
+    import sec5_records
+    return sec5_records
 
 
 def sec5_phase(dev, card):
@@ -2518,6 +2417,7 @@ def sec5_phase(dev, card):
     for bit (parameters, v as values, history). Prints the seed-0 table
     beside JAX's seed 0 and JAX's 8-seed mean. Returns (problems,
     {scheme: launches})."""
+    import repro_torch.api as api
     from repro_torch.api import (Experiment, RunSink, build_environment,
                                  run_sweep)
     sec5 = sec5_module()
@@ -2546,7 +2446,7 @@ def sec5_phase(dev, card):
                               "graph_replays": tr.engine.graph_replays}
             pm.reset_launches()
 
-    sweep = sec5.sec5_sweep([0])
+    sweep = sec5.sec5_sweep(api, [0])
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = run_sweep(sweep, sink=CellSink(), callbacks=[grab], device=dev)
@@ -2613,33 +2513,6 @@ def sec5_phase(dev, card):
             if [[getattr(m, k) for k in keys] for m in blocked.history] != \
                     [[getattr(m, k) for k in keys] for m in out.history]:
                 problems.append(f"Sec. V {name}: blocked history != {path}")
-
-    # the chaos on the card: fixed_selection from seed 0's weights times
-    # (1 + 2^-22), blocked, to round SEC5_CHAOS_ROUNDS - 1, against the
-    # sweep's seed-0 run (tests/test_torch_paper_sec5.py pins it on the CPU)
-    cell = next(c for c in res.cells
-                if c.spec.scheme.name == "fixed_selection")
-    base = res.results[res.cells.index(cell)].history
-    spec = dataclasses.replace(cell.spec, run=dataclasses.replace(
-        cell.spec.run, evaluate=False))
-    run = Experiment(spec).build(env=env)
-    n = SEC5_CHAOS_ROUNDS
-    run.schedule = dataclasses.replace(
-        run.schedule, a=run.schedule.a[:n], lam=run.schedule.lam[:n],
-        power=run.schedule.power[:n], freq=run.schedule.freq[:n])
-    scale = torch.tensor(SEC5_CHAOS_SCALE, dtype=torch.float32, device=dev)
-    run.trainer.reset({k: v * scale for k, v in env.init_fn(
-        torch.Generator().manual_seed(0), device=dev).items()}, 0)
-    chaos = [abs(a.train_loss - b.train_loss) / abs(b.train_loss)
-             for a, b in zip(run.run().history, base)]
-    print(json.dumps({"sec5_chaos": "fixed_selection, seed 0's weights x "
-                      "(1 + 2^-22) against seed 0, blocked",
-                      "card": card, "train_loss_rel_diff": chaos}))
-    # before a mask flips the runs differ by float noise (up to ~1e-6
-    # relative on the CPU at round 4); a flip moves the loss ~1e-3
-    if len(chaos) != n or not max(chaos[:5]) <= 1e-5:
-        problems.append(f"Sec. V: rounds 0-4 from the scaled weights "
-                        f"differ from seed 0's past 1e-5 ({chaos[:5]})")
 
     # the seed-0 table beside JAX's seed 0 and JAX's 8-seed mean
     rows = {}
@@ -5304,9 +5177,6 @@ def main() -> int:
     # the softcapped rows' library calls compile beside the federated
     # phases, in a child process that fills the compile caches
     flex_warm = start_flex_warmup()
-    # cuDNN's engines for ResNet-20, named from its API log in a child
-    # that runs beside the federated phases (read in spec C's phase)
-    cudnn_job = start_cudnn_log()
 
     # the pruned-FedSGD path, packed backend: counts from this run only
     t = time.perf_counter()
@@ -5396,7 +5266,7 @@ def main() -> int:
     print(json.dumps({"phase_wall_s": {"sec5_comparison":
                                        walls["sec5_comparison"]}}))
     t = time.perf_counter()
-    cifar_problems, cifar_launches, _ = cifar_phase(dev, card, cudnn_job)
+    cifar_problems, cifar_launches, _ = cifar_phase(dev, card)
     problems += cifar_problems
     walls["cifar10_resnet20"] = time.perf_counter() - t
     print(json.dumps({"phase_wall_s": {"cifar10_resnet20":

@@ -1,5 +1,6 @@
 """ResNet-20's gradient against fp64, and spec C's ms a round, on cuDNN's
-deterministic engines and on torch's native convolution, in one process.
+deterministic engines and on torch's native convolution, in one process;
+and the engines cuDNN runs for each convolution, from its API log.
 
     python3 scripts/conv_scope_probe.py [--rounds 16] [--batches 6] [--out chiprun_out/conv_scope.json]
 
@@ -16,19 +17,26 @@ other sign than in fp64 (a kink flip). Then it times spec C
 graphs, one round a dispatch, the reference backend), in the order cudnn,
 native, native, cudnn: ms a round on the host clock with the card
 synchronised, evaluation off; the blocked path's first run captures its
-graph, the second, timed, replays it. Needs a CUDA card.
+graph, the second, timed, replays it. Beside them a child process runs
+one ResNet-20 forward and backward in the engine's scope with cuDNN's API
+log on, and the script names the engine cuDNN ran for each convolution
+(operation, shapes, engine id, knobs and its numerical notes: FFT,
+TENSOR_CORE, ...). The gradients are chip_smoke.py's
+(`grad_and_relu_signs`). Needs a CUDA card.
 """
 import argparse
 import contextlib
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
@@ -40,9 +48,9 @@ import repro_torch.models.cnn as cnn  # noqa: E402
 from repro_torch.api import (DataSpec, Experiment, ExperimentSpec,  # noqa: E402
                              ModelSpec, RunSpec, SchemeSpec, WirelessSpec,
                              build_environment)
+from chip_smoke import grad_and_relu_signs  # noqa: E402
 from repro_torch.device import exact_fp32  # noqa: E402
-from repro_torch.models import make_loss_fn  # noqa: E402
-from repro_torch.tree import leaves, unflatten  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 
 @contextlib.contextmanager
@@ -59,6 +67,102 @@ def native_scope():
 
 
 SCOPES = {"cudnn": exact_fp32, "native": native_scope}
+
+
+CUDNN_LOG = ROOT / "build" / "cudnn_api.log"
+# one ResNet-20 forward and backward of a CIFAR-shaped batch of 32 in the
+# engine's scope (exact_fp32: cuDNN's deterministic fp32 engines)
+CUDNN_CHILD = r"""
+import sys, numpy as np, torch
+sys.path.insert(0, "src")
+from repro_torch.device import exact_fp32
+from repro_torch.models import cnn, make_loss_fn
+from repro_torch.tree import leaves, unflatten
+torch.use_deterministic_algorithms(True)
+params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cuda")
+rng = np.random.default_rng(0)
+x = torch.as_tensor(rng.normal(size=(32, 32, 32, 3)).astype(np.float32))
+y = torch.as_tensor(rng.integers(0, 10, 32).astype(np.int32))
+ps = [t.requires_grad_(True) for t in leaves(params)]
+with exact_fp32():
+    loss = make_loss_fn(cnn.resnet_apply)(unflatten(params, ps), x.cuda(),
+                                          y.cuda())
+    torch.autograd.grad(loss, ps)
+torch.cuda.synchronize()
+print(torch.backends.cudnn.version())
+"""
+
+
+def start_cudnn_log():
+    """Start a child that runs CUDNN_CHILD with cuDNN's API log on (info
+    level, into CUDNN_LOG); `cudnn_engines` reads it. It runs beside the
+    gradients and the timed runs: with the log on it takes ~20 s."""
+    CUDNN_LOG.parent.mkdir(parents=True, exist_ok=True)
+    CUDNN_LOG.unlink(missing_ok=True)
+    env = {**os.environ, "CUDNN_LOGLEVEL_DBG": "3",
+           "CUDNN_LOGDEST_DBG": str(CUDNN_LOG)}
+    return subprocess.Popen([sys.executable, "-c", CUDNN_CHILD], env=env,
+                            cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def cudnn_engines(job, timeout_s: float = 300.0) -> dict:
+    """The engines cuDNN ran for each of ResNet-20's convolutions in the
+    engine's scope, from its API log: each cudnnBackendExecute's
+    operation, input and filter shapes, engine id and knobs, with the
+    numerical notes cuDNN's heuristics reported for that engine (FFT,
+    TENSOR_CORE, ...); grouped, with the count of executions."""
+    try:
+        out, err = job.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        job.kill()
+        job.communicate()
+        return {"error": f"the logged child ran past {timeout_s:g} s"}
+    if job.returncode != 0 or not CUDNN_LOG.exists():
+        return {"error": f"the logged child failed ({job.returncode}): "
+                         f"{err.strip()[-400:]}"}
+    text = CUDNN_LOG.read_text(errors="replace")
+    CUDNN_LOG.unlink()
+    notes: dict = {}
+    ops = {"CONVOLUTION_FORWARD": "forward",
+           "CONVOLUTION_BACKWARD_DATA": "backward data",
+           "CONVOLUTION_BACKWARD_FILTER": "backward filter",
+           "CONV_FORWARD": "forward", "CONV_BWD_DATA": "backward data",
+           "CONV_BWD_FILTER": "backward filter"}
+    runs: dict = {}
+    for rec in re.split(r"\n(?=[IWE]! CuDNN)", text):
+        for m in re.finditer(
+                r"OPERATION_(\w+)_DESCRIPTOR:.*?engine_id: type=int; "
+                r"val=(-?\d+);\n(.*?)behaviorNotes", rec, re.S):
+            found = re.findall(r"CUDNN_NUMERICAL_NOTE_(\w+): type=bool; "
+                               r"val=true", m.group(3))
+            if m.group(1) in ops:
+                notes.setdefault((ops[m.group(1)], m.group(2)),
+                                 set()).update(found)
+        if "cudnnBackendExecuteInternal() called" not in rec:
+            continue
+        op = re.search(r"operation: type=internalType; val=(\w+)", rec)
+        eng = re.search(r"engine_id: type=int; val=(-?\d+)", rec)
+        if op is None or eng is None or op.group(1) not in ops:
+            continue
+        dims = re.findall(r"dimA: type=int; val=\[([\d,]+)\]", rec)
+        knobs = re.findall(r"CUDNN_KNOB_TYPE_(\w+): type=int; val=(-?\d+)",
+                           rec)
+        key = (ops[op.group(1)], eng.group(1),
+               ",".join(f"{k}={v}" for k, v in knobs), dims[0] if dims
+               else "", dims[1] if len(dims) > 1 else "")
+        runs[key] = runs.get(key, 0) + 1
+    rows = [{"op": op, "engine": int(eng), "knobs": knobs, "x": x, "w": w,
+             "executions": n,
+             "numerical_notes": sorted(notes.get((op, eng), ()))}
+            for (op, eng, knobs, x, w), n in sorted(runs.items())]
+    fft = sorted({f"{r['op']} engine {r['engine']}" for r in rows
+                  if "FFT" in r["numerical_notes"]})
+    return {"cudnn": out.strip(), "convolutions": rows,
+            "fft_engines": fft, "fft_executions": sum(
+                r["executions"] for r in rows
+                if "FFT" in r["numerical_notes"])}
 
 
 def use_scope(name: str) -> None:
@@ -106,21 +210,8 @@ def grad_rows(batches: int) -> list:
     params = cnn.resnet_init(torch.Generator().manual_seed(0), device="cpu")
 
     def grad(x, y, d, dtype, ctx):
-        ps = [t.to(d, dtype).requires_grad_(True) for t in leaves(params)]
-        signs, relu = [], torch.relu
-
-        def recorded(t):
-            signs.append((t.detach() > 0).cpu())
-            return relu(t)
-        torch.relu = recorded
-        try:
-            with ctx():
-                loss = make_loss_fn(cnn.resnet_apply)(
-                    unflatten(params, ps), x.to(d, dtype), y.to(d))
-                g = torch.autograd.grad(loss, ps)
-        finally:
-            torch.relu = relu
-        return torch.cat([t.reshape(-1).double().cpu() for t in g]), signs
+        return grad_and_relu_signs(params, cnn.resnet_apply, x, y, d, dtype,
+                                   ctx)
 
     rows = []
     cpu, dev = torch.device("cpu"), torch.device("cuda")
@@ -160,6 +251,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else "nvidia-smi failed"
     print(card)
+    engines_job = start_cudnn_log()
     out = {"card": card, "gradients": grad_rows(args.batches), "spec_c": []}
     env = build_environment(spec_c(args.rounds), device="cuda")
     for name in ("cudnn", "native", "native", "cudnn"):
@@ -168,6 +260,9 @@ def main() -> int:
                "ms_per_round": time_paths(env, args.rounds)}
         print(json.dumps(row), flush=True)
         out["spec_c"].append(row)
+    out["cudnn_engines"] = cudnn_engines(engines_job)
+    print(json.dumps({"cudnn_engines": out["cudnn_engines"], "card": card}),
+          flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(out, indent=1))

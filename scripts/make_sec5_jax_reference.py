@@ -1,10 +1,10 @@
 """Regenerate the JAX reference of the paper's Sec. V comparison
 (tests/torch_fixtures/sec5_jax.json).
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_sec5_jax_reference.py [--seeds 8]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_sec5_jax_reference.py
 
 Runs the JAX package's sweep service (`repro.api.sweep.run_sweep`) over
-`benchmarks/common.py`'s six SCHEMES x run.seed 0..seeds-1 at
+`benchmarks/common.py`'s six SCHEMES x run.seed 0..7 at
 `examples/feel_paper_reproduction.py`'s settings (ExpConfig's defaults:
 synthetic-mnist, 10 clients, sigma 1, 60 rounds, E0 4 J, T0 40 s,
 evaluation every 25 rounds) on the CPU, and writes a small JSON:
@@ -17,17 +17,15 @@ evaluation every 25 rounds) on the CPU, and writes a small JSON:
     cumulative energy and delay;
   * the JAX version, the command and the wall time.
 
-The schedule does not depend on run.seed (the data and the channel are
-seeded from data.seed and wireless.seed), so it is stored once a scheme
-and checked equal across seeds. The records are those of
-examples/torch_feel_paper_reproduction.py (`collect`), which compares the
-PyTorch port with this file where JAX cannot run, as chip_smoke.py's Sec.
-V phase and tests/test_torch_cuda.py do; tests/test_torch_paper_sec5.py
-checks that it is current. Floats are written by `json` as their
-shortest round-trip repr, so they read back bit for bit. About 320 s on
-an 8-core CPU at 8 seeds.
+The matrix and the records are scripts/sec5_records.py's (`sec5_sweep`
+on `repro.api`'s specs, `collect`), which also compare the PyTorch port
+with this file where JAX cannot run: in
+examples/torch_feel_paper_reproduction.py, chip_smoke.py's Sec. V phase
+and tests/test_torch_cuda.py; tests/test_torch_paper_sec5.py checks that
+the file is current. Floats are written by `json` as their shortest
+round-trip repr, so they read back bit for bit. About 320 s on an 8-core
+CPU.
 """
-import argparse
 import json
 import os
 import platform
@@ -36,35 +34,19 @@ import time
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, ROOT)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-from benchmarks.common import SCHEMES, ExpConfig, spec_from_config  # noqa: E402
-from repro.api import SweepSpec, run_sweep  # noqa: E402
-
-# the records' format is the port example's, which reads this file
-sys.path.insert(0, os.path.join(ROOT, "examples"))
-from torch_feel_paper_reproduction import (  # noqa: E402
-    EVAL_EVERY, LAST_ROUNDS, REFERENCE as OUT, collect)
-
-
-def sec5_sweep(seeds: int) -> SweepSpec:
-    """The matrix: the example's base spec x SCHEMES x run.seed."""
-    base = spec_from_config(ExpConfig(), "proposed", eval_every=EVAL_EVERY)
-    return SweepSpec(base=base, schemes=list(SCHEMES),
-                     seeds=list(range(seeds)))
+import repro.api as api  # noqa: E402
+from sec5_records import (EVAL_EVERY, LAST_ROUNDS, REFERENCE, SEEDS,  # noqa: E402
+                          collect, sec5_sweep)
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seeds", type=int, default=8)
-    ap.add_argument("--out", default=OUT)
-    args = ap.parse_args()
-    sweep = sec5_sweep(args.seeds)
+    sweep = sec5_sweep(api, SEEDS)
     t0 = time.perf_counter()
-    res = run_sweep(sweep, log=lambda msg: print(msg, flush=True))
+    res = api.run_sweep(sweep, log=lambda msg: print(msg, flush=True))
     wall = time.perf_counter() - t0
     if res.errors:
         print(json.dumps(res.errors, indent=1), file=sys.stderr)
@@ -72,18 +54,16 @@ def main() -> int:
     schemes = collect(res.cells, res.results)
     out = {"kind": "sec5_jax_reference",
            "command": ("PYTHONPATH=src JAX_PLATFORMS=cpu python "
-                       "scripts/make_sec5_jax_reference.py "
-                       f"--seeds {args.seeds}"),
+                       "scripts/make_sec5_jax_reference.py"),
            "jax_version": jax.__version__, "numpy_version": np.__version__,
            "python": platform.python_version(),
            "backend": jax.default_backend(), "wall_s": wall,
            "eval_every": EVAL_EVERY, "last_rounds": LAST_ROUNDS,
            "sweep": sweep.to_dict(), "schemes": schemes}
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    with open(REFERENCE, "w") as f:
         json.dump(out, f, separators=(",", ":"), allow_nan=False)
         f.write("\n")
-    print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes) in "
+    print(f"wrote {REFERENCE} ({os.path.getsize(REFERENCE)} bytes) in "
           f"{wall:.1f} s")
     return 0
 

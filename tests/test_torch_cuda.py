@@ -2021,6 +2021,16 @@ def test_train_step_holds_only_its_state(dev):
         step_peak, state, allowance, ref_peak)
 
 
+def _sec5_records():
+    """scripts/sec5_records.py: the Sec. V matrix, records and comparison."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import sec5_records
+    return sec5_records
+
+
 @pytest.mark.cuda
 def test_sec5_distributions_match_jax(dev):
     """The paper's Sec. V comparison on the card: benchmarks/common.py's six
@@ -2037,14 +2047,10 @@ def test_sec5_distributions_match_jax(dev):
     is a draw (tests/test_torch_paper_sec5.py), so only the distributions
     are compared."""
     import json
-    import os
-    import sys
-    from repro_torch.api import run_sweep
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "examples"))
-    import torch_feel_paper_reproduction as sec5
+    import repro_torch.api as api
+    sec5 = _sec5_records()
     reference = sec5.load_reference()
-    res = run_sweep(sec5.sec5_sweep(8), device=dev)
+    res = api.run_sweep(sec5.sec5_sweep(api, sec5.SEEDS), device=dev)
     assert not res.errors, res.errors
     port = sec5.collect(res.cells, res.results)
     cmp = sec5.compare(port, reference)
@@ -2057,3 +2063,39 @@ def test_sec5_distributions_match_jax(dev):
                       if r["ok"] is not True}
                for name, c in cmp["checks"].items()}
     assert not any(outside.values()), outside
+
+
+@pytest.mark.cuda
+def test_sec5_trajectory_is_chaotic_on_the_card(dev):
+    """The Sec. V chaos on the card (tests/test_torch_paper_sec5.py pins it
+    on the CPU): fixed_selection's schedule cut to rounds 0-20, 21-round
+    blocks on CUDA graphs, from seed 0's weights and from them times
+    (1 + 2^-22). Until a keep-mask flips at a near-tie the two runs differ
+    by float noise (1.13e-6 relative at most over rounds 0-4 on an H100);
+    the flip moves the train loss ~1e-3."""
+    import dataclasses
+    import json
+    import repro_torch.api as api
+    sec5 = _sec5_records()
+    spec = sec5.spec_from_config(api, sec5.ExpConfig(), "fixed_selection",
+                                 eval_every=sec5.EVAL_EVERY)
+    spec = dataclasses.replace(spec, run=dataclasses.replace(
+        spec.run, evaluate=False))
+    n = 21
+    runs = []
+    for scale in (1.0, float(np.float32(1 + 2 ** -22))):
+        run = api.Experiment(spec).build(device=dev)
+        s = run.schedule
+        run.schedule = dataclasses.replace(s, a=s.a[:n], lam=s.lam[:n],
+                                           power=s.power[:n],
+                                           freq=s.freq[:n])
+        w = run.env.init_fn(torch.Generator().manual_seed(0), device=dev)
+        run.trainer.reset({k: v * torch.tensor(scale, device=dev)
+                           for k, v in w.items()}, 0)
+        runs.append(run.run().history)
+    d = [abs(a.train_loss - b.train_loss) / abs(b.train_loss)
+         for a, b in zip(*runs)]
+    print(json.dumps({"sec5_chaos_train_loss_rel_diff": d}))
+    assert len(d) == n
+    assert max(d[:5]) <= 1e-5, d[:5]
+    assert d[20] > 1e-4, d
