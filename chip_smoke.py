@@ -15,17 +15,19 @@ Run from the root of a checkout; it needs one CUDA card and `nvcc` (the
 kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
 
   1. set-up: card name and power limit, deterministic cuBLAS, TF32 off,
-     kernel build (timed), and the HGMMA (tensor-core) instructions of
-     each flash-attention (forward and backward) and SSD-chunk function in
-     the built library's SASS (cuobjdump runs beside the later phases and
-     is read before the result line): the run fails if a bf16 (wgmma)
-     instantiation has none, or if one of the six wgmma kernels (kernel
-     8, the backward's dk/dv and dq at D 64 / 128 and at D 256, where
-     the two warpgroups of a block split D, the SSD chunk) is missing;
-     ptxas's
-     registers, spills and stack
-     frames of the LM kernels and of the round's mask, histogram,
-     aggregate and masked-update kernels (every instantiation);
+     kernel build (timed), and the HGMMA (tensor-core) and UTMALDG (TMA
+     load) instructions of each flash-attention (forward and backward) and
+     SSD-chunk function in the built library's SASS (cuobjdump runs beside
+     the later phases and is read before the result line): the run fails
+     if a bf16 tensor-core instantiation has no HGMMA, a TMA-fed one (kernel
+     8 at D 64 / 128, the SSD chunk) no UTMALDG, or one of the seven
+     tensor-core kernels (kernel 8's warp-specialised one at D 64 / 128 and
+     its D 256 one, the backward's dk/dv and dq at D 64 / 128 and at D 256,
+     where the two warpgroups of a block split D, the SSD chunk) is
+     missing; ptxas's registers, spills and stack frames of the LM kernels
+     and of the round's mask, histogram, aggregate and masked-update
+     kernels (every instantiation), and where it serialized a kernel's
+     wgmma instructions;
   2. every kernel against its plain PyTorch version at the main paths'
      shapes (LeNet packed: R = 1024; C in {1, 3, 8} for the round's masks,
      every C from 1 to 33 for the weighted aggregate, with zero-weight
@@ -159,7 +161,7 @@ kernels are built from src/repro_torch/kernels/csrc at first use). Phases:
      softcap in its bend, globally and under a window of 256 that masks
      keys (each branch must change the result), at whisper's heads (12/12
      of 64, g = 1), llama-vision's (64/8 of 128, g = 8) and arctic's 1024
-     bucket (56/8 of 128, g = 7: one warpgroup a block), decode
+     bucket (56/8 of 128, g = 7), decode
      attention with
      ragged positions at granite's and gemma2's cache shapes, the SSD chunk
      at mamba2's shapes; times, bounds and the library call
@@ -371,6 +373,7 @@ from repro_torch.core.round_engine import (  # noqa: E402
     kth_smallest_threshold, replay_shard_mean)
 from repro_torch.data import make_dataset, partition_by_dirichlet  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pruning_mask as pm  # noqa: E402
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
@@ -526,25 +529,34 @@ ROUND_PTXAS = ("importance_mask", "exponent_histogram", "fedsgd_aggregate",
 def ptxas_report(prefixes) -> dict:
     """Registers, spill bytes and stack frame of each kernel instantiation
     whose name starts with one of `prefixes`, from the ptxas report the
-    build keeps beside the library."""
+    build keeps beside the library, and `wgmma_serialized` where ptxas says
+    (C7515) that it serialized the kernel's wgmma instructions."""
     path = _build.ptxas_report_path()
     if not path.exists():
         return {"ptxas": "not measured: no report beside the library"}
     pattern = (r"(?<=\d)((?:" + "|".join(prefixes)
                + r")\w*?kernel)(?:I(.*?)EEv|E)")
+
+    def instance(mangled):
+        kern = re.search(pattern, mangled)
+        if not kern:
+            return None
+        args = kern.group(2) or ""
+        dtype = "bf16" if "bfloat16" in args else "fp32" \
+            if args.startswith("f") else ""
+        return _instance(kern.group(1),
+                         [dtype, *re.findall(r"Li(\d+)E", args)])
+
     out, name = {}, None
     for line in path.read_text().splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
-            kern = re.search(pattern, head.group(1))
-            name = None
-            if kern:
-                args = kern.group(2) or ""
-                dtype = "bf16" if "bfloat16" in args else "fp32" \
-                    if args.startswith("f") else ""
-                name = _instance(kern.group(1),
-                                 [dtype, *re.findall(r"Li(\d+)E", args)])
+            name = instance(head.group(1))
             continue
+        serial = re.search(r"\(C7515\).*in the function '(\S+)'", line)
+        if serial and instance(serial.group(1)):
+            out.setdefault(instance(serial.group(1)),
+                           {})["wgmma_serialized"] = True
         if name and "spill stores" in line:
             out.setdefault(name, {})["spill_store_bytes"] = int(
                 re.search(r"(\d+) bytes spill stores", line).group(1))
@@ -557,9 +569,10 @@ def ptxas_report(prefixes) -> dict:
 
 
 def sass_hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in each flash_attention, flash_bwd
-    (attention backward) and ssd_chunk function of the built kernel
-    library, from `cuobjdump --dump-sass`."""
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each
+    flash_attention, flash_bwd (attention backward) and ssd_chunk function
+    of the built kernel library, from `cuobjdump --dump-sass`: {name:
+    {"HGMMA": n, "UTMALDG": n}}."""
     tool = shutil.which("cuobjdump") or str(
         pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
         / "bin" / "cuobjdump")
@@ -580,28 +593,37 @@ def sass_hgmma_counts() -> dict:
                 if "kernelIf" in mangled:
                     targs = ["float", *targs]
                 name = _instance(kern.group(1), targs)
-                counts[name] = 0
-        elif name is not None and "HGMMA" in line:
-            counts[name] += 1
+                counts[name] = {"HGMMA": 0, "UTMALDG": 0}
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                if op in line:
+                    counts[name][op] += 1
     return counts
 
 
-def hgmma_problems(hgmma) -> list:
-    """Prints sass_hgmma_counts()'s result; a problem when a bf16 wgmma
-    kernel is missing (kernel 8's, the backward's of every head dim as
-    BWD_WGMMA names them, the SSD chunk's) or one has no HGMMA
-    instruction."""
-    print(json.dumps({"sass_hgmma": hgmma}))
-    wgmma_fns = [k for k in hgmma if "wgmma" in k]
-    expected = ("flash_attention_wgmma_kernel",
+# kernels whose tiles come in by TMA: UTMALDG in their SASS
+TMA_KERNELS = ("flash_attention_ws_kernel", "ssd_chunk_wgmma_kernel")
+
+
+def hgmma_problems(sass) -> list:
+    """Prints sass_hgmma_counts()'s result; a problem when a bf16 tensor-core
+    kernel is missing (kernel 8's at D 64 / 128 and at D 256, the
+    backward's of every head dim as BWD_WGMMA names them, the SSD chunk's),
+    one has no HGMMA instruction, or a TMA-fed one (TMA_KERNELS) has no
+    UTMALDG."""
+    print(json.dumps({"sass": sass}))
+    wgmma_fns = [k for k in sass if "wgmma" in k or k.startswith(TMA_KERNELS)]
+    expected = (*sorted(set(fa.BF16_KERNELS.values())),
                 *sorted({kern for pair in BWD_WGMMA.values()
                          for kern in pair}),
                 "ssd_chunk_wgmma_kernel")
     missing = [kern for kern in expected
                if not any(k.startswith(kern) for k in wgmma_fns)]
-    if missing or not all(hgmma[k] > 0 for k in wgmma_fns):
-        return [f"a bf16 wgmma kernel is missing ({missing}) or has no "
-                f"HGMMA instruction ({hgmma})"]
+    if missing or not all(sass[k]["HGMMA"] > 0 for k in wgmma_fns) or \
+            not all(sass[k]["UTMALDG"] > 0 for k in wgmma_fns
+                    if k.startswith(TMA_KERNELS)):
+        return [f"a bf16 tensor-core kernel is missing ({missing}), has no "
+                f"HGMMA instruction or, fed by TMA, no UTMALDG ({sass})"]
     return []
 
 
@@ -2923,10 +2945,11 @@ LM_SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.c
                   "src/repro_torch/kernels/csrc/decode_attention.cu",
               "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
 # the kernels each LM wrapper launches (names as in the device trace): the
-# flash and SSD wrappers take the wgmma kernel for bf16 and the CUDA-core
-# kernel for fp32
-LM_SYMBOLS = {"flash_attention": ("flash_attention_kernel",
-                                  "flash_attention_wgmma_kernel"),
+# flash wrapper takes the kernel of fa.BF16_KERNELS for bf16 (warp-
+# specialised at D 64 / 128, wgmma at 256), the SSD wrapper its wgmma
+# kernel, and both the CUDA-core kernel for fp32
+LM_SYMBOLS = {"flash_attention": (fa.CORE_KERNEL,
+                                  *sorted(set(fa.BF16_KERNELS.values()))),
               "flash_attention_bwd": ("flash_bwd_",),
               "decode_attention": ("decode_attention_kernel",),
               "ssd_chunk": ("ssd_chunk_kernel", "ssd_chunk_wgmma_kernel")}
@@ -3002,8 +3025,8 @@ QWEN = dict(GRANITE, arch="qwen2.5-3b", layers=4, bias_check=True)
 # embedding and head), 2 of its 48 layers, granite's traffic
 YI = dict(GRANITE, arch="yi-9b", layers=2)
 # arctic-480b at full width on one of its 35 layers (128 experts, top-2,
-# the dense residual MLP, 56/8 heads of 128: g = 7, kernel 8's
-# one-warpgroup layout at D 128; 1.41e10 parameters, 28.1 GB of bf16),
+# the dense residual MLP, 56/8 heads of 128: g = 7; 1.41e10 parameters,
+# 28.1 GB of bf16),
 # granite's traffic on padded buckets as mixtral's. Its fp32 gate runs
 # last, on the served model drawn again in fp32 in place of the served tree
 # (fp32_redraw, `_fp32_redrawn`: a 56.3 GB fp32 copy beside the bf16
@@ -3104,13 +3127,12 @@ def lm_kernel_phase(dev, card):
     prefill buckets, gemma2's head dim 256 with its softcap (global and
     local layer), whisper's 512 bucket (12/12 heads of 64, g = 1),
     llama-vision's 1024 bucket (64/8 heads of 128, g = 8) and arctic's
-    (56/8 heads of 128, g = 7: one warpgroup a block), decode
+    (56/8 heads of 128, g = 7), decode
     attention at granite's [8, 2048, 8, 64] and gemma2's head dim with
     ragged positions, the SSD chunk at mamba2's. Returns (problems, the
     flash timing rows by shape label)."""
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
     rng = np.random.default_rng(0)
     problems = []
@@ -3132,7 +3154,7 @@ def lm_kernel_phase(dev, card):
             **GEMMA2_FLASH_ROWS,
             "whisper S512": (512, 12, 12, 64, 0, 0.0, 1.0),
             "llama-vision S1024": (1024, 64, 8, 128, 0, 0.0, 1.0),
-            # arctic's served bucket: g = 7 takes the one-warpgroup layout
+            # arctic's served bucket, g = 7
             "arctic S1024": (1024, 56, 8, 128, 0, 0.0, 1.0)}.items():
         q, k, v = rand((1, hq, s, d), q_scale), rand((1, hkv, s, d)), \
             rand((1, hkv, s, d))
@@ -3166,11 +3188,8 @@ def lm_kernel_phase(dev, card):
             LM_SYMBOLS["flash_attention"], nbytes,
             4 * d * hq * causal_pairs(s, window), card, library_call=lib,
             shape=label, **lib_row)
-        syms = flash_rows[label]["device_symbols"]
-        if syms and not all("flash_attention_wgmma_kernel" in x
-                            for x in syms):
-            problems.append(f"flash_attention {label}: bf16 device time "
-                            f"from {syms}, not the wgmma kernel")
+        problems += fwd_symbol_problems(f"flash_attention {label}",
+                                        flash_rows[label], d)
 
     # decode: ragged positions, 0 and the full cache included
     for label, (hq, hkv, d) in {"granite": (32, 8, 64),
@@ -3574,7 +3593,6 @@ def prefill_logits_check(params, cfg, eng, prompt, dev, c):
     of it in fp32), and the bf16 kernel path's logits with another memory
     (the next numpy seed) must differ from them by more than
     c["memory_rel_l2"]. Returns (problems, row)."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     from repro_torch.models import transformer as T
     from repro_torch.models.blocks import Runtime
@@ -4337,7 +4355,6 @@ def train_kernel_rows(captured, card, smi, name):
     fed dO one position late (a planted fault) must break that limit in
     each of the three."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     (q, k, v, o, lse), do, (causal, window, cap) = captured
     q, k, v, o, lse, do = (t.detach() for t in (q, k, v, o, lse, do))
@@ -4433,9 +4450,21 @@ def train_kernel_rows(captured, card, smi, name):
            {**flex_row, "library": f"{flex_row['library']}, forward + "
                                    "backward"}),
         nvidia_smi=smi)
+    problems += fwd_symbol_problems(f"{name}: flash_attention (lse) on layer "
+                                    "0's training inputs", fwd, d)
     problems += bwd_symbol_problems(f"{name}: flash_attention_bwd on layer "
                                     "0's training inputs", bwd, d)
     return problems, fwd, bwd
+
+
+def fwd_symbol_problems(label, row, d) -> list:
+    """A problem unless the device trace of a bf16 kernel-8 row shows only
+    the kernel of its head dim (fa.BF16_KERNELS)."""
+    syms = row["device_symbols"]
+    if syms and not all(f"{fa.BF16_KERNELS[d]}<" in x for x in syms):
+        return [f"{label}: bf16 device time from {list(syms)}, not "
+                f"{fa.BF16_KERNELS[d]}"]
+    return []
 
 
 def bwd_symbol_problems(label, row, d) -> list:
@@ -4506,7 +4535,6 @@ def d256_bwd_row(dev, card, smi, window):
     that, a rerun bit for bit, timed beside its bound and its device
     symbols those kernels'; the library call is flex_attention on the same
     inputs (flex_library: forward and backward, and backward alone)."""
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
     c = GEMMA2_BWD
     b, s, hq, hkv, d = c["b"], c["s"], c["hq"], c["hkv"], c["d"]

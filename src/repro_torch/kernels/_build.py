@@ -22,7 +22,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(_CSRC / name for name in (
     "pruning_mask.cu", "flash_attention.cu", "flash_attention_bwd.cu",
     "decode_attention.cu", "ssd_chunk.cu"))
-HEADERS = (_CSRC / "common.cuh", _CSRC / "wgmma.cuh")
+HEADERS = (_CSRC / "common.cuh", _CSRC / "tma.cuh", _CSRC / "wgmma.cuh")
 # No --use_fast_math and no -ftz: the kernels pin their own rounding with
 # __fmul_rn/__fadd_rn/__fsub_rn and flush denormals explicitly where the
 # reference does. -Xptxas -v reports each kernel's registers and spills,
@@ -51,11 +51,11 @@ _SIGNATURES = {
     # grads, cw, n_clients, n, out, keys (scratch for C > 32), stream
     "client_rank_sort": (_P, _P, ctypes.c_int, ctypes.c_longlong, _P, _P,
                          _P),
-    # q, k, v, o, lse (or null), dims[6], strides[12], is_bf16, causal,
-    # window, cap, scale, stream
-    "flash_attention": (_P, _P, _P, _P, _P, _I64S, _I64S, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                        ctypes.c_float, _P),
+    # q, k, v, o, lse (or null), dims[6], strides[12], maps[33] (or
+    # null), is_bf16, causal, window, cap, scale, stream
+    "flash_attention": (_P, _P, _P, _P, _P, _I64S, _I64S, _I64S,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_float, ctypes.c_float, _P),
     # q, k, v, o, dO, lse, delta, dq, dk, dv, dims[6], strides[24],
     # is_bf16, causal, window, cap, scale, stream
     "flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64S,

@@ -63,10 +63,8 @@
 // the model's views of one [B, S, d_inner + 2N] tensor are read in place.
 // The bf16 kernel needs 16-byte aligned rows (the wrapper checks).
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -223,38 +221,11 @@ size_t wgmma_smem_bytes(int q, int n, int p) {
   return 1024 + 4 * qp * (round64(n) + 64) + 2 * sizeof(float) * qp + 8;
 }
 
-// The tiles come in by TMA: one thread asks for each 64-column panel of C,
-// B and X as a box of [QP rows][64] bf16, which the copy engine writes in
-// the 128-byte swizzle and zero-fills past Q rows and past N or P columns;
-// the panels complete one transaction barrier in shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
-                                         int c0, int c1, int c2, int c3,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(bar),
-      "r"(phase)
-      : "memory");
-}
-
+// The tiles come in by TMA (tma.cuh): one thread asks for each 64-column
+// panel of C, B and X as a box of [QP rows][64] bf16, which the copy
+// engine writes in the 128-byte swizzle and zero-fills past Q rows and past
+// N or P columns; the panels complete one transaction barrier in shared
+// memory.
 // tm_c, tm_b: C and B as [batch][Q][1][N] (a unit dim gives the three
 // maps one rank); tm_x: X as [batch][Q][H][P]; boxes of [QP][64]
 __global__ void __launch_bounds__(kWG * kMaxWG, 1)
@@ -285,7 +256,8 @@ __global__ void __launch_bounds__(kWG * kMaxWG, 1)
   const float* dt = a.dt + bb * a.dts[0] + hh * a.dts[2];
 
   if (tid == 0) {
-    mbar_init(bar);
+    mbar_init(bar, 1);
+    mbar_init_fence();
     mbar_expect_tx(bar, (2 * NPN + 1) * QP * 128);
     for (int j = 0; j < NPN; ++j) {
       tma_load(s_c + j * QP * 128, tm_c, 64 * j, 0, 0, bb, bar);
@@ -456,25 +428,9 @@ __global__ void __launch_bounds__(kWG * kMaxWG, 1)
 // TMA map with boxes of 64 x rows in (d0, d2) and 1 in d1 and d3.
 bool encode_map(CUtensorMap* map, const void* base, const long long (&dims)[4],
                 const long long (&strides)[3], int rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
-                                reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return false;
-  }
-  cuuint64_t gdim[4], gstride[3];
-  for (int i = 0; i < 4; ++i) gdim[i] = static_cast<cuuint64_t>(dims[i]);
-  for (int i = 0; i < 3; ++i) gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), gdim, gstride, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long bytes[3] = {2 * strides[0], 2 * strides[1], 2 * strides[2]};
+  const long long box[4] = {64, 1, rows, 1};
+  return encode_tma_map(map, base, dims, bytes, box);
 }
 
 int launch_bf16(const SsdArgs& a, int batch, cudaStream_t stream) {

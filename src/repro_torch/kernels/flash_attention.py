@@ -9,10 +9,13 @@ skipped. Kernel layout q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D]; any strides with
 a contiguous last dim are read in place (``ops.flash_attention`` passes the
 model layout [B,S,H,D] as transposed views). D in {64, 128, 256}, fp32 or
 bf16. Source: ``csrc/flash_attention.cu``, which states its bound and
-design. The storage type picks the kernel: bf16 runs both products on the
-tensor cores (``wgmma``, P rounded to bf16 before P V; rows must be
-16-byte aligned), fp32 the exact CUDA-core kernel. With ``lse=True`` both
-also return each row's log-sum-exp m + log(max(l, 1e-20)) as [B,Hq,Sq]
+design. The storage type and head dim pick the kernel: bf16 runs both
+products on the tensor cores (``wgmma``, P rounded to bf16 before P V;
+rows must be 16-byte aligned), at D 64 and 128 in the warp-specialised
+kernel that takes q, k and v by TMA (the maps' geometry is
+`tma_map_geometry`'s), at D 256 in the cp.async one; fp32 runs the exact
+CUDA-core kernel. With ``lse=True`` every kernel
+also returns each row's log-sum-exp m + log(max(l, 1e-20)) as [B,Hq,Sq]
 fp32, the forward of the training path (models/flash_vjp.py), whose
 backward is ``kernels/flash_attention_bwd.py``; o is the same either way.
 That path's plain version is `flash_vjp_plain_fwd`, the line-for-line
@@ -25,6 +28,7 @@ it launches the kernel or raises, and adds one to LAUNCHES.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -34,6 +38,16 @@ from repro_torch.kernels.counters import count_launch
 NEG_INF = -2.0**30
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+# bf16 head dims of the TMA-fed kernel, and the rows of its boxes (a query
+# tile and a key tile)
+TMA_HEAD_DIMS = (64, 128)
+TMA_BOX_ROWS = 128
+# the kernel each bf16 head dim launches (the name in a device trace); fp32
+# takes CORE_KERNEL at every head dim
+BF16_KERNELS = {64: "flash_attention_ws_kernel",
+                128: "flash_attention_ws_kernel",
+                256: "flash_attention_wgmma_kernel"}
+CORE_KERNEL = "flash_attention_kernel"
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=0, cap=0.0):
@@ -162,6 +176,55 @@ def _check_rows_aligned(**tensors) -> None:
             raise ValueError(f"{name}: rows must be 16-byte aligned")
 
 
+def tma_map_geometry(t: torch.Tensor):
+    """The TMA map of a bf16 [B,H,S,D] tensor in the kernel's terms: dims
+    innermost first (D, S, H, B), the byte strides of S, H and B, and the
+    box (64, TMA_BOX_ROWS, 1, 1), one 128-byte swizzled panel of a tile. Any
+    strides with a contiguous last dim, so the model layout's transposed
+    view is read in place. A dim of size 1 is never stepped, and takes the
+    extent of the dims inside it as its stride. Raises on what a map cannot
+    express: a stride that is not a positive multiple of 16 bytes below
+    2^40, an empty dim, D not a multiple of 64."""
+    return _geometry(tuple(t.shape), t.stride(), t.element_size())
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(shape, strides, esize):
+    if len(shape) != 4 or strides[-1] != 1:
+        raise ValueError(f"a TMA map needs a 4-d tensor with a contiguous "
+                         f"last dim, got {shape} strides {strides}")
+    b, h, s, d = shape
+    if min(shape) < 1 or d % 64:
+        raise ValueError(f"a TMA map needs non-empty dims and D a multiple "
+                         f"of 64, got {shape}")
+    out = []
+    inner = d * esize           # the extent of the dims inside the next one
+    for size, stride in ((s, strides[2]), (h, strides[1]), (b, strides[0])):
+        nbytes = stride * esize if size > 1 else inner
+        if nbytes <= 0 or nbytes % 16 or nbytes >= 2**40:
+            raise ValueError(f"a TMA map needs strides that are positive "
+                             f"multiples of 16 bytes below 2^40, got "
+                             f"{nbytes} bytes in {strides}")
+        out.append(nbytes)
+        inner = max(inner, nbytes * size)
+    return (d, s, h, b), tuple(out), (64, TMA_BOX_ROWS, 1, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _maps_arg(dims, strides):
+    """The C entry point's maps argument: q's, k's and v's
+    `tma_map_geometry`, 11 values each, from the wrapper's dims (b, hq, hkv,
+    sq, skv, d) and element strides ((b, h, s) of q, k, v, o), cached: the
+    wrapper's host time bounds the short serving calls."""
+    from repro_torch.kernels import _build
+    b, hq, hkv, sq, skv, d = dims
+    shapes = ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
+    return _build.int64s([
+        x for i, shape in enumerate(shapes)
+        for part in _geometry(shape, (*strides[3 * i:3 * i + 3], 1), 2)
+        for x in part])
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, lse=False):
     """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] -> [B,Hq,Sq,D] in q's type; with
     lse=True, (o, lse [B,Hq,Sq] fp32)."""
@@ -184,12 +247,17 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0, lse=False):
                           device=q.device) if lse else None
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3]]
+    dims = (b, hq, hkv, sq, skv, d)
+    maps = None
+    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+        maps = _maps_arg(dims, tuple(strides))
     with torch.cuda.device(q.device):
         _build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), o.data_ptr(),
                       None if row_lse is None else row_lse.data_ptr(),
-                      _build.int64s((b, hq, hkv, sq, skv, d)),
-                      _build.int64s(strides), int(q.dtype == torch.bfloat16),
+                      _build.int64s(dims),
+                      _build.int64s(strides), maps,
+                      int(q.dtype == torch.bfloat16),
                       int(bool(causal)), int(window), float(cap),
                       1.0 / math.sqrt(d), _build.stream_of(q))
     count_launch("flash_attention")

@@ -29,15 +29,17 @@ models' head dims (64, 128, 256 with gemma2's softcap) and SSD widths
 (mamba2's, hymba's N 16, padded P and N, a ragged chunk, a sequence's
 chunks as batch rows of one launch; two SSD calls agree bit for bit),
 with windows,
-lengths that are no multiple of the flash kernel's 64-row tiles, grids
-that take two warpgroups a block, and decode positions at the split-KV
+lengths that are no multiple of the flash kernels' tiles (64 rows at D
+256; 128 query rows and 128 keys at D 64 and 128), Sq != Skv, and decode
+positions at the split-KV
 kernel's chunk edges, all at 0 or past the cache, over caches split in 8
 or more chunks; two decode calls in a row agree bit for bit (the ticket
 counters reset); and the serving engine runs a reduced model through the
 flash kernel. The training path's attention backward is held to its plain
 version at the same head dims, with windows, caps, GQA and ragged tiles
 (a rerun bit for bit); kernel 8 asked for the rows' log-sum-exp gives the
-same o bit for bit; and a reduced model's loss gradient through both
+same o bit for bit, reruns bit for bit, and runs the kernel of its head
+dim (the device trace); and a reduced model's loss gradient through both
 kernels matches the naive path's.
 """
 import numpy as np
@@ -764,6 +766,23 @@ def _normal(rng, shape, dev, dtype, scale=1.0):
     # qwen's heads, g = 8 over two KV heads
     (1, 1024, 56, 8, 128, True, 0, 0.0),
     (2, 1024, 16, 2, 128, True, 0, 0.0),
+    # the edges of the warp-specialised kernel's 128-row query units and
+    # 128-key tiles at D 64 and 128, over g = 1, 5, 6, 7, 8: a row short of
+    # a tile, one tile, a row past it, ragged lengths, a window edge inside
+    # a key tile, causal False over a ragged last tile, a cap
+    (1, 127, 8, 2, 64, True, 0, 0.0),
+    (1, 128, 8, 1, 128, True, 0, 0.0),
+    (2, 129, 5, 1, 64, True, 0, 0.0),
+    (1, 129, 6, 1, 128, False, 0, 0.0),
+    (1, 439, 7, 1, 128, True, 0, 0.0),
+    (1, 439, 8, 1, 64, False, 0, 0.0),
+    (1, 1000, 8, 8, 128, True, 0, 0.0),
+    (1, 1000, 5, 1, 128, True, 300, 0.0),
+    (1, 640, 6, 1, 64, True, 200, 0.0),
+    (1, 384, 7, 1, 64, True, 0, 30.0),
+    (2, 1000, 6, 1, 128, False, 0, 30.0),
+    # a training shape at B = 1: mixtral's heads over 4,096 tokens
+    (1, 4096, 48, 8, 128, True, 0, 0.0),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                                               causal, window, cap):
@@ -785,6 +804,78 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, hq, hkv, d,
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), **kw)
     _assert_close(kl.transpose(1, 2), plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (300, 439, False, 0),       # more keys than queries, ragged both
+    (439, 129, False, 0),       # fewer keys: units past the last key tile
+    (640, 1000, True, 0),       # causal: keys past the last query unused
+    (1000, 800, True, 256),     # rows past the keys see a window's band
+])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_kernel_cross_lengths(dev, d, sq, skv, causal,
+                                              window):
+    """bf16 kernel 8 at D 64 and 128 with Sq != Skv (the kernel masks on
+    absolute positions, kpos <= qpos and kpos > qpos - window, as the plain
+    version does), o and lse against the plain versions."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(sq + skv + d)
+    q = _normal(rng, (2, 6, sq, d), dev, torch.bfloat16)
+    k, v = (_normal(rng, (2, 2, skv, d), dev, torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, cap=0.0)
+    o, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+    torch.cuda.synchronize()
+    _assert_close(o, fa.flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.reshape(2, 2, 3, sq, d).float(), k.float())
+    s = s / np.sqrt(d)
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    want = torch.logsumexp(torch.where(keep, s, fa.NEG_INF), dim=-1)
+    _assert_close(lse, want.reshape(2, 6, sq), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_rerun_is_bitwise(dev, d):
+    """No atomics, a fixed order of units: two bf16 forward calls on the
+    same inputs give the same o and lse bits."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(d)
+    q, k, v = (_normal(rng, (2, 1000, h, d), dev,
+                       torch.bfloat16).transpose(1, 2) for h in (8, 2, 2))
+    kw = dict(causal=True, window=300, cap=30.0)
+    first = fa.flash_attention(q, k, v, lse=True, **kw)
+    second = fa.flash_attention(q, k, v, lse=True, **kw)
+    for a, b in zip(first, second):
+        assert_bitwise(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_runs_its_head_dims_kernel(dev, d, tmp_path):
+    """A torch.profiler trace of bf16 forward calls (in a fresh process,
+    `_fresh_trace`) holds only the kernel BF16_KERNELS names for the head
+    dim: the warp-specialised TMA kernel at D 64 and 128, the cp.async
+    wgmma kernel at D 256; never the CUDA-core kernel. (The profiler may
+    drop events, so the kernel is asked to show at least once in 10
+    calls.)"""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(d)
+    args = [_normal(rng, (1, 512, h, d), dev, torch.bfloat16).transpose(1, 2)
+            for h in (8, 2, 2)]
+    names = [key for key, _ in _fresh_trace(
+        "repro_torch.kernels.flash_attention:flash_attention", args,
+        dict(causal=True, lse=True), 10, tmp_path)]
+    assert names, "the trace shows no device kernel"
+    assert all(f"{fa.BF16_KERNELS[d]}<" in n for n in names), names
 
 
 BWD_CASES = [
@@ -963,7 +1054,8 @@ def test_flash_attention_bwd_rerun_is_bitwise(dev, dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,hq,hkv,d,window,cap", [
     (1024, 32, 8, 64, 0, 0.0), (384, 16, 8, 256, 128, 50.0),
-    (200, 8, 2, 128, 0, 0.0)])
+    (200, 8, 2, 128, 0, 0.0), (1000, 25, 5, 64, 256, 0.0),
+    (1024, 64, 8, 128, 0, 0.0)])
 def test_flash_attention_lse_leaves_o_unchanged(dev, dtype, s, hq, hkv, d,
                                                 window, cap):
     """Kernel 8 asked for lse gives o bit for bit as without it (the
